@@ -3,27 +3,42 @@
 
     python3 chip_smoke.py [--out build/chip_smoke.json]
 
-Drives the port's main path once at the benchmark's size (32Mi float32
-elements, the bench.py configuration: EC, eb 1e-3, v2 container, DPK ids,
-verify on, monolithic) and checks it. Phases, each printed as one JSON line:
+Drives the port's paths once each at the benchmark's size (32Mi float32
+elements, the bench.py configuration: eb 1e-3, v2 container, DPK ids, verify
+on) and checks them. The paths: EC and QT, each monolithic
+(segment_elems=0) and as the DTZS stream that the default
+segment_elems="auto" writes at this size (two frames of 16Mi), on the bench
+array; EC DTZS is what bench.py measures. QT runs on a second input too,
+the bench array with every 977th sample x30, so that the quantizer table
+has entries > 1. Phases, each printed as one JSON line:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
-  2. build:  the four CUDA kernels compiled from dctz_tpu_torch/csrc
+  2. build:  the CUDA kernels compiled from dctz_tpu_torch/csrc (one nvcc per
+     source, in parallel), with ptxas' registers and spills per kernel
   3. kernels against their plain PyTorch versions on the card, at the main
-     path's shapes: B and C byte-equal, A within 1e-5 of ids, D within
-     32 ulp of sf
-  4. end to end: compress and decompress through the public API on the
-     card, with every kernel's launch counter > 0, the pointwise bound
-     satisfied, the ratio within 0.1% of the plain (CPU) path's, and each
-     path's container decoded by the other within the bound
-  5. times: compress and decompress GB/s (median of warm runs), their
-     split into stages, a torch.profiler pass over one call of each (device
-     busy and idle share), and each kernel's time beside its plain
-     version's (CUDA events)
+     paths' shapes. EC input (the bench array): B and C byte-equal, A within
+     1e-5 of ids, D within 32 ulp of sf. QT input (the bench array with every
+     977th sample x30, so that the qtable has entries > 1): E bit-equal to
+     the clamped maximum over A-EC's own coefficients and within 4 ulp of its
+     plain version, A-QT within 1e-5 of ids and its stored values within the
+     budget below, D-QT within 32 ulp of sf * max|coef| of the block
+  4. end to end, per path: compress and decompress through the public API on
+     the card with the launch counters reset just before and read just after
+     (every kernel of the path > 0), the pointwise bound satisfied, the ratio
+     within 0.1% of the plain (CPU) path's, each path's output decoded by the
+     other within the bound, and a DTZS decode bit-equal to the monolithic
+     decode of the same data
+  5. times, per path: compress and decompress GB/s (median of warm runs) and
+     their split into stages; a torch.profiler pass over one call of each
+     direction of the EC paths (device busy and idle share); one traced run
+     of each direction of the bench-array DTZS paths (the stream's
+     per-segment spans); each kernel's time beside its plain version's
+     (CUDA events) and its bound
 
 Any failed check raises, and the script exits non-zero without a result.
-Without CUDA it exits 2 at once. The last line is the result:
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Without CUDA it exits 2 at once. The line before the last two is the kernel
+table {"kernels": [...]}, then the card's name and power limit, and the last
+line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It imports nothing of jax or of the JAX package.
 """
 
@@ -32,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -41,7 +57,47 @@ N = 1 << 25  # elements: 128 MB of float32, the benchmark's size
 REPS = 3
 A_ID_MISMATCH_MAX = 1e-5
 D_ULPS = 32
+E_ULPS = 4
 RATIO_REL_TOL = 1e-3
+EPS32 = 2.0 ** -23
+PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores (NVIDIA data sheet, H100 SXM)
+PEAK_BYTES = 3.35e12  # bytes/s of HBM3
+
+EC_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
+              "dequant_idct")
+QT_KERNELS = ("qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
+              "dpk_unpack_expand", "dequant_idct_qt")
+#: path name -> (mode, segment_elems, input); each DTZS path follows the
+#: monolithic path of the same mode and input
+PATHS = {
+    "ec": ("ec", 0, "bench"),
+    "ec_dtzs": ("ec", "auto", "bench"),
+    "qt": ("qt", 0, "bench"),
+    "qt_dtzs": ("qt", "auto", "bench"),
+    "qt_x30": ("qt", 0, "x30"),
+    "qt_x30_dtzs": ("qt", "auto", "x30"),
+}
+KERNELS_OF = {"ec": EC_KERNELS, "qt": QT_KERNELS}
+#: the path whose launch counts the kernel table reports (bench.py's
+#: configuration for the EC kernels, its QT twin for the QT ones)
+MAIN_PATH = {k: "ec_dtzs" for k in EC_KERNELS} | {
+    k: "qt_dtzs" for k in QT_KERNELS if k not in EC_KERNELS}
+SOURCES = {
+    "qtable_qmax": ("dctz_tpu_torch/csrc/qtable_qmax.cu",
+                    "dctz_tpu/ops/fused_encode.py:203"),
+    "dct_quant_verify": ("dctz_tpu_torch/csrc/dct_quant_verify.cu",
+                         "dctz_tpu/ops/dpk_fuse.py:782"),
+    "dct_quant_verify_qt": ("dctz_tpu_torch/csrc/dct_quant_verify.cu",
+                            "dctz_tpu/ops/dpk_fuse.py:782"),
+    "dpk_pack_compact": ("dctz_tpu_torch/csrc/dpk_pack_compact.cu",
+                         "dctz_tpu/ops/dpk_fuse.py:782"),
+    "dpk_unpack_expand": ("dctz_tpu_torch/csrc/dpk_unpack_expand.cu",
+                          "dctz_tpu/ops/dpk_fuse.py:1041"),
+    "dequant_idct": ("dctz_tpu_torch/csrc/dequant_idct.cu",
+                     "dctz_tpu/ops/dpk_fuse.py:1041"),
+    "dequant_idct_qt": ("dctz_tpu_torch/csrc/dequant_idct.cu",
+                        "dctz_tpu/ops/dpk_fuse.py:1041"),
+}
 
 
 def emit(phase: str, **kw) -> None:
@@ -90,7 +146,31 @@ def wall_s(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def profile_once(dz, x_np, cfg, blob, card) -> dict:
+def ptxas_table(log: str) -> dict:
+    """Registers, stack and spills per kernel (the QT instantiations of the
+    templated kernels get a _qt suffix) from nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        # mangled: ...<length><name>_kernel[ILb<QT>E]...
+        m = re.search(r"entry function '.*?\d+([a-z_]+)_kernel(ILb([01])E)?", ln)
+        if m:
+            name = m.group(1) + ("_qt" if m.group(3) == "1" else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def profile_once(dz, x_np, cfg, blob, card, path) -> dict:
     """One compress and one decompress under torch.profiler: device busy
     time (kernels plus copies) against wall time, and the top activities."""
     import torch
@@ -120,7 +200,39 @@ def profile_once(dz, x_np, cfg, blob, card) -> dict:
                      "kernel_ms": busy - copies, "copy_ms": copies,
                      "device_idle_share": 1.0 - busy / (wall * 1e3),
                      "top": [{"ms": r[0], "kernel": r[1][:80], "calls": r[2]} for r in rows[:8]]}
-        emit("profile", card=card, op=name, **out[name])
+        emit("profile", card=card, path=path, op=name, **out[name])
+    return out
+
+
+def pipeline_trace(dz, x_np, cfg, blob, card, path) -> dict:
+    """One traced run of each direction of a DTZS path: the per-segment
+    spans of the stream writer ("device", "pull", "pack") and reader
+    ("prep", "device"), in ms from the call's start, and the wall time."""
+    import io
+
+    import torch
+
+    from dctz_tpu_torch import stream
+
+    xd = torch.from_numpy(x_np).to("cuda")  # as compress() hands it over
+    out = {}
+    for op in ("compress", "decompress"):
+        trace: list = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if op == "compress":
+            stream.compress_stream(xd, io.BytesIO(), config=cfg,
+                                   segment_elems=stream.DEFAULT_SEGMENT,
+                                   trace=trace, device="cuda")
+        else:
+            stream.decompress_stream_all(stream.MemReader(blob), trace=trace,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        spans = [{"span": k, "segment": i, "start_ms": (a - t0) * 1e3,
+                  "ms": (b - a) * 1e3} for k, i, a, b in trace]
+        out[op] = {"wall_ms": wall, "spans": spans}
+        emit("pipeline_trace", card=card, path=path, op=op, wall_ms=wall, spans=spans)
     return out
 
 
@@ -133,6 +245,17 @@ def max_abs_diff(pairs) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes: int, flops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the fp32 operations over the fp32 peak."""
+    tb, tf = n_bytes / PEAK_BYTES, flops / PEAK_FP32
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
 def main() -> int:
@@ -172,21 +295,27 @@ def main() -> int:
     # 2. build, from the sources in this checkout
     build.build(force=True)
     build.lib()
-    ptxas = [ln.strip() for ln in build.PTXAS_LOG.read_text().splitlines()
-             if "entry function" in ln or "registers" in ln or "spill" in ln]
+    ptxas = ptxas_table(build.PTXAS_LOG.read_text())
     emit("build", seconds=round(build.last_build_s, 3), library=str(build.LIB_PATH),
          ptxas=ptxas)
+    require(set(SOURCES) <= set(ptxas), f"ptxas reports no kernel of {set(SOURCES) - set(ptxas)}")
     report["build"] = {"seconds": build.last_build_s, "ptxas": ptxas}
 
-    # 3. kernels against their plain versions, at the main path's shapes
-    cfg = dz.CodecConfig(mode="ec", error_bound=1e-3, container="v2",
-                         ids_codec="device", verify=True, segment_elems=0)
+    # 3. kernels against their plain versions, at the main paths' shapes
+    def cfg_of(mode, seg):
+        return dz.CodecConfig(mode=mode, error_bound=1e-3, container="v2",
+                              ids_codec="device", verify=True, segment_elems=seg)
+
+    cfg = cfg_of("ec", 0)
+    cfg_qt = cfg_of("qt", 0)
     x_np = climate_formula_np(N)
+    x_qt_np = x_np.copy()
+    x_qt_np[::977] *= np.float32(30.0)
     n = x_np.size
     dev = torch.device("cuda")
-    x = torch.from_numpy(x_np).to(dev)
     n_pad = n + (-n) % 1024
-    xp = torch.nn.functional.pad(x, (0, n_pad - n))
+    nblk_pad = n_pad // 64
+    xp = torch.nn.functional.pad(torch.from_numpy(x_np).to(dev), (0, n_pad - n))
     sf, _mean = api._stats_device(xp, n, cfg.sf_adj)
     tol = fused_encode.tolerance(xp, n, cfg.error_bound)
     cw = qz.chunk_width(n_pad, 64)
@@ -216,16 +345,22 @@ def main() -> int:
          max_abs_err=err_b, overflow=bool((outs_k[3] > cape_k).any()))
     kernels["dpk_pack_compact"] = {"max_abs_err": err_b}
 
+    def decode_inputs(blob):
+        header, streams, qtable, _cb = ct.parse_v2(blob)
+        (width, rows, exc, dc, ac), (n_stream, _tb, cw_d, hcfg) = api._dpk_decode_prep(
+            header, streams
+        )
+        d_in = [torch.from_numpy(np.require(a, requirements=["C", "W"])).to(dev)
+                for a in (width, rows, exc)]
+        dc_d = api._combine_planes(torch.from_numpy(np.array(dc)).to(dev))
+        ac_d = api._combine_planes(torch.from_numpy(np.array(ac)).to(dev)).contiguous()
+        sf_d = torch.tensor(header.scaling_factor, dtype=torch.float32, device=dev)
+        q_d = (torch.from_numpy(qtable.astype(np.float32)).to(dev)
+               if qtable is not None else None)
+        return header, d_in, dc_d, ac_d, sf_d, q_d, n_stream, cw_d, hcfg, exc, ac
+
     blob0 = dz.compress(x_np, config=cfg, device="cuda")
-    header, streams, _q, _cb = ct.parse_v2(blob0)
-    (width, rows, exc, dc, ac), (n_stream, _tb, cw_d, _cfg) = api._dpk_decode_prep(
-        header, streams
-    )
-    d_in = [torch.from_numpy(np.require(a, requirements=["C", "W"])).to(dev)
-            for a in (width, rows, exc)]
-    dc_d = api._combine_planes(torch.from_numpy(np.array(dc)).to(dev))
-    ac_d = api._combine_planes(torch.from_numpy(np.array(ac)).to(dev)).contiguous()
-    sf_d = torch.tensor(header.scaling_factor, dtype=torch.float32, device=dev)
+    header, d_in, dc_d, ac_d, sf_d, _q, n_stream, cw_d, hdr_cfg, exc, ac = decode_inputs(blob0)
     nblk = -(-n_stream // 64)
     ids_ck, acv_ck = fk.dpk_unpack_expand(*d_in, ac_d, nblk, n_stream, cw_d)
     ids_cp, acv_cp = fk._dpk_unpack_expand_plain(*d_in, ac_d, nblk, n_stream, cw_d)
@@ -238,103 +373,214 @@ def main() -> int:
          max_abs_err=err_c, exc_capacity=exc.shape[1], ac_capacity=ac.shape[-1])
     kernels["dpk_unpack_expand"] = {"max_abs_err": err_c}
 
-    hdr_cfg = api._header_config(header)
     x_dk = fk.dequant_idct(ids_ck, acv_ck, dc_d, sf_d, hdr_cfg, n_stream)
     x_dp = fk._dequant_idct_plain(ids_ck, acv_ck, dc_d, sf_d, hdr_cfg, n_stream)
     torch.cuda.synchronize()
     err_d = (x_dk - x_dp).abs().max().item()
-    lim_d = D_ULPS * 2.0 ** -23 * header.scaling_factor
+    lim_d = D_ULPS * EPS32 * header.scaling_factor
     emit("kernel_check", kernel="dequant_idct", max_abs_err=err_d, limit=lim_d)
     require(err_d <= lim_d, f"D: {err_d} > {lim_d}")
     kernels["dequant_idct"] = {"max_abs_err": err_d}
 
-    # 4. end to end through the public API; the counters count this run only
-    fk.reset_launches()
-    blob = dz.compress(x_np, config=cfg, device="cuda")
-    y = dz.decompress(blob, device="cuda")
-    launches = dict(fk.LAUNCHES)
-    ev = dz.evaluate(x_np, y, cfg.error_bound)
-    ratio = x_np.nbytes / len(blob)
-    emit("end_to_end", n=n, bytes_in=x_np.nbytes, bytes_out=len(blob), ratio=ratio,
-         launches=launches, psnr_db=ev["psnr_db"], max_rel_err=ev["max_rel_err"],
-         bound_satisfied=ev["bound_satisfied"])
-    require(all(v > 0 for v in launches.values()), f"a kernel did not launch: {launches}")
-    require(ev["bound_satisfied"], "pointwise bound violated")
+    # QT input: E, A-QT and D-QT
+    xq = torch.nn.functional.pad(torch.from_numpy(x_qt_np).to(dev), (0, n_pad - n))
+    sf_q, _ = api._stats_device(xq, n, cfg.sf_adj)
+    tol_q = fused_encode.tolerance(xq, n, cfg.error_bound)
+    qt_e = fused_encode.qtable_qmax(xq, sf_q, cfg.error_bound)
+    qt_plain = torch.clamp_min(fused_encode._qtable_qmax_plain(xq, sf_q, cfg_qt), 1.0)
+    _ids_ec, coef_ec, _ok = fk.dct_quant_verify(xq, sf_q, tol_q, n, cfg.error_bound, False)
+    _w, rmin, rmax = qz._geometry(cfg_qt)
+    esc = ~((coef_ec >= rmin) & (coef_ec <= rmax))
+    esc[:, 0] = False
+    qt_from_a = torch.clamp_min(
+        torch.where(esc, coef_ec.abs(), torch.zeros_like(coef_ec)).amax(0), 1.0)
+    torch.cuda.synchronize()
+    e_ulps = ((qt_e - qt_plain).abs() / torch.maximum(qt_e, qt_plain) / EPS32).max().item()
+    err_e = (qt_e - qt_plain).abs().max().item()
+    emit("kernel_check", kernel="qtable_qmax", equal_to_a_ec=bool(torch.equal(qt_e, qt_from_a)),
+         max_ulps_vs_plain=e_ulps, max_abs_err=err_e,
+         entries_above_1=int((qt_e[1:] > 1.0).sum()), qtable_max=qt_e.max().item())
+    require(torch.equal(qt_e, qt_from_a), "E: differs from the maximum over A-EC's coefficients")
+    require(e_ulps <= E_ULPS, f"E: {e_ulps} ulp from the plain version")
+    require(bool((qt_e[1:] > 1.0).any()), "E: the QT input left every entry clamped")
+    kernels["qtable_qmax"] = {"max_abs_err": err_e}
 
-    t0 = time.perf_counter()
-    blob_cpu = dz.compress(x_np, config=cfg, device="cpu")
-    t_cpu_c = time.perf_counter() - t0
-    ratio_cpu = x_np.nbytes / len(blob_cpu)
-    y_gpu_of_cpu = dz.decompress(blob_cpu, device="cuda")
-    t0 = time.perf_counter()
-    y_cpu_of_gpu = dz.decompress(blob, device="cpu")
-    t_cpu_d = time.perf_counter() - t0
-    tolx = cfg.error_bound * float(x_np.max() - x_np.min())
-    e1 = float(np.abs(y_gpu_of_cpu - x_np).max())
-    e2 = float(np.abs(y_cpu_of_gpu - x_np).max())
-    emit("cross_check", ratio_plain=ratio_cpu, ratio_rel_diff=ratio / ratio_cpu - 1.0,
-         gpu_decodes_plain_max_err=e1, plain_decodes_gpu_max_err=e2, bound=tolx,
-         plain_compress_s=t_cpu_c, plain_decompress_s=t_cpu_d)
-    require(abs(ratio / ratio_cpu - 1.0) <= RATIO_REL_TOL, "ratio differs from the plain path")
-    require(e1 <= tolx and e2 <= tolx, "cross decode violates the bound")
-    report["end_to_end"] = {"ratio": ratio, "ratio_plain": ratio_cpu,
-                            "launches": launches, "evaluate": ev}
+    ids_qk, vals_qk, ok_qk = fk.dct_quant_verify(xq, sf_q, tol_q, n, cfg.error_bound,
+                                                 True, qt_e)
+    ids_qp, vals_qp, ok_qp = fk._dct_quant_verify_plain(xq, sf_q, tol_q, n, cfg_qt,
+                                                        True, qt_e)
+    torch.cuda.synchronize()
+    mism_q = (ids_qk != ids_qp).float().mean().item()
+    # the stated budget: coefficients within 32 ulp of the block's max|x/sf|;
+    # a stored escape ((c/q)*eb*qtf + side) within that times eb*qtf/q[k],
+    # plus 4 ulp of the stored value
+    budget = 32 * EPS32 * (xq / sf_q).reshape(-1, 64).abs().amax(1, keepdim=True)
+    same = ids_qk == ids_qp
+    esc_q = same & (ids_qk == 255) & (torch.arange(64, device=dev) > 0)
+    lim = torch.where(esc_q, budget * (cfg.error_bound * cfg_qt.qt_factor) / qt_e
+                      + 4 * EPS32 * vals_qp.abs(), budget.expand_as(vals_qp))
+    over = ((vals_qk - vals_qp).abs() > lim) & same
+    err_aq = (vals_qk - vals_qp).abs()[same].max().item()
+    emit("kernel_check", kernel="dct_quant_verify_qt", id_mismatch=mism_q,
+         ok_kernel=bool(ok_qk), ok_plain=bool(ok_qp), stored_max_abs_err=err_aq,
+         over_budget=int(over.sum()), escapes=int(esc_q.sum()))
+    require(mism_q <= A_ID_MISMATCH_MAX, f"A-QT: id mismatch {mism_q}")
+    require(bool(ok_qk) == bool(ok_qp), "A-QT: ok flags differ")
+    require(not bool(over.any()), "A-QT: stored values outside the budget")
+    kernels["dct_quant_verify_qt"] = {"max_abs_err": err_aq, "id_mismatch": mism_q}
+
+    blob_q0 = dz.compress(x_qt_np, config=cfg_qt, device="cuda")
+    (hq, dq_in, dcq_d, acq_d, sfq_d, q_d, nq_stream, cwq_d, hq_cfg, _e,
+     _a) = decode_inputs(blob_q0)
+    nblk_q = -(-nq_stream // 64)
+    ids_qck, acv_qck = fk.dpk_unpack_expand(*dq_in, acq_d, nblk_q, nq_stream, cwq_d)
+    x_dqk = fk.dequant_idct(ids_qck, acv_qck, dcq_d, sfq_d, hq_cfg, nq_stream, q_d)
+    x_dqp = fk._dequant_idct_plain(ids_qck, acv_qck, dcq_d, sfq_d, hq_cfg, nq_stream, q_d)
+    co_q = qz.decode_dense(ids_qck, dcq_d, acv_qck, nblk_q * 64, hq_cfg, q_d)
+    lim_dq = (D_ULPS * EPS32 * hq.scaling_factor * co_q.abs().amax(1)).repeat_interleave(64)
+    torch.cuda.synchronize()
+    err_dq = (x_dqk - x_dqp).abs().max().item()
+    over_dq = int(((x_dqk - x_dqp).abs() > lim_dq).sum())
+    emit("kernel_check", kernel="dequant_idct_qt", max_abs_err=err_dq,
+         over_budget=over_dq, limit_min=lim_dq.min().item())
+    require(over_dq == 0, f"D-QT: {over_dq} samples beyond 32 ulp of sf*max|coef|")
+    kernels["dequant_idct_qt"] = {"max_abs_err": err_dq}
+
+    # 4. end to end through the public API, one path at a time; the counters
+    # count each path's own run only
+    inputs = {"bench": x_np, "x30": x_qt_np}
+    tolx = {k: cfg.error_bound * float(x.max() - x.min()) for k, x in inputs.items()}
+    launches, blobs, decoded, e2e = {}, {}, {}, {}
+    for path, (mode, seg, inp) in PATHS.items():
+        pcfg = cfg_of(mode, seg)
+        x = inputs[inp]
+        needed = KERNELS_OF[mode]
+        fk.reset_launches()
+        blob = dz.compress(x, config=pcfg, device="cuda")
+        y = dz.decompress(blob, device="cuda")
+        launches[path] = dict(fk.LAUNCHES)
+        blobs[path], decoded[path] = blob, y
+        ev = dz.evaluate(x, y, cfg.error_bound)
+        ratio = x.nbytes / len(blob)
+        dtzs = blob[:4] == b"DTZS"
+        emit("end_to_end", path=path, input=inp, n=n, bytes_in=x.nbytes,
+             bytes_out=len(blob),
+             ratio=ratio, dtzs=dtzs, launches=launches[path], psnr_db=ev["psnr_db"],
+             max_rel_err=ev["max_rel_err"], bound_satisfied=ev["bound_satisfied"])
+        missing = [k for k in needed if launches[path][k] == 0]
+        require(not missing, f"{path}: kernels not launched: {missing}")
+        require(ev["bound_satisfied"], f"{path}: pointwise bound violated")
+        require(dtzs == (seg == "auto"), f"{path}: unexpected container")
+        if dtzs:
+            same_bits = y.tobytes() == decoded[path.removesuffix("_dtzs")].tobytes()
+            emit("dtzs_vs_monolithic", path=path, bit_equal=same_bits)
+            require(same_bits, f"{path}: DTZS decode differs from the monolithic decode")
+
+        t0 = time.perf_counter()
+        blob_cpu = dz.compress(x, config=pcfg, device="cpu")
+        t_cpu_c = time.perf_counter() - t0
+        ratio_cpu = x.nbytes / len(blob_cpu)
+        y_gpu_of_cpu = dz.decompress(blob_cpu, device="cuda")
+        t0 = time.perf_counter()
+        y_cpu_of_gpu = dz.decompress(blob, device="cpu")
+        t_cpu_d = time.perf_counter() - t0
+        e1 = float(np.abs(y_gpu_of_cpu - x).max())
+        e2 = float(np.abs(y_cpu_of_gpu - x).max())
+        emit("cross_check", path=path, ratio_plain=ratio_cpu,
+             ratio_rel_diff=ratio / ratio_cpu - 1.0, gpu_decodes_plain_max_err=e1,
+             plain_decodes_gpu_max_err=e2, bound=tolx[inp],
+             plain_compress_s=t_cpu_c, plain_decompress_s=t_cpu_d)
+        require(abs(ratio / ratio_cpu - 1.0) <= RATIO_REL_TOL,
+                f"{path}: ratio differs from the plain path")
+        require(e1 <= tolx[inp] and e2 <= tolx[inp], f"{path}: cross decode violates the bound")
+        e2e[path] = {"ratio": ratio, "ratio_plain": ratio_cpu, "launches": launches[path],
+                     "evaluate": ev}
+    report["end_to_end"] = e2e
 
     # 5. times (the card's name and power limit go beside every number)
-    t_c = wall_s(lambda: dz.compress(x_np, config=cfg, device="cuda"), REPS)
-    t_d = wall_s(lambda: dz.decompress(blob, device="cuda"), REPS)
-    gbs_c, gbs_d = x_np.nbytes / t_c / 1e9, x_np.nbytes / t_d / 1e9
-    emit("throughput", card=card, compress_gb_s=gbs_c, decompress_gb_s=gbs_d,
-         compress_s=t_c, decompress_s=t_d, reps=REPS)
     from dctz_tpu_torch.utils.timing import StageTimer
 
-    tc, td = StageTimer(sync=True), StageTimer(sync=True)
-    with tc:
-        dz.compress(x_np, config=cfg, device="cuda", timer=tc)
-    with td:
-        dz.decompress(blob, device="cuda", timer=td)
-    emit("stages", card=card, compress=tc.report(x_np.nbytes),
-         decompress=td.report(x_np.nbytes))
-    report["stages"] = {"compress": tc.report(x_np.nbytes),
-                        "decompress": td.report(x_np.nbytes)}
-    report["profile"] = profile_once(dz, x_np, cfg, blob, card)
+    report["throughput"], report["stages"], report["profile"] = {}, {}, {}
+    for path, (mode, seg, inp) in PATHS.items():
+        pcfg, x, blob = cfg_of(mode, seg), inputs[inp], blobs[path]
+        t_c = wall_s(lambda: dz.compress(x, config=pcfg, device="cuda"), REPS)
+        t_d = wall_s(lambda: dz.decompress(blob, device="cuda"), REPS)
+        gbs_c, gbs_d = x.nbytes / t_c / 1e9, x.nbytes / t_d / 1e9
+        emit("throughput", card=card, path=path, compress_gb_s=gbs_c,
+             decompress_gb_s=gbs_d, compress_s=t_c, decompress_s=t_d, reps=REPS)
+        tc, td = StageTimer(sync=True), StageTimer(sync=True)
+        with tc:
+            dz.compress(x, config=pcfg, device="cuda", timer=tc)
+        with td:
+            dz.decompress(blob, device="cuda", timer=td)
+        emit("stages", card=card, path=path, compress=tc.report(x.nbytes),
+             decompress=td.report(x.nbytes))
+        report["throughput"][path] = {"compress_gb_s": gbs_c, "decompress_gb_s": gbs_d,
+                                      "card": card}
+        report["stages"][path] = {"compress": tc.report(x.nbytes),
+                                  "decompress": td.report(x.nbytes)}
+        if mode == "ec":
+            report["profile"][path] = profile_once(dz, x, pcfg, blob, card, path)
+        if seg == "auto" and inp == "bench":
+            report.setdefault("pipeline_trace", {})[path] = pipeline_trace(
+                dz, x, pcfg, blob, card, path)
 
+    # each kernel's time against its plain version and its bound: bytes are
+    # each input read once and each output written once; operations are the
+    # fp32 FMAs of the transforms (2 FLOP each): E's and A's forward DCT and
+    # D's inverse, 64 per sample (A's verify reconstructs depend on the
+    # screen and are not counted, so A's bound is a least time)
+    dct_flops = 2.0 * 64 * n_pad
     timed = {
+        "qtable_qmax": (
+            lambda: fused_encode.qtable_qmax(xq, sf_q, cfg.error_bound),
+            lambda: fused_encode._qtable_qmax_plain(xq, sf_q, cfg_qt),
+            nbytes(xq, qt_e), dct_flops),
         "dct_quant_verify": (
             lambda: fk.dct_quant_verify(xp, sf, tol, n, cfg.error_bound, True),
-            lambda: fk._dct_quant_verify_plain(xp, sf, tol, n, cfg, True)),
+            lambda: fk._dct_quant_verify_plain(xp, sf, tol, n, cfg, True),
+            nbytes(xp, ids_k, coef_k), dct_flops),
+        "dct_quant_verify_qt": (
+            lambda: fk.dct_quant_verify(xq, sf_q, tol_q, n, cfg.error_bound, True, qt_e),
+            lambda: fk._dct_quant_verify_plain(xq, sf_q, tol_q, n, cfg_qt, True, qt_e),
+            nbytes(xq, qt_e, ids_qk, vals_qk), dct_flops),
         "dpk_pack_compact": (
             lambda: fk.dpk_pack_compact(ids_k, coef_k, n_pad, cape_k, cw),
-            lambda: fk._dpk_pack_compact_plain(ids_k, coef_k, n_pad, cape_k)),
+            lambda: fk._dpk_pack_compact_plain(ids_k, coef_k, n_pad, cape_k),
+            nbytes(ids_k, coef_k, *outs_k), 0.0),
         "dpk_unpack_expand": (
             lambda: fk.dpk_unpack_expand(*d_in, ac_d, nblk, n_stream, cw_d),
-            lambda: fk._dpk_unpack_expand_plain(*d_in, ac_d, nblk, n_stream, cw_d)),
+            lambda: fk._dpk_unpack_expand_plain(*d_in, ac_d, nblk, n_stream, cw_d),
+            nbytes(*d_in, ac_d, ids_ck, acv_ck), 0.0),
         "dequant_idct": (
             lambda: fk.dequant_idct(ids_ck, acv_ck, dc_d, sf_d, hdr_cfg, n_stream),
-            lambda: fk._dequant_idct_plain(ids_ck, acv_ck, dc_d, sf_d, hdr_cfg, n_stream)),
+            lambda: fk._dequant_idct_plain(ids_ck, acv_ck, dc_d, sf_d, hdr_cfg, n_stream),
+            nbytes(ids_ck, acv_ck, dc_d, x_dk), 2.0 * 64 * nblk * 64),
+        "dequant_idct_qt": (
+            lambda: fk.dequant_idct(ids_qck, acv_qck, dcq_d, sfq_d, hq_cfg, nq_stream, q_d),
+            lambda: fk._dequant_idct_plain(ids_qck, acv_qck, dcq_d, sfq_d, hq_cfg,
+                                           nq_stream, q_d),
+            nbytes(ids_qck, acv_qck, dcq_d, q_d, x_dqk), 2.0 * 64 * nblk_q * 64),
     }
-    sources = {
-        "dct_quant_verify": ("dctz_tpu_torch/csrc/dct_quant_verify.cu", "dctz_tpu/ops/dpk_fuse.py:782"),
-        "dpk_pack_compact": ("dctz_tpu_torch/csrc/dpk_pack_compact.cu", "dctz_tpu/ops/dpk_fuse.py:782"),
-        "dpk_unpack_expand": ("dctz_tpu_torch/csrc/dpk_unpack_expand.cu", "dctz_tpu/ops/dpk_fuse.py:1041"),
-        "dequant_idct": ("dctz_tpu_torch/csrc/dequant_idct.cu", "dctz_tpu/ops/dpk_fuse.py:1041"),
-    }
+    require(nblk_pad == nblk == nblk_q, "kernel shapes differ from the main path's")
     rows_out = []
-    for name, (kfn, pfn) in timed.items():
+    for name, (kfn, pfn, n_bytes, flops) in timed.items():
         p1 = cuda_ms(pfn, REPS)
         k1 = cuda_ms(kfn, REPS)
         k2 = cuda_ms(kfn, REPS)
         p2 = cuda_ms(pfn, REPS)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        src, rep = sources[name]
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        src, rep = SOURCES[name]
         rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                         "launches": launches[name],
+                         "launches": launches[MAIN_PATH[name]][name],
                          "max_abs_err": kernels[name]["max_abs_err"],
-                         "ms": ms, "plain_ms": plain_ms})
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None})
         emit("kernel_time", kernel=name, card=card, ms=ms, plain_ms=plain_ms,
-             runs=[k1, k2], plain_runs=[p1, p2])
+             bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops,
+             runs=[k1, k2], plain_runs=[p1, p2], ptxas=ptxas.get(name))
     report["kernels"] = rows_out
-    report["throughput"] = {"compress_gb_s": gbs_c, "decompress_gb_s": gbs_d, "card": card}
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -1,15 +1,18 @@
 """Public compress / decompress of the PyTorch port (port of dctz_tpu/api.py).
 
-The port runs one slice of the JAX package's configurations, the one its
-benchmark measures: float32 input, mode "ec", a v2 container with the
-device-packed id stream (ids_codec="device", DPK), verify on or off,
-monolithic (no DTZS segments). Everything else raises NotImplementedError
-naming the ROADMAP item that will port it; nothing falls back silently.
+The port runs the slice of the JAX package's configurations that its
+benchmark measures: float32 input, mode "ec" or "qt", a v2 container with
+the device-packed id stream (ids_codec="device", DPK), verify on or off,
+monolithic or segmented into a DTZS stream (segment_elems, stream.py; the
+default "auto" segments arrays of stream.AUTO_THRESHOLD elements or more).
+Everything else raises NotImplementedError naming the ROADMAP item that
+will port it; nothing falls back silently.
 
-  compress:   stats (sf, mean) -> tolerance -> kernels A + B
-              (ops/dpk_fuse.encode_x_fused; retried at full chunk width on
-              exception overflow) -> byte-plane split on the device ->
-              host container assembly (_pack_dpk_v2)
+  compress:   stats (sf, mean) -> tolerance -> [QT: kernel E, the qtable]
+              -> kernels A + B (ops/dpk_fuse.encode_x_fused; retried at full
+              chunk width on exception overflow) -> byte-plane split on the
+              device -> host container assembly (_pack_dpk_v2); the
+              monolithic container is the stream writer's one-segment case
   decompress: parse -> host re-pad of the tight sections (_dpk_decode_prep)
               -> planes back to float32 on the device -> kernels C + D
 
@@ -36,8 +39,6 @@ from .core import quantize as qz
 _DPK_META_FMT = "<QHH2x"  # n_stream (padded elements), tile_b, AC chunk width
 _DPK_META_SIZE = struct.calcsize(_DPK_META_FMT)
 _VERBATIM_CHUNK = 1 << 20  # split stored-verbatim sections for parallel crc
-_PAD_QUANTUM = 1024  # the fused encode pads to whole (8, 128) tiles
-AUTO_SEGMENT_THRESHOLD = 1 << 25  # dctz_tpu/stream.py AUTO_THRESHOLD
 
 
 def _todo(what: str, item: str) -> NotImplementedError:
@@ -50,10 +51,9 @@ def _check_slice(cfg: CodecConfig, n: int) -> None:
     """Raise for every configuration outside the ported slice."""
     if cfg.container != "v2":
         raise _todo("the v1 container", "8")
-    if cfg.mode != "ec":
-        raise _todo("QT mode", "7")
     if cfg.ids_codec != "device":
-        raise _todo(f"ids_codec={cfg.ids_codec!r}", "8")
+        raise _todo(f"ids_codec={cfg.ids_codec!r} ({cfg.mode.upper()} mode)",
+                    "8")
     if cfg.rate != "fixed" or cfg.brsf != 1.0:
         raise _todo("rate='auto' / brsf != 1", "9")
     if cfg.dct_precision != "highest":
@@ -62,11 +62,27 @@ def _check_slice(cfg: CodecConfig, n: int) -> None:
         raise _todo("dc_delta on compress", "9")
     if cfg.block_size != C.BLK_SZ or cfg.nbins != C.NBINS or not cfg.truncate:
         raise _todo("non-default block/bin geometry or truncate=False", "9")
+    if cfg.internal_dtype not in ("auto", "float32"):
+        raise ValueError(f"internal_dtype {cfg.internal_dtype!r}")
+
+
+def _resolve_segment(cfg: CodecConfig, n: int) -> int | None:
+    """Segment size for the pipelined DTZS path, or None for monolithic
+    (dctz_tpu/api.py:1709-1739): "auto" (the default) segments v2 EC and
+    QT arrays of stream.AUTO_THRESHOLD elements or more into
+    stream.DEFAULT_SEGMENT-element frames; an int segments arrays of at
+    least two such segments; 0 or None never segments."""
+    from . import stream
+
     se = cfg.segment_elems
-    if (se == "auto" and n >= AUTO_SEGMENT_THRESHOLD) or (
-        isinstance(se, int) and se and n >= 2 * se
-    ):
-        raise _todo("the segmented DTZS pipeline (segment_elems)", "6")
+    if se == "auto":
+        if (cfg.container == "v2" and cfg.mode in ("ec", "qt")
+                and n >= stream.AUTO_THRESHOLD):
+            return stream.DEFAULT_SEGMENT
+        return None
+    if se and n >= 2 * se:
+        return se
+    return None
 
 
 def _zstd_on(cfg: CodecConfig) -> bool:
@@ -233,8 +249,10 @@ def _dpk_sections(width, packed_rows, exc_rows, exc_counts, ac_counts, tile_b,
 
 
 def _pack_dpk_v2(header, width, packed_rows, exc_rows, exc_counts, counts,
-                 ac_chunks, dc, n_pad, cfg, *, dc_planes=None, ac_planes=None):
+                 ac_chunks, dc, n_pad, cfg, qtable=None, *, dc_planes=None,
+                 ac_planes=None):
     """Host assembly of a DPK v2 container from the device outputs (numpy);
+    qtable: the (64,) float32 quantizer table of a QT container;
     dc_planes/ac_planes are the device-split byte planes replacing dc and
     ac_chunks (the same bytes, no host shuffle)."""
     from .ops import idpack
@@ -266,7 +284,7 @@ def _pack_dpk_v2(header, width, packed_rows, exc_rows, exc_counts, counts,
         width, packed_rows, exc_rows, exc_counts, counts, idpack.B_DEFAULT,
         qz.chunk_width(n_pad, cfg.block_size), n_pad, cfg, header,
     ) + (f_dc.result(), f_ac.result())
-    return ct.pack_v2(header, streams, None, cfg.chunk_bytes)
+    return ct.pack_v2(header, streams, qtable, cfg.chunk_bytes)
 
 
 def _resolve_input(x, device) -> torch.Tensor:
@@ -297,10 +315,12 @@ def compress(
     timer=None,
     device: str | torch.device = "cuda",
 ) -> bytes:
-    """Compress a flat float32 array (numpy or torch) into a DPK v2 container.
+    """Compress a flat float32 array (numpy or torch) into a DPK v2
+    container, or into a DTZS stream of them when the array is segmented
+    (cfg.segment_elems, _resolve_segment).
 
     Unlike dctz_tpu.compress, `config` is required and must select the
-    ported slice (container="v2", ids_codec="device", mode="ec")."""
+    ported slice (container="v2", ids_codec="device", mode "ec" or "qt")."""
     from .utils.timing import StageTimer
 
     timer = timer or StageTimer()
@@ -311,76 +331,58 @@ def compress(
     if n == 0:
         raise ValueError("cannot compress an empty array")
     _check_slice(cfg, n)
-    if cfg.internal_dtype not in ("auto", "float32"):
-        raise ValueError(f"internal_dtype {cfg.internal_dtype!r}")
+    seg = _resolve_segment(cfg, n)
+    if seg:
+        # the pipelined path: the device encodes segment k + 1 while a host
+        # worker packs segment k; the input already lies on `device`, so the
+        # statistics reduce there and the segments are slices of it
+        import io
+
+        from . import stream
+
+        buf = io.BytesIO()
+        with timer.stage("pipeline"):
+            stream.compress_stream(arr, buf, config=cfg, segment_elems=seg,
+                                   device=arr.device)
+        return buf.getvalue()
     return _compress_fused(arr, n, cfg, timer)
 
 
 def _compress_fused(arr: torch.Tensor, n: int, cfg: CodecConfig, timer) -> bytes:
-    """The DPK EC branch of dctz_tpu.api._compress_fused: pad to the tile
-    quantum, stats, kernels A + B (retried at full chunk width on exception
-    overflow), byte planes to the host, container assembly."""
-    from .ops import idpack
-    from .ops.fused_encode import fused_encode_pipeline_dpk_ec
+    """The DPK EC/QT branch of dctz_tpu.api._compress_fused, as the
+    one-segment case of the stream writer: pad to the tile quantum, stats,
+    tolerance, [QT: kernel E], then the segment's device stage (kernels
+    A + B, byte planes; stream._encode_segment_dpk) and host stage
+    (stream._pack_segment_dpk)."""
+    from . import stream
+    from .ops import fused_encode
 
-    pad = (-n) % _PAD_QUANTUM
     with timer.stage("device"):
-        if pad:
-            arr = torch.nn.functional.pad(arr, (0, pad))
-        n_pad = n + pad
-        sf, mean = _stats_device(arr, n, cfg.sf_adj)
-        cw = qz.chunk_width(n_pad, cfg.block_size)
-        uout = fused_encode_pipeline_dpk_ec(
-            arr, sf, cfg.error_bound, idpack.CAPE, n, cfg.verify
+        x = stream._on_device(arr, arr.device)
+        sf, mean = _stats_device(x, n, cfg.sf_adj)
+        # float32 arithmetic, as the monolithic JAX path (the stream writer
+        # computes its global tolerance in doubles instead)
+        tol = fused_encode.tolerance(x, n, cfg.error_bound)
+        qtable = (fused_encode.qtable_qmax(x, sf, cfg.error_bound)
+                  if cfg.mode == "qt" else None)
+        outs, planes, qtable = stream._encode_segment_dpk(x, n, sf, tol, cfg,
+                                                          qtable)
+    with timer.stage("transfer"):
+        host = stream._start_pull(stream._pull_list(outs, planes, qtable, cfg))()
+        sf, mean = float(sf), float(mean)
+    bound_bad: list[int] = []
+    with timer.stage("zlib"):
+        blob = stream._pack_segment_dpk(
+            lambda: host, planes is not None, n, int(x.shape[0]), sf, mean,
+            cfg, bound_bad,
         )
-        if bool(uout[7]):
-            # exception-capacity overflow: retry at full chunk width
-            uout = fused_encode_pipeline_dpk_ec(
-                arr, sf, cfg.error_bound, cw, n, cfg.verify
-            )
-        width, packed_rows, exc_rows, exc_counts, ac_chunks, counts, dc = uout[:7]
-        bound_ok = uout[8] if cfg.verify else None
-    if bound_ok is not None and not bool(bound_ok):
+    if bound_bad:
         warnings.warn(
             "verify-repair could not fully satisfy the pointwise bound "
             "(float32-truncation floor)",
             stacklevel=3,
         )
-    with timer.stage("transfer"):
-        host = lambda t: t.cpu().numpy()  # noqa: E731
-        dc_planes = ac_planes = None
-        if _plane_mode(cfg, dc):
-            dcp, acp = _plane_split2(dc, ac_chunks)
-            dc_planes, ac_planes = host(dcp), host(acp)
-        else:
-            dc, ac_chunks = host(dc), host(ac_chunks)
-        width, packed_rows, exc_rows, exc_counts, counts = map(
-            host, (width, packed_rows, exc_rows, exc_counts, counts)
-        )
-        sf, mean = float(sf), float(mean)
-    header = ct.Header(
-        dtype=np.dtype(np.float32),
-        num_elements=n,
-        error_bound=cfg.error_bound,
-        ac_count=int(counts.sum()),
-        scaling_factor=sf,
-        mean=mean,
-        bindex_nbytes=0,
-        dc_nbytes=0,
-        ac_nbytes=0,
-        mode=cfg.mode,
-        block_size=cfg.block_size,
-        nbins=cfg.nbins,
-        truncate=cfg.truncate,
-        brsf=cfg.brsf,
-    )
-    with timer.stage("zlib"):
-        return _pack_dpk_v2(
-            header, width, packed_rows, exc_rows, exc_counts, counts,
-            None if ac_planes is not None else ac_chunks,
-            None if dc_planes is not None else dc, n_pad, cfg,
-            dc_planes=dc_planes, ac_planes=ac_planes,
-        )
+    return blob
 
 
 def _header_config(header: ct.Header) -> CodecConfig:
@@ -519,10 +521,11 @@ def _dpk_decode_prep(header: ct.Header, streams):
 
 
 def _decode_device_dpk(width, packed_rows, exc_rows, dc, ac_buf, n: int,
-                       cfg: CodecConfig, tile_b: int, cw: int, sf, dcd: bool):
+                       cfg: CodecConfig, tile_b: int, cw: int, sf, dcd: bool,
+                       qtable=None):
     """Kernels C + D (ops/dpk_fuse.decode_fused) on the device arrays of a
     DPK container -> (n,) float32. dc/ac_buf may arrive as (4, ...) u8 byte
-    planes, reassembled here."""
+    planes, reassembled here; qtable (a device tensor) selects QT mode."""
     from .ops import dpk_fuse
 
     if tile_b != dpk_fuse.TILE_B:
@@ -535,21 +538,45 @@ def _decode_device_dpk(width, packed_rows, exc_rows, dc, ac_buf, n: int,
         dc = _f32_delta_inv_dev(dc)
     return dpk_fuse.decode_fused(width, packed_rows, exc_rows,
                                  ac_buf.contiguous(), dc.contiguous(), sf, cfg,
-                                 cw, n)
+                                 cw, n, qtable)
 
 
-def _decompress_dpk(header: ct.Header, streams, timer, device) -> np.ndarray:
+def _parse_dpk(blob):
+    """(header, streams, qtable) of a DPK v2 float32 container; raises for
+    every other container."""
+    if ct.detect_format(blob) != "v2":
+        raise _todo("the v1 container", "8")
+    header, streams, qtable, _cb = ct.parse_v2(blob)
+    if not header.dpk:
+        raise _todo(f"v2 {header.mode.upper()} containers without the DPK "
+                    f"id stream", "8")
+    if header.dtype != np.float32:
+        raise _todo("float64 containers", "9")
+    return header, streams, qtable
+
+
+def _to_device(host_arrays, header: ct.Header, qtable, device):
+    """The host stage's arrays, the scaling factor and the qtable on
+    `device`."""
+    dev = [torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
+           for a in host_arrays]
+    sf = torch.tensor(header.scaling_factor, dtype=torch.float32, device=device)
+    qt = (torch.from_numpy(np.asarray(qtable, np.float32)).to(device)
+          if qtable is not None else None)
+    return dev, sf, qt
+
+
+def _decompress_dpk(header: ct.Header, streams, qtable, timer,
+                    device) -> np.ndarray:
     with timer.stage("host"):
-        (width, rows, exc_rows, dc, ac), (n_stream, tile_b, cw, cfg) = (
-            _dpk_decode_prep(header, streams)
-        )
+        host_arrays, (n_stream, tile_b, cw, cfg) = _dpk_decode_prep(header,
+                                                                    streams)
         n = header.num_elements
     with timer.stage("transfer"):
-        dev = [torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
-               for a in (width, rows, exc_rows, dc, ac)]
-        sf = torch.tensor(header.scaling_factor, dtype=torch.float32, device=device)
+        dev, sf, qt = _to_device(host_arrays, header, qtable, device)
     with timer.stage("device"):
-        x = _decode_device_dpk(*dev, n_stream, cfg, tile_b, cw, sf, header.dcd)
+        x = _decode_device_dpk(*dev, n_stream, cfg, tile_b, cw, sf, header.dcd,
+                               qt)
     with timer.stage("transfer"):
         out = x.cpu().numpy()
     return out[:n]
@@ -557,7 +584,8 @@ def _decompress_dpk(header: ct.Header, streams, timer, device) -> np.ndarray:
 
 def decompress(blob: bytes | memoryview, *, timer=None,
                device: str | torch.device = "cuda") -> np.ndarray:
-    """Decompress a DPK EC v2 container back to a flat float32 numpy array."""
+    """Decompress a DPK EC/QT v2 container, or a DTZS stream of them, back
+    to a flat float32 numpy array."""
     from .utils.timing import StageTimer
 
     timer = timer or StageTimer()
@@ -565,16 +593,14 @@ def decompress(blob: bytes | memoryview, *, timer=None,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but CUDA is not available")
     if bytes(memoryview(blob)[:4]) == b"DTZS":
-        raise _todo("the segmented DTZS stream container", "6")
-    if ct.detect_format(blob) != "v2":
-        raise _todo("the v1 container", "8")
+        # a segmented stream (stream.py): zero-copy frame reads, the output
+        # allocated once
+        from . import stream
+
+        with timer.stage("pipeline"):
+            return stream.decompress_stream_all(stream.MemReader(blob),
+                                                device=device)
     with timer.stage("host"):
-        header, streams, qtable, _cb = ct.parse_v2(blob)
-    if not header.dpk:
-        raise _todo("v2 containers without the DPK id stream", "8")
-    if header.mode != "ec" or qtable is not None:
-        raise _todo("QT mode", "7")
-    if header.dtype != np.float32:
-        raise _todo("float64 containers", "9")
-    return _decompress_dpk(header, streams, timer, device)
+        header, streams, qtable = _parse_dpk(blob)
+    return _decompress_dpk(header, streams, qtable, timer, device)
 

@@ -1,9 +1,14 @@
-"""EC bin assignment and dequantization (port of dctz_tpu/core/quantize.py).
+"""Bin assignment and dequantization (port of dctz_tpu/core/quantize.py).
 
-Only what the DPK EC slice needs: the bin geometry, the compaction chunk
-width, pass-1 bin assignment with escapes, and the dequantization of bin
-ids plus escaped values back to coefficients. QT mode waits for ROADMAP
-item 7.
+Only what the DPK slice needs: the bin geometry, the compaction chunk
+width, pass-1 bin assignment with escapes, the QT renormalization of
+escapes through the quantizer table (qtable) and its inverse, and the
+dequantization of bin ids plus escaped values back to coefficients.
+
+All of it runs in float32, as the fused TPU path does: the float64 branch
+of dctz_tpu.core.quantize.encode (x64 on) is not this path. Every QT step
+is a separate, individually rounded float32 operation; the CUDA kernels
+reproduce that order with IEEE intrinsics (csrc/common.cuh).
 """
 
 from __future__ import annotations
@@ -72,17 +77,68 @@ def encode_ids(coeffs: torch.Tensor, n: int, cfg: CodecConfig) -> torch.Tensor:
     return torch.where(binned, ids, torch.full_like(ids, C.ESCAPE))
 
 
+def qt_renorm(coeffs: torch.Tensor, qtable: torch.Tensor,
+              cfg: CodecConfig) -> torch.Tensor:
+    """The stored value of a QT escape: ((c / q) * eb) * qt_factor + side,
+    side = rmax for c > 0 else rmin (chosen by sign, as
+    dctz_tpu/ops/dpk_fuse.py:536-538 does; for a coefficient out of range
+    that is its own side). qtable (bs,) broadcasts over the rows."""
+    _, rmin, rmax = _geometry(cfg)
+    dev = coeffs.device
+    side = torch.where(coeffs > 0, _f32(rmax, dev), _f32(rmin, dev))
+    q = qtable.to(torch.float32)[None, :]
+    return ((coeffs / q) * _f32(cfg.error_bound, dev)) * _f32(
+        cfg.qt_factor, dev
+    ) + side
+
+
+def qt_denom(cfg: CodecConfig) -> float:
+    """The inverse's divisor f32(eb) * f32(qt_factor), one float32 product
+    (dctz_tpu/ops/dpk_fuse.py:993), as a Python float."""
+    return float(np.float32(cfg.error_bound) * np.float32(cfg.qt_factor))
+
+
+def qt_inverse(vals: torch.Tensor, qtable: torch.Tensor,
+               cfg: CodecConfig) -> torch.Tensor:
+    """Inverse of qt_renorm: ((v - side) / qt_denom(cfg)) * q, side taken
+    from the sign of the stored value (dctz_tpu/ops/dpk_fuse.py:212-218)."""
+    _, rmin, rmax = _geometry(cfg)
+    dev = vals.device
+    side = torch.where(vals > 0, _f32(rmax, dev), _f32(rmin, dev))
+    return ((vals - side) / _f32(qt_denom(cfg), dev)) * qtable.to(
+        torch.float32)[None, :]
+
+
+def encode_ids_qt(coeffs: torch.Tensor, n: int, cfg: CodecConfig,
+                  qtable: torch.Tensor):
+    """QT bin ids (nblk, bs) int32: an out-of-range AC coefficient is
+    renormalized through the qtable and re-binned if it lands in range
+    (dctz_tpu/ops/dpk_fuse.py:534-542); ESCAPE at the DC slots, at what
+    stays out of range and at positions >= n. The stored value of an escape
+    is its renormalized value (ops/repair.stored_dense)."""
+    nblk, bs = coeffs.shape
+    in_range, _ = assign_bins(coeffs, cfg)
+    norm = qt_renorm(coeffs, qtable, cfg)
+    re_in, ids = assign_bins(torch.where(in_range, coeffs, norm), cfg)
+    binned = ac_mask(nblk, bs, n, coeffs.device) & re_in
+    return torch.where(binned, ids, torch.full_like(ids, C.ESCAPE))
+
+
 def decode_dense(
     ids: torch.Tensor, dc: torch.Tensor, ac_vals: torch.Tensor, n: int,
-    cfg: CodecConfig,
+    cfg: CodecConfig, qtable: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Coefficients (nblk, bs) from bin ids, the per-block DC and the
-    escaped values held in place (ac_vals (nblk, bs)): escapes read ac_vals,
-    everything else its zigzag bin center, column 0 the DC."""
+    escaped values held in place (ac_vals (nblk, bs)): escapes read ac_vals
+    (through qt_inverse when a qtable is given), everything else its zigzag
+    bin center, column 0 the DC."""
     nblk, bs = ids.shape
     w, _, _ = _geometry(cfg)
     ids = ids.to(torch.int32)
     escape = ac_mask(nblk, bs, n, ids.device) & (ids == C.ESCAPE)
-    coeffs = torch.where(escape, ac_vals.to(torch.float32), zigzag_to_center(ids, w))
+    ac_vals = ac_vals.to(torch.float32)
+    if qtable is not None:
+        ac_vals = qt_inverse(ac_vals, qtable, cfg)
+    coeffs = torch.where(escape, ac_vals, zigzag_to_center(ids, w))
     coeffs[:, 0] = dc.to(torch.float32)
     return coeffs

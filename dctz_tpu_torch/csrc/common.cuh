@@ -1,4 +1,4 @@
-// Shared geometry and helpers of the DPK EC kernels (see ops/dpk_fuse.py).
+// Shared geometry and helpers of the DPK kernels (see ops/dpk_fuse.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,6 +24,50 @@ __device__ __forceinline__ int zigzag_of_lin(int lin) {
 __device__ __forceinline__ float center_of(int id, float w) {
   const int k2 = id >> 1;
   return static_cast<float>((id & 1) ? k2 + 1 : -k2) * w;
+}
+
+// xs[m] = xr[m] / sf (a division, as the reference); returns max |xs|.
+__device__ __forceinline__ float scale_block(const float* __restrict__ xr,
+                                            float sf, float (&xs)[BS]) {
+  float mx = 0.f;
+#pragma unroll
+  for (int m = 0; m < BS; ++m) {
+    xs[m] = xr[m] / sf;
+    mx = fmaxf(mx, fabsf(xs[m]));
+  }
+  return mx;
+}
+
+// Forward DCT-II of one block, coef[k] = sum_m xs[m] * B[k][m] as an fmaf
+// chain in index order, handed to emit(k, coef[k]). Kernels A and E share it,
+// so E's maxima are taken over the very coefficients A bins.
+template <class Emit>
+__device__ __forceinline__ void forward_dct(const float (&xs)[BS],
+                                            const float* __restrict__ sB,
+                                            Emit&& emit) {
+  for (int k = 0; k < BS; ++k) {
+    float c = 0.f;
+#pragma unroll
+    for (int m = 0; m < BS; ++m) c = fmaf(xs[m], sB[k * BS + m], c);
+    emit(k, c);
+  }
+}
+
+// QT renormalization of an escape, ((c / q) * eb) * qtf + side with the side
+// chosen by sign, and its inverse ((v - side) / denom) * q. Each step is an
+// explicitly rounded IEEE operation: nvcc would otherwise contract the
+// multiply-add into an FMA, which rounds differently from the TPU kernel and
+// the plain version (and so shifts the stored bytes).
+__device__ __forceinline__ float qt_renorm(float c, float q, float eb,
+                                           float qtf, float rmin, float rmax) {
+  const float side = c > 0.f ? rmax : rmin;
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fdiv_rn(c, q), eb), qtf), side);
+}
+
+__device__ __forceinline__ float qt_inverse(float v, float q, float denom,
+                                            float rmin, float rmax) {
+  const float side = v > 0.f ? rmax : rmin;
+  return __fmul_rn(__fdiv_rn(__fsub_rn(v, side), denom), q);
 }
 
 // Lanes below this one, for ballot prefix counts.

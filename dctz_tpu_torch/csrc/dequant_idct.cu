@@ -2,9 +2,14 @@
 // and the multiplication by the scaling factor.
 //
 // Replaces the dequantize/IDCT half of the TPU decode kernel
-// dctz_tpu/ops/dpk_fuse.py:_make_kernel (lines 220-260, called from
+// dctz_tpu/ops/dpk_fuse.py:_make_kernel (lines 212-260, called from
 // decode_fused). Plain version: the CPU branch of ops/dpk_fuse.dequant_idct
 // (quantize.decode_dense + transform.block_idct).
+//
+// template <bool QT>: the QT instantiation inverts the renormalization of an
+// AC escape through the container's qtable (held in shared memory) before
+// the IDCT, ((v - side) / denom) * qtable[k] with the side taken from the
+// sign of the stored value (dpk_fuse.py:212-218).
 //
 // One CUDA block per 256 DCT blocks, one thread per DCT block. Coefficients
 // are built coalesced into dynamic shared memory (66.5 KB, rows padded to 65
@@ -29,8 +34,12 @@ namespace {
 using namespace dctz;
 
 constexpr int LD = 65;
-constexpr size_t SMEM_BYTES = sizeof(float) * (BS * BS + TILE_B * LD);
+// shared memory: basis, coefficients, the qtable (QT only)
+template <bool QT>
+constexpr size_t SMEM_BYTES = sizeof(float) * (BS * BS + TILE_B * LD +
+                                               (QT ? BS : 0));
 
+template <bool QT>
 __global__ void __launch_bounds__(TILE_B)
     dequant_idct_kernel(const uint8_t* __restrict__ ids,
                         const float* __restrict__ acv,
@@ -38,16 +47,22 @@ __global__ void __launch_bounds__(TILE_B)
                         const float* __restrict__ basis,
                         const float* __restrict__ tail_basis,
                         const float* __restrict__ sf_p, long long nblk, int rem,
-                        float w, float* __restrict__ out) {
+                        float w, const float* __restrict__ qtable, float rmin,
+                        float rmax, float denom, float* __restrict__ out) {
   extern __shared__ float smem[];
   float* sB = smem;
   float* sC = sB + BS * BS;
+  float* sQ = sC + TILE_B * LD;  // qtable (QT only)
 
   const int tid = threadIdx.x;
   const long long blk0 = static_cast<long long>(blockIdx.x) * TILE_B;
   const float sf = *sf_p;
 
   for (int i = tid; i < BS * BS; i += TILE_B) sB[i] = basis[i];
+  if constexpr (QT) {
+    if (tid < BS) sQ[tid] = qtable[tid];
+    __syncthreads();
+  }
   for (int i = tid; i < TILE_N; i += TILE_B) {
     const int blk = i >> 6, pos = i & 63;
     const long long gblk = blk0 + blk;
@@ -58,7 +73,7 @@ __global__ void __launch_bounds__(TILE_B)
       if (pos == 0)
         co = dc[gblk];
       else if (id == ESCAPE)
-        co = acv[gi];
+        co = QT ? qt_inverse(acv[gi], sQ[pos], denom, rmin, rmax) : acv[gi];
       else
         co = center_of(id, w);
     }
@@ -94,6 +109,23 @@ __global__ void __launch_bounds__(TILE_B)
   }
 }
 
+template <bool QT>
+int launch(const uint8_t* ids, const float* acv, const float* dc,
+           const float* basis, const float* tail_basis, const float* sf,
+           long long nblk, int rem, float w, const float* qtable, float rmin,
+           float rmax, float denom, float* out, void* stream) {
+  cudaFuncSetAttribute(dequant_idct_kernel<QT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(SMEM_BYTES<QT>));
+  const long long grid = (nblk + TILE_B - 1) / TILE_B;
+  dequant_idct_kernel<QT>
+      <<<static_cast<unsigned>(grid), TILE_B, SMEM_BYTES<QT>,
+         static_cast<cudaStream_t>(stream)>>>(ids, acv, dc, basis, tail_basis,
+                                              sf, nblk, rem, w, qtable, rmin,
+                                              rmax, denom, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int dctz_dequant_idct(const uint8_t* ids, const float* acv,
@@ -101,12 +133,17 @@ extern "C" int dctz_dequant_idct(const uint8_t* ids, const float* acv,
                                  const float* tail_basis, const float* sf,
                                  long long nblk, int rem, float w, float* out,
                                  void* stream) {
-  cudaFuncSetAttribute(dequant_idct_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(SMEM_BYTES));
-  const long long grid = (nblk + TILE_B - 1) / TILE_B;
-  dequant_idct_kernel<<<static_cast<unsigned>(grid), TILE_B, SMEM_BYTES,
-                        static_cast<cudaStream_t>(stream)>>>(
-      ids, acv, dc, basis, tail_basis, sf, nblk, rem, w, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(ids, acv, dc, basis, tail_basis, sf, nblk, rem, w,
+                       nullptr, 0.f, 0.f, 1.f, out, stream);
+}
+
+extern "C" int dctz_dequant_idct_qt(const uint8_t* ids, const float* acv,
+                                    const float* dc, const float* basis,
+                                    const float* tail_basis, const float* sf,
+                                    long long nblk, int rem, float w,
+                                    const float* qtable, float rmin,
+                                    float rmax, float denom, float* out,
+                                    void* stream) {
+  return launch<true>(ids, acv, dc, basis, tail_basis, sf, nblk, rem, w,
+                      qtable, rmin, rmax, denom, out, stream);
 }

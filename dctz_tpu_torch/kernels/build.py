@@ -1,10 +1,13 @@
 """Build the CUDA kernels of csrc/ at first use and bind them with ctypes.
 
-The sources are compiled by nvcc into one shared library with a plain C
-interface, build/kernels/libdctz_kernels.so at the repository root:
+Each source is compiled by its own nvcc process, all started together, and
+the objects are linked into one shared library with a plain C interface,
+build/kernels/libdctz_kernels.so at the repository root:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/libdctz_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c -o build/kernels/<name>.o csrc/<name>.cu   (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/kernels/libdctz_kernels.so build/kernels/*.o
 
 Never with --use_fast_math: the bin ids depend on IEEE division in x/sf and
 in (v - rmin)/w. Every C entry point returns cudaGetLastError(); the
@@ -27,10 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libdctz_kernels.so"
 PTXAS_LOG = BUILD_DIR / "ptxas.txt"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -44,10 +45,16 @@ F32 = ctypes.c_float
 
 #: C signatures: every pointer and the stream are c_void_p
 SIGNATURES = {
+    # x, basis, sf, n, rmin, rmax, qmax_bits, stream
+    "dctz_qtable_qmax": [P, P, P, I64, F32, F32, P, P],
     # x, basis, sf, tol, n_pad, n_valid, rmin, rmax, w, verify,
     # ids, coef, ok_tiles, stream
     "dctz_dct_quant_verify": [P, P, P, P, I64, I64, F32, F32, F32, I32,
                               P, P, P, P],
+    # x, basis, sf, tol, qtable, eb, qtf, n_pad, n_valid, rmin, rmax, w,
+    # verify, ids, vals, ok_tiles, stream
+    "dctz_dct_quant_verify_qt": [P, P, P, P, P, F32, F32, I64, I64, F32, F32,
+                                 F32, I32, P, P, P, P],
     # ids, vals, nblk, n_valid, cw, cape, width, packed, exc, ac,
     # exc_counts, ac_counts, dc, stream
     "dctz_dpk_pack_compact": [P, P, I64, I64, I32, I32, P, P, P, P, P, P,
@@ -58,6 +65,10 @@ SIGNATURES = {
                                P, P, P],
     # ids, acv, dc, basis, tail_basis, sf, nblk, rem, w, out, stream
     "dctz_dequant_idct": [P, P, P, P, P, P, I64, I32, F32, P, P],
+    # ids, acv, dc, basis, tail_basis, sf, nblk, rem, w, qtable, rmin, rmax,
+    # denom, out, stream
+    "dctz_dequant_idct_qt": [P, P, P, P, P, P, I64, I32, F32, P, F32, F32,
+                             F32, P, P],
 }
 
 
@@ -85,21 +96,35 @@ def _stale() -> bool:
 
 
 def build(force: bool = False) -> pathlib.Path:
-    """Compile csrc/*.cu into LIB_PATH unless it is up to date."""
+    """Compile csrc/*.cu into LIB_PATH unless it is up to date: one nvcc per
+    source, all running at once, then one link."""
     global last_build_s
     if not force and not _stale():
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(".so.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_s = time.perf_counter() - t0
-    PTXAS_LOG.write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
+    objs = [BUILD_DIR / (src.stem + ".o") for src in sources()]
+    procs = [
+        subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(sources(), objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    PTXAS_LOG.write_text("".join(logs))
+    failed = [(src.name, log) for src, proc, log in zip(sources(), procs, logs)
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name}:\n{log[-4000:]}" for name, log in failed))
+    tmp = LIB_PATH.with_suffix(".so.tmp")
+    res = subprocess.run([nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
+    last_build_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr[-4000:]}")
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
 

@@ -1,4 +1,4 @@
-"""The DPK EC encode and decode as four hand-written CUDA kernels.
+"""The DPK EC/QT encode and decode as hand-written CUDA kernels.
 
 Port of dctz_tpu/ops/dpk_fuse.py. The JAX package runs each direction as ONE
 Pallas program (encode_x_fused, decode_fused); the port splits each into two
@@ -10,16 +10,23 @@ versions (fusing them back is later work):
   decode_fused   = C dpk_unpack_expand (unpack, exception and AC expansion)
                  + D dequant_idct      (bin centers, DC, IDCT, unscale)
 
+QT mode (a qtable argument) launches the QT instantiations of A and D
+(dct_quant_verify_qt, dequant_idct_qt): A renormalizes escapes through the
+qtable and hands B the stored values, D inverts the renormalization. B and C
+do not depend on the mode. The qtable itself comes from kernel E
+(ops/fused_encode.qtable_qmax).
+
 Every kernel has a wrapper here that takes the plain PyTorch version for
 tensors on the CPU, and launches the kernel (csrc/*.cu, built at first use by
 kernels/build.py) for CUDA tensors, or raises. It never falls back. The
 wrappers count their launches in LAUNCHES, only where a kernel launches.
 
 Plain versions, composed from the ported modules:
-  A: core.transform.block_dct + core.quantize.encode_ids + ops.repair
+  A: core.transform.block_dct + core.quantize.encode_ids(_qt) + ops.repair
   B: ops.idpack.pack_ids_with_ac
   C: ops.idpack.unpack_ids + ops.compaction.expand_chunked
   D: core.quantize.decode_dense + core.transform.block_idct
+  E: ops.fused_encode._qtable_qmax_plain
 """
 
 from __future__ import annotations
@@ -40,10 +47,13 @@ TILE_N = TILE_B * BS  # elements per tile
 
 #: launches of each kernel by its wrapper (plain versions do not count)
 LAUNCHES = {
+    "qtable_qmax": 0,
     "dct_quant_verify": 0,
+    "dct_quant_verify_qt": 0,
     "dpk_pack_compact": 0,
     "dpk_unpack_expand": 0,
     "dequant_idct": 0,
+    "dequant_idct_qt": 0,
 }
 
 
@@ -88,32 +98,51 @@ def _ceil_lanes(c: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify):
+def _mode_cfg(cfg_eb: float, qtable) -> CodecConfig:
+    return CodecConfig(mode="ec" if qtable is None else "qt", error_bound=cfg_eb)
+
+
+def _qtable32(qtable: torch.Tensor) -> torch.Tensor:
+    if qtable.shape != (BS,):
+        raise ValueError(f"qtable must be ({BS},), got {tuple(qtable.shape)}")
+    return qtable.to(torch.float32).contiguous()
+
+
+def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable=None):
     n_pad = x.shape[0]
     xs = x / sf  # divide: reference semantics
     coef = transform.block_dct(xs.reshape(-1, BS))
-    ids = qz.encode_ids(coef, n_pad, cfg)
+    if qtable is None:
+        ids = qz.encode_ids(coef, n_pad, cfg)
+    else:
+        ids = qz.encode_ids_qt(coef, n_pad, cfg, qtable)
     ok = torch.ones((), dtype=torch.bool, device=x.device)
     if verify:
         ids, ok = repair.verify_repair(
-            x, coef, sf, ids, coef[:, 0], n_pad, n_valid, cfg, tol
+            x, coef, sf, ids, coef[:, 0], n_pad, n_valid, cfg, tol, qtable
         )
     acm = qz.ac_mask(ids.shape[0], BS, n_pad, x.device)
+    vals = repair.stored_dense(coef, ids, acm, cfg, qtable)
     ids = torch.where(acm, ids, torch.zeros_like(ids)).to(torch.uint8)
-    return ids, coef, ok
+    return ids, vals, ok
 
 
-def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool):
+def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
+                     qtable: torch.Tensor | None = None):
     """Kernel A. Replaces the transform and verify half of
     dctz_tpu/ops/dpk_fuse.py:_make_encode_x_kernel (lines 494-647).
 
     x: flat float32 (n_pad,), n_pad a multiple of 1024; sf, tol: float32
-    scalars on x's device. Returns (ids u8 (n_pad/64, 64) zeroed at DC and
-    padding, coef f32 (n_pad/64, 64), ok bool scalar tensor)."""
-    cfg = CodecConfig(error_bound=cfg_eb)
+    scalars on x's device; qtable: the (64,) quantizer table for QT mode
+    (its slot 0 is not read), None for EC. Returns (ids u8 (n_pad/64, 64)
+    zeroed at DC and padding, vals f32 (n_pad/64, 64), ok bool scalar
+    tensor). vals holds the coefficients, except at QT's AC escapes, which
+    hold the renormalized values the container stores."""
+    cfg = _mode_cfg(cfg_eb, qtable)
     n_pad = x.shape[0]
-    if not _on_cuda(x, sf, tol):
-        return _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify)
+    args = (x, sf, tol) + (() if qtable is None else (qtable,))
+    if not _on_cuda(*args):
+        return _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable)
     _check(x, torch.float32, "x")
     if x.dim() != 1 or n_pad % 1024:
         raise ValueError(f"x must be flat with a length that is a multiple "
@@ -122,17 +151,21 @@ def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool):
     nblk = n_pad // BS
     t = -(-n_pad // TILE_N)
     ids = torch.empty((nblk, BS), dtype=torch.uint8, device=x.device)
-    coef = torch.empty((nblk, BS), dtype=torch.float32, device=x.device)
+    vals = torch.empty((nblk, BS), dtype=torch.float32, device=x.device)
     ok_tiles = torch.empty((t,), dtype=torch.int32, device=x.device)
     sf32 = sf.reshape(1).to(torch.float32).contiguous()
     tol32 = tol.reshape(1).to(torch.float32).contiguous()
     basis = transform.dct2_basis(BS, x.device)
-    _launch(
-        "dct_quant_verify", x.data_ptr(), basis.data_ptr(), sf32.data_ptr(),
-        tol32.data_ptr(), n_pad, n_valid, rmin, rmax, w, int(bool(verify)),
-        ids.data_ptr(), coef.data_ptr(), ok_tiles.data_ptr(),
-    )
-    return ids, coef, torch.all(ok_tiles != 0)
+    head = (x.data_ptr(), basis.data_ptr(), sf32.data_ptr(), tol32.data_ptr())
+    tail = (n_pad, n_valid, rmin, rmax, w, int(bool(verify)), ids.data_ptr(),
+            vals.data_ptr(), ok_tiles.data_ptr())
+    if qtable is None:
+        _launch("dct_quant_verify", *head, *tail)
+    else:
+        q32 = _qtable32(qtable)
+        _launch("dct_quant_verify_qt", *head, q32.data_ptr(),
+                float(cfg.error_bound), float(cfg.qt_factor), *tail)
+    return ids, vals, torch.all(ok_tiles != 0)
 
 
 # ---------------------------------------------------------------------------
@@ -197,14 +230,15 @@ def encode_fused(ids2d, dcac2d, n_valid: int, b: int, cape: int, cw: int):
 
 
 def encode_x_fused(x, sf, tol, n_valid: int, cfg_eb: float, cape: int,
-                   cw: int, verify: bool):
-    """Whole EC encode from raw samples: kernel A then kernel B. Same
-    contract as dctz_tpu/ops/dpk_fuse.py:encode_x_fused (EC mode). Returns
-    (width, packed, exc_rows, exc_counts, ac_rows, ac_counts, dc, overflow,
-    ok)."""
+                   cw: int, verify: bool, qtable: torch.Tensor | None = None):
+    """Whole EC/QT encode from raw samples: kernel A then kernel B. Same
+    contract as dctz_tpu/ops/dpk_fuse.py:encode_x_fused; a qtable selects QT
+    mode. Returns (width, packed, exc_rows, exc_counts, ac_rows, ac_counts,
+    dc, overflow, ok)."""
     n_pad = x.shape[0]
-    ids, coef, ok = dct_quant_verify(x, sf, tol, n_valid, cfg_eb, verify)
-    return encode_fused(ids, coef, n_pad, TILE_B, cape, cw) + (ok,)
+    ids, vals, ok = dct_quant_verify(x, sf, tol, n_valid, cfg_eb, verify,
+                                     qtable)
+    return encode_fused(ids, vals, n_pad, TILE_B, cape, cw) + (ok,)
 
 
 # ---------------------------------------------------------------------------
@@ -258,31 +292,36 @@ def dpk_unpack_expand(width, packed, exc_rows, ac_rows, nblk: int,
 # ---------------------------------------------------------------------------
 
 
-def _dequant_idct_plain(ids, acv, dc, sf, cfg: CodecConfig, n_stream: int):
-    co = qz.decode_dense(ids, dc, acv, ids.shape[0] * BS, cfg)
+def _dequant_idct_plain(ids, acv, dc, sf, cfg: CodecConfig, n_stream: int,
+                        qtable=None):
+    co = qz.decode_dense(ids, dc, acv, ids.shape[0] * BS, cfg, qtable)
     x = (transform.block_idct(co) * sf).reshape(-1)
     n_full, rem = divmod(n_stream, BS)
     if rem:
         last = qz.decode_dense(ids[n_full:], dc[n_full:], acv[n_full:], rem,
-                               cfg)
+                               cfg, qtable)
         tail = transform.block_idct(last[0, :rem][None])[0]
         x[n_full * BS : n_stream] = tail * sf
     return x
 
 
-def dequant_idct(ids, acv, dc, sf, cfg: CodecConfig, n_stream: int):
+def dequant_idct(ids, acv, dc, sf, cfg: CodecConfig, n_stream: int,
+                 qtable: torch.Tensor | None = None):
     """Kernel D. Replaces the dequantize and IDCT half of
-    dctz_tpu/ops/dpk_fuse.py:_make_kernel (lines 220-260).
+    dctz_tpu/ops/dpk_fuse.py:_make_kernel (lines 212-260).
 
     ids u8 / acv f32 (nblk, 64), dc f32 (nblk,), sf float32 scalar tensor;
-    returns flat float32 (nblk*64,) whose first n_stream samples are the
-    decode. A length that is not a block multiple (the JAX package's
-    XLA-chain containers store the true length) decodes its last block
-    through the rem-point basis, as that chain does."""
+    qtable: the container's (64,) quantizer table in QT mode (escapes are
+    renormalized values, inverted before the IDCT), None for EC. Returns
+    flat float32 (nblk*64,) whose first n_stream samples are the decode. A
+    length that is not a block multiple (the JAX package's XLA-chain
+    containers store the true length) decodes its last block through the
+    rem-point basis, as that chain does."""
     nblk = ids.shape[0]
-    if not _on_cuda(ids, acv, dc, sf):
-        return _dequant_idct_plain(ids, acv, dc, sf, cfg, n_stream)
-    w, _, _ = qz._geometry(cfg)
+    args = (ids, acv, dc, sf) + (() if qtable is None else (qtable,))
+    if not _on_cuda(*args):
+        return _dequant_idct_plain(ids, acv, dc, sf, cfg, n_stream, qtable)
+    w, rmin, rmax = qz._geometry(cfg)
     _check(ids, torch.uint8, "ids")
     _check(acv, torch.float32, "acv")
     _check(dc, torch.float32, "dc")
@@ -295,19 +334,23 @@ def dequant_idct(ids, acv, dc, sf, cfg: CodecConfig, n_stream: int):
     sf32 = sf.reshape(1).to(torch.float32).contiguous()
     basis = transform.dct2_basis(BS, ids.device)
     tail_ptr = transform.dct2_basis(rem, ids.device).data_ptr() if rem else None
-    _launch(
-        "dequant_idct", ids.data_ptr(), acv.data_ptr(), dc.data_ptr(),
-        basis.data_ptr(), tail_ptr, sf32.data_ptr(), nblk, rem, w,
-        out.data_ptr(),
-    )
+    head = (ids.data_ptr(), acv.data_ptr(), dc.data_ptr(), basis.data_ptr(),
+            tail_ptr, sf32.data_ptr(), nblk, rem, w)
+    if qtable is None:
+        _launch("dequant_idct", *head, out.data_ptr())
+    else:
+        q32 = _qtable32(qtable)
+        _launch("dequant_idct_qt", *head, q32.data_ptr(), rmin, rmax,
+                qz.qt_denom(cfg), out.data_ptr())
     return out
 
 
 def decode_fused(width, packed, exc_rows, ac_rows, dc, sf, cfg: CodecConfig,
-                 cw: int, n_stream: int) -> torch.Tensor:
-    """Decode of a DPK EC container's device arrays: kernel C then kernel D
-    -> flat float32 (n_stream,)."""
+                 cw: int, n_stream: int,
+                 qtable: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode of a DPK EC/QT container's device arrays: kernel C then
+    kernel D -> flat float32 (n_stream,). A qtable selects QT mode."""
     nblk = -(-n_stream // BS)
     ids, acv = dpk_unpack_expand(width, packed, exc_rows, ac_rows, nblk,
                                  n_stream, cw)
-    return dequant_idct(ids, acv, dc, sf, cfg, n_stream)[:n_stream]
+    return dequant_idct(ids, acv, dc, sf, cfg, n_stream, qtable)[:n_stream]

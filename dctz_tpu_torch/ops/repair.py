@@ -1,11 +1,15 @@
-"""Encode-side verify-and-repair, EC mode (port of dctz_tpu/ops/repair.py).
+"""Encode-side verify-and-repair (port of dctz_tpu/ops/repair.py).
 
 Reconstruct the array exactly as the decoder will, find blocks whose
 pointwise error exceeds the tolerance, and force their error-carrying
-coefficients to ESCAPE (EC stores the coefficient verbatim) in two passes
-with falling floors (w/8, then w*1e-3); `ok` reports whether every block
-then holds. This is the plain version of the verify half of kernel A
-(ops/dpk_fuse.dct_quant_verify).
+coefficients to ESCAPE in two passes with falling floors (w/8, then
+w*1e-3); `ok` reports whether every block then holds. EC stores an escape
+as the coefficient itself; QT stores it renormalized through the qtable
+(quantize.qt_renorm, side chosen by sign), and the reconstruction inverts
+that exactly as the decoder does. A QT escape carries about 1.5e-6 *
+qtable[j] of error, so QT never forces a coefficient whose bin error is
+below 3e-6 * |qtable[j]|. This is the plain version of the verify half of
+kernel A (ops/dpk_fuse.dct_quant_verify).
 """
 
 from __future__ import annotations
@@ -20,8 +24,22 @@ from ..core import transform
 _SLACK = 0.99  # verify against 0.99*tol: absorbs cross-backend ulp drift
 
 
-def _reconstruct(ids, dc, dense, n_decode, cfg, sf):
-    coeffs_hat = qz.decode_dense(ids, dc, dense, n_decode, cfg)
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def stored_dense(coeffs, ids, acm, cfg: CodecConfig, qtable):
+    """Per-position stored values as the container carries them: EC stores
+    the coefficient, QT the renormalized value at AC escapes
+    (dctz_tpu/ops/repair.py:52-67)."""
+    if qtable is None:
+        return coeffs
+    escape = acm & (ids == C.ESCAPE)
+    return torch.where(escape, qz.qt_renorm(coeffs, qtable, cfg), coeffs)
+
+
+def _reconstruct(ids, dc, dense, n_decode, cfg, sf, qtable):
+    coeffs_hat = qz.decode_dense(ids, dc, dense, n_decode, cfg, qtable)
     bs = cfg.block_size
     n_full, rem = divmod(n_decode, bs)
     tail = coeffs_hat[n_full, :rem] if rem else coeffs_hat.new_zeros((0,))
@@ -30,23 +48,30 @@ def _reconstruct(ids, dc, dense, n_decode, cfg, sf):
 
 
 def verify_repair(x, coeffs, sf, bin_ids, dc, n_decode: int, n_valid: int,
-                  cfg: CodecConfig, tol: torch.Tensor):
+                  cfg: CodecConfig, tol: torch.Tensor,
+                  qtable: torch.Tensor | None = None):
     """x: the input as the encoder saw it (length n_decode; positions >=
     n_valid are padding); coeffs: scaled-domain coefficients (nblk, bs);
-    tol: the pre-slacked absolute tolerance (a float32 tensor). Returns
-    (bin ids int32, ok bool tensor); EC stores escapes as the coefficients
-    themselves, so there is no separate dense value grid."""
-    if cfg.mode != "ec":
-        raise NotImplementedError(
-            "QT verify-repair is not ported yet (ROADMAP item 7)"
-        )
+    tol: the pre-slacked absolute tolerance (a float32 tensor); qtable: the
+    (bs,) quantizer table in QT mode, None in EC mode. Returns (bin ids
+    int32, ok bool tensor)."""
+    if (qtable is None) != (cfg.mode == "ec"):
+        raise ValueError(f"mode {cfg.mode!r} with qtable={qtable is not None}")
     nblk, bs = coeffs.shape
+    dev = coeffs.device
     w, _, _ = qz._geometry(cfg)
-    acm = qz.ac_mask(nblk, bs, n_decode, coeffs.device)
-    valid = torch.arange(nblk * bs, device=coeffs.device).reshape(nblk, bs) < n_valid
+    acm = qz.ac_mask(nblk, bs, n_decode, dev)
+    valid = torch.arange(nblk * bs, device=dev).reshape(nblk, bs) < n_valid
+    qt_floor = (
+        _f32(3e-6, dev) * torch.abs(qtable.to(torch.float32))[None, :]
+        if qtable is not None
+        else torch.zeros((1, bs), dtype=torch.float32, device=dev)
+    )
 
     def block_errors(ids):
-        coeffs_hat, xhat = _reconstruct(ids, dc, coeffs, n_decode, cfg, sf)
+        dense = stored_dense(coeffs, ids, acm, cfg, qtable)
+        coeffs_hat, xhat = _reconstruct(ids, dc, dense, n_decode, cfg, sf,
+                                        qtable)
         err = torch.zeros(nblk * bs, dtype=torch.float32, device=x.device)
         err[:n_decode] = torch.abs(xhat - x[:n_decode])
         err = torch.where(valid, err.reshape(nblk, bs), torch.zeros_like(coeffs))
@@ -54,9 +79,10 @@ def verify_repair(x, coeffs, sf, bin_ids, dc, n_decode: int, n_valid: int,
 
     ids = bin_ids.to(torch.int32)
     w32 = torch.tensor(w, dtype=torch.float32)
-    for floor in (w32 / 8, w32 * torch.tensor(1e-3, dtype=torch.float32)):
+    for pass_floor in (w32 / 8, w32 * torch.tensor(1e-3, dtype=torch.float32)):
         blk_err, e_ij = block_errors(ids)
-        force = (blk_err > tol)[:, None] & acm & (e_ij > floor.to(coeffs.device))
+        floor = torch.maximum(pass_floor.to(dev), qt_floor)
+        force = (blk_err > tol)[:, None] & acm & (e_ij > floor)
         ids = torch.where(force, torch.full_like(ids, C.ESCAPE), ids)
     blk_err, _ = block_errors(ids)
     return ids, ~torch.any(blk_err > tol)

@@ -9,6 +9,11 @@ Leave it False on production paths to keep launches asynchronous.
     with t.stage("device"):
         ...
     print(t.report(nbytes))
+
+The API's stages: "transfer" (host-device copies), "device" (kernels),
+"zlib" (compress: section coding and container assembly), "host"
+(decompress: parse, inflate, re-pad) and "pipeline" (a segmented DTZS stream,
+whose device and host stages overlap; stream.py traces them per segment).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The ported slice end to end on the CPU: round trips, containers decoded
 both ways between the port and dctz_tpu, the DPK EC goldens, the ratio, and
-the configurations that are not ported yet."""
+the configurations that are not ported yet (QT mode and DTZS streams are
+ported on the DPK path only: test_torch_qt.py, test_torch_stream.py)."""
 
 import json
 import pathlib
@@ -113,12 +114,12 @@ def test_overflow_retry_round_trip():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(container="v1"), "8"),
-    (dict(mode="qt"), "7"),
+    (dict(mode="qt", ids_codec="deflate"), "8"),
     (dict(ids_codec="rans"), "8"),
     (dict(rate="auto"), "9"),
     (dict(dct_precision="high"), "9"),
     (dict(dc_delta=True), "9"),
-    (dict(segment_elems=4096), "6"),
+    (dict(segment_elems=4096, ids_codec="deflate"), "8"),
 ])
 def test_outside_the_slice_raises(kw, item):
     import dctz_tpu_torch as dz
@@ -140,9 +141,15 @@ def test_float64_and_foreign_containers_raise():
 
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         dz.compress(np.ones(4096), config=slice_cfg(dz), device="cpu")
-    for name, item in [("golden_v1_ec_f64", "8"), ("golden_v2_qt_f32_dpk", "7"),
+    for name, item in [("golden_v1_ec_f64", "8"), ("golden_v2_qt_f32", "8"),
                        ("golden_v2_ec_f32_rans", "8")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             dz.decompress((GOLDEN / f"{name}.z").read_bytes(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        dz.decompress(b"DTZS" + bytes(64), device="cpu")
+    # a DTZS stream whose frame is a v2 container without the DPK id stream
+    import struct
+
+    frame = (GOLDEN / "golden_v2_ec_f32.z").read_bytes()
+    raw = (b"DTZS" + struct.pack("<HHQ", 1, 0, 7777)
+           + struct.pack("<Q", len(frame)) + frame + struct.pack("<Q", 0))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        dz.decompress(raw, device="cpu")

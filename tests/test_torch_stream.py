@@ -1,0 +1,219 @@
+"""The port's DTZS stream container (dctz_tpu_torch/stream.py) against
+dctz_tpu/stream.py, EC and QT, at n = 4 * 16384 + 1025 in segments of
+2 * 16384 (three frames, the last one padded): streams decode both ways,
+the port's streamed decode is bit-equal to its monolithic decode, the frame
+headers match the reference's (n and sf exact, the qtable within 4 ulp),
+QT's slot 0 holds each frame's last real block's DC, broken streams raise,
+and numpy and tensor inputs write the same bytes."""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_oracle import EPS32, TILE_N, bound, oracle, slice_cfg  # noqa: F401
+from test_torch_qt import qt_signal
+
+torch.set_num_threads(2)
+
+N = 4 * TILE_N + 1025
+SEG = 2 * TILE_N
+MODES = ["ec", "qt"]
+
+
+def _x():
+    return qt_signal(N, 21)
+
+
+def _port_stream(mode, x=None, **kw):
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import stream
+
+    buf = io.BytesIO()
+    stream.compress_stream(_x() if x is None else x, buf,
+                           config=slice_cfg(dz, mode=mode), segment_elems=SEG,
+                           device="cpu", **kw)
+    return buf.getvalue()
+
+
+def _frames(raw: bytes):
+    """The v2 containers of a DTZS stream, in order."""
+    from dctz_tpu_torch import stream
+
+    off, out = stream._HDR.size, []
+    while True:
+        (flen,) = stream._FRAME.unpack_from(raw, off)
+        off += stream._FRAME.size
+        if not flen:
+            return out
+        out.append(raw[off : off + flen])
+        off += flen
+
+
+@pytest.fixture(scope="module")
+def ref_streams(oracle):
+    """dctz_tpu's streams of the same input (the fused DPK segment path)."""
+    import dctz_tpu
+    from dctz_tpu import stream as jstream
+
+    out = {}
+    for mode in MODES:
+        buf = io.BytesIO()
+        jstream.compress_stream(_x(), buf, config=slice_cfg(dctz_tpu, mode=mode),
+                                segment_elems=SEG)
+        out[mode] = buf.getvalue()
+    return out
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_port_stream_decodes_in_reference(ref_streams, mode):
+    import dctz_tpu
+
+    x = _x()
+    y = np.asarray(dctz_tpu.decompress(_port_stream(mode)))
+    assert y.shape == x.shape and np.abs(y - x).max() <= bound(x)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_reference_stream_decodes_in_port(ref_streams, mode):
+    import dctz_tpu
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.core import container as ct
+
+    x = _x()
+    raw = ref_streams[mode]
+    ref = np.asarray(dctz_tpu.decompress(raw))
+    got = dz.decompress(raw, device="cpu")
+    assert got.shape == x.shape and np.abs(got - x).max() <= bound(x)
+    sf = ct.parse_v2(_frames(raw)[0])[0].scaling_factor
+    assert np.abs(got - ref).max() <= 32 * EPS32 * sf
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_streamed_decode_equals_monolithic(mode):
+    import dctz_tpu_torch as dz
+
+    x = _x()
+    y_stream = dz.decompress(_port_stream(mode), device="cpu")
+    mono = dz.compress(x, config=slice_cfg(dz, mode=mode), device="cpu")
+    assert mono[:4] != b"DTZS"
+    assert y_stream.tobytes() == dz.decompress(mono, device="cpu").tobytes()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_frame_headers_match_reference(ref_streams, mode):
+    from dctz_tpu_torch.core import container as ct
+
+    got, ref = _frames(_port_stream(mode)), _frames(ref_streams[mode])
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        hg, _s, qg, _c = ct.parse_v2(g)
+        hr, _s, qr, _c = ct.parse_v2(r)
+        assert (hg.num_elements, hg.scaling_factor, hg.mode, hg.dpk) == (
+            hr.num_elements, hr.scaling_factor, hr.mode, hr.dpk)
+        assert (qg is None) == (qr is None) == (mode == "ec")
+        if qg is not None:
+            ulps = np.abs(qg[1:] - qr[1:]) / np.spacing(np.abs(qr[1:]))
+            assert ulps.max() <= 4 and (qr[1:] > 1.0).any()
+
+
+def test_qt_slot0_is_each_frames_last_real_block_dc():
+    """Slot 0 of every frame's qtable is the DC of its last real block,
+    not of a zero pad block (the tail frame holds 1025 samples, padded to
+    2048); slots >= 1 are the same global table in every frame."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.core import container as ct
+
+    frames = _frames(_port_stream("qt"))
+    tables = []
+    for blob in frames:
+        header, streams, qtable, _cb = ct.parse_v2(blob)
+        (_w, _r, _e, dc, _ac), _meta = api._dpk_decode_prep(header, streams)
+        dc = api._combine_planes(torch.from_numpy(np.array(dc))).numpy()
+        last = -(-header.num_elements // 64) - 1
+        assert qtable[0] == dc[last] != 0.0
+        tables.append(qtable)
+    assert ct.parse_v2(frames[-1])[0].num_elements == 1025
+    for t in tables[1:]:
+        assert t[1:].tobytes() == tables[0][1:].tobytes()
+
+
+def _cut(raw, what):
+    if what == "magic":
+        return b"XTZS" + raw[4:]
+    if what == "header":
+        return raw[:10]
+    if what == "frame":
+        return raw[: len(raw) // 2]
+    return raw[:-8]  # the end marker
+
+
+@pytest.mark.parametrize("what,match", [
+    ("magic", "not a DCTZ-TPU stream"),
+    ("header", "truncated stream"),
+    ("frame", "truncated stream"),
+    ("end", "truncated stream"),
+])
+def test_broken_streams_raise(what, match):
+    from dctz_tpu_torch import stream
+
+    raw = _cut(_port_stream("ec"), what)
+    with pytest.raises(ValueError, match=match):
+        stream.decompress_stream_all(stream.MemReader(raw), device="cpu")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_numpy_and_tensor_inputs_write_the_same_stream(mode):
+    x = _x()
+    assert _port_stream(mode, x) == _port_stream(mode, torch.from_numpy(x))
+
+
+def test_compress_routes_to_the_stream(monkeypatch):
+    """segment_elems routes compress() to the stream writer (an int, or
+    "auto" from stream.AUTO_THRESHOLD elements on) under a "pipeline"
+    stage, and decompress() detects the stream."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import api, stream
+    from dctz_tpu_torch.utils.timing import StageTimer
+
+    x = _x()
+    explicit = dz.compress(x, config=slice_cfg(dz, segment_elems=SEG), device="cpu")
+    assert explicit == _port_stream("ec")
+    monkeypatch.setattr(stream, "AUTO_THRESHOLD", N)
+    monkeypatch.setattr(stream, "DEFAULT_SEGMENT", SEG)
+    timer = StageTimer()
+    auto = dz.compress(x, config=slice_cfg(dz, segment_elems="auto"),
+                       device="cpu", timer=timer)
+    assert auto == explicit and "pipeline" in timer.stages
+    assert api._resolve_segment(slice_cfg(dz, segment_elems="auto"), N - 1) is None
+    assert api._resolve_segment(slice_cfg(dz, segment_elems=SEG), 2 * SEG - 1) is None
+    assert api._resolve_segment(slice_cfg(dz, mode="qt", segment_elems="auto"), N) == SEG
+    timer = StageTimer()
+    y = dz.decompress(memoryview(auto), device="cpu", timer=timer)
+    assert "pipeline" in timer.stages and np.abs(y - x).max() <= bound(x)
+
+
+def test_trace_covers_every_segment():
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import stream
+
+    enc, dec = [], []
+    raw = _port_stream("qt", trace=enc)
+    list(stream.decompress_stream(io.BytesIO(raw), trace=dec, device="cpu"))
+    for trace, kinds in ((enc, ("device", "pull", "pack")), (dec, ("prep", "device"))):
+        for kind in kinds:
+            spans = [t for t in trace if t[0] == kind]
+            assert [t[1] for t in spans] == [0, 1, 2]
+            assert all(t1 >= t0 for _k, _i, t0, t1 in spans)
+    assert dz.decompress(raw, device="cpu").shape == (N,)
+
+
+def test_generic_segment_path_raises():
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import stream
+
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        stream.compress_stream(_x(), io.BytesIO(),
+                               config=slice_cfg(dz, ids_codec="deflate"),
+                               segment_elems=SEG, device="cpu")
