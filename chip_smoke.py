@@ -3,37 +3,50 @@
 
     python3 chip_smoke.py [--out build/chip_smoke.json]
 
-Drives the port's paths once each at the benchmark's size (32Mi float32
-elements, the bench.py configuration: eb 1e-3, v2 container, DPK ids, verify
-on) and checks them. The paths: EC and QT, each monolithic
-(segment_elems=0) and as the DTZS stream that the default
-segment_elems="auto" writes at this size (two frames of 16Mi), on the bench
-array; EC DTZS is what bench.py measures. QT runs on a second input too,
-the bench array with every 977th sample x30, so that the quantizer table
-has entries > 1. Phases, each printed as one JSON line:
+Drives the port's paths once each at full size and checks them. Eleven
+paths, on 32Mi float32 elements (128 MB) unless named otherwise:
+
+  DPK v2, the bench.py configuration (eb 1e-3, v2 container, DPK ids, verify
+  on): EC and QT, each monolithic (segment_elems=0) and as the DTZS stream
+  that the default segment_elems="auto" writes at this size (two frames of
+  16Mi), on the bench array; EC DTZS is what bench.py measures. QT also on
+  the bench array with every 977th sample x30, so that the quantizer table
+  has entries > 1 (qt_x30, qt_x30_dtzs).
+  v1 and host-coded v2: v1_ec (dz.compress(x) with no config: v1 EC, verify
+  off), v1_qt (verify off), v1_ec_verify (verify on, the eval harness's
+  row), v1_cesm (verify on, 3600x1800 = 6,480,000 elements, the length of
+  one CESM field: n % 1024 = 128 takes the generic chain, chunk width 128)
+  and v2_deflate (ids_codec="deflate", segment_elems=0, verify on).
+
+Phases, each printed as one JSON line:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
   2. build:  the CUDA kernels compiled from dctz_tpu_torch/csrc (one nvcc per
      source, in parallel), with ptxas' registers and spills per kernel
   3. kernels against their plain PyTorch versions on the card, at the main
      paths' shapes. EC input (the bench array): B and C byte-equal, A within
-     1e-5 of ids, D within 32 ulp of sf. QT input (the bench array with every
-     977th sample x30, so that the qtable has entries > 1): E bit-equal to
-     the clamped maximum over A-EC's own coefficients and within 4 ulp of its
-     plain version, A-QT within 1e-5 of ids and its stored values within the
-     budget below, D-QT within 32 ulp of sf * max|coef| of the block
+     1e-5 of ids, D within 32 ulp of sf. QT input (the x30 array): E
+     bit-equal to the clamped maximum over A-EC's own coefficients and
+     within 4 ulp of its plain version, A-QT within 1e-5 of ids and its
+     stored values within the budget below, D-QT within 32 ulp of sf *
+     max|coef| of the block. The v1 paths' kernels on the bench array: F
+     and G with no id mismatch and DC and stored values within the budget
+     (F also equal to A's ids and coefficients), H byte-equal on F's
+     escapes at capacity 128, I byte-equal on the rows the decode of the
+     v1_ec container hands it (and equal to masked_scatter of its AC stream)
   4. end to end, per path: compress and decompress through the public API on
      the card with the launch counters reset just before and read just after
-     (every kernel of the path > 0), the pointwise bound satisfied, the ratio
-     within 0.1% of the plain (CPU) path's, each path's output decoded by the
-     other within the bound, and a DTZS decode bit-equal to the monolithic
-     decode of the same data
+     (every kernel of the path > 0), the container family expected, the
+     pointwise bound satisfied, the ratio within 0.1% of the plain (CPU)
+     path's, each path's output decoded by the other within the bound, and a
+     DTZS decode bit-equal to the monolithic decode of the same data
   5. times, per path: compress and decompress GB/s (median of warm runs) and
      their split into stages; a torch.profiler pass over one call of each
-     direction of the EC paths (device busy and idle share); one traced run
-     of each direction of the bench-array DTZS paths (the stream's
-     per-segment spans); each kernel's time beside its plain version's
-     (CUDA events) and its bound
+     direction of ec, ec_dtzs and v1_ec (device busy and idle share); one
+     traced run of each direction of the bench-array DTZS paths (the
+     stream's per-segment spans); each kernel's time beside its plain
+     version's (CUDA events), its bound and, for H and I, one PyTorch call
+     that computes the same function from the tight stream (library_ms)
 
 Any failed check raises, and the script exits non-zero without a result.
 Without CUDA it exits 2 at once. The line before the last two is the kernel
@@ -67,21 +80,36 @@ EC_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
               "dequant_idct")
 QT_KERNELS = ("qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
               "dpk_unpack_expand", "dequant_idct_qt")
-#: path name -> (mode, segment_elems, input); each DTZS path follows the
-#: monolithic path of the same mode and input
+V1_EC_KERNELS = ("dct_quant", "chunk_compact", "chunk_expand", "dequant_idct")
+V1_QT_KERNELS = ("qtable_qmax", "dct_quant_qt", "chunk_compact", "chunk_expand",
+                 "dequant_idct_qt")
+GENERIC_KERNELS = ("chunk_compact", "chunk_expand", "dequant_idct")
+N_CESM = 3600 * 1800  # one CESM field: n % 1024 == 128, the generic chain
+DPK = dict(error_bound=1e-3, container="v2", ids_codec="device", verify=True)
+#: path name -> (CodecConfig keywords, None for dz.compress(x)'s defaults;
+#: input; kernels the path must launch). Each DTZS path follows the
+#: monolithic path of the same mode and input.
 PATHS = {
-    "ec": ("ec", 0, "bench"),
-    "ec_dtzs": ("ec", "auto", "bench"),
-    "qt": ("qt", 0, "bench"),
-    "qt_dtzs": ("qt", "auto", "bench"),
-    "qt_x30": ("qt", 0, "x30"),
-    "qt_x30_dtzs": ("qt", "auto", "x30"),
+    "ec": (dict(DPK, mode="ec", segment_elems=0), "bench", EC_KERNELS),
+    "ec_dtzs": (dict(DPK, mode="ec", segment_elems="auto"), "bench", EC_KERNELS),
+    "qt": (dict(DPK, mode="qt", segment_elems=0), "bench", QT_KERNELS),
+    "qt_dtzs": (dict(DPK, mode="qt", segment_elems="auto"), "bench", QT_KERNELS),
+    "qt_x30": (dict(DPK, mode="qt", segment_elems=0), "x30", QT_KERNELS),
+    "qt_x30_dtzs": (dict(DPK, mode="qt", segment_elems="auto"), "x30", QT_KERNELS),
+    "v1_ec": (None, "bench", V1_EC_KERNELS),
+    "v1_qt": (dict(mode="qt"), "bench", V1_QT_KERNELS),
+    "v1_ec_verify": (dict(verify=True), "bench", V1_EC_KERNELS),
+    "v1_cesm": (dict(verify=True), "cesm", GENERIC_KERNELS),
+    "v2_deflate": (dict(container="v2", ids_codec="deflate", segment_elems=0,
+                        verify=True), "bench", V1_EC_KERNELS),
 }
-KERNELS_OF = {"ec": EC_KERNELS, "qt": QT_KERNELS}
 #: the path whose launch counts the kernel table reports (bench.py's
-#: configuration for the EC kernels, its QT twin for the QT ones)
+#: configuration for the DPK EC kernels, its QT twin for the QT ones, the
+#: package's default, v1 EC, for the non-DPK kernels)
 MAIN_PATH = {k: "ec_dtzs" for k in EC_KERNELS} | {
-    k: "qt_dtzs" for k in QT_KERNELS if k not in EC_KERNELS}
+    k: "qt_dtzs" for k in QT_KERNELS if k not in EC_KERNELS} | {
+    "dct_quant": "v1_ec", "chunk_compact": "v1_ec", "chunk_expand": "v1_ec",
+    "dct_quant_qt": "v1_qt"}
 SOURCES = {
     "qtable_qmax": ("dctz_tpu_torch/csrc/qtable_qmax.cu",
                     "dctz_tpu/ops/fused_encode.py:203"),
@@ -97,6 +125,21 @@ SOURCES = {
                      "dctz_tpu/ops/dpk_fuse.py:1041"),
     "dequant_idct_qt": ("dctz_tpu_torch/csrc/dequant_idct.cu",
                         "dctz_tpu/ops/dpk_fuse.py:1041"),
+    "dct_quant": ("dctz_tpu_torch/csrc/dct_quant.cu",
+                  "dctz_tpu/ops/fused_encode.py:363"),
+    "dct_quant_qt": ("dctz_tpu_torch/csrc/dct_quant.cu",
+                     "dctz_tpu/ops/fused_encode.py:294"),
+    "chunk_compact": ("dctz_tpu_torch/csrc/chunk_shuffle.cu",
+                      "dctz_tpu/ops/shuffle.py:422"),
+    "chunk_expand": ("dctz_tpu_torch/csrc/chunk_shuffle.cu",
+                     "dctz_tpu/ops/shuffle.py:435"),
+}
+#: what the library yardstick of a kernel computes, where there is one
+LIBRARY_NOTE = {
+    "chunk_compact": "torch.masked_select(vals, mask): the tight stream the "
+                     "host assembles from H's rows, not the rows",
+    "chunk_expand": "out.masked_scatter_(mask, tight): from the tight "
+                    "stream, not from rows",
 }
 
 
@@ -274,10 +317,13 @@ def main() -> int:
     import dctz_tpu_torch as dz
     from dctz_tpu_torch import api
     from dctz_tpu_torch.core import container as ct
+    from dctz_tpu_torch.core import entropy
     from dctz_tpu_torch.core import quantize as qz
     from dctz_tpu_torch.kernels import build
+    from dctz_tpu_torch.ops import compaction as cp
     from dctz_tpu_torch.ops import dpk_fuse as fk
     from dctz_tpu_torch.ops import fused_encode
+    from dctz_tpu_torch.ops import shuffle
     from dctz_tpu_torch.utils.bench_data import climate_formula_np
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -302,12 +348,12 @@ def main() -> int:
     report["build"] = {"seconds": build.last_build_s, "ptxas": ptxas}
 
     # 3. kernels against their plain versions, at the main paths' shapes
-    def cfg_of(mode, seg):
-        return dz.CodecConfig(mode=mode, error_bound=1e-3, container="v2",
-                              ids_codec="device", verify=True, segment_elems=seg)
+    def cfg_of(path):
+        kw = PATHS[path][0]
+        return None if kw is None else dz.CodecConfig(**kw)
 
-    cfg = cfg_of("ec", 0)
-    cfg_qt = cfg_of("qt", 0)
+    cfg = cfg_of("ec")
+    cfg_qt = cfg_of("qt")
     x_np = climate_formula_np(N)
     x_qt_np = x_np.copy()
     x_qt_np[::977] *= np.float32(30.0)
@@ -446,15 +492,92 @@ def main() -> int:
     require(over_dq == 0, f"D-QT: {over_dq} samples beyond 32 ulp of sf*max|coef|")
     kernels["dequant_idct_qt"] = {"max_abs_err": err_dq}
 
+    # the non-DPK kernels at the v1 paths' shapes (the bench array; 32Mi is
+    # its own 1024 pad). F and G: no id mismatch against the plain version,
+    # DC and stored values within the budget above; F: the same ids as A
+    # (verify off) at every AC position and the same values at DC and the
+    # escapes
+    budget_b = 32 * EPS32 * (xp / sf).reshape(-1, 64).abs().amax(1, keepdim=True)
+    col = torch.arange(64, device=dev)
+    ids_f, dcac_f = fused_encode.dct_quant(xp, sf, cfg.error_bound)
+    ids_fp, dcac_fp = fused_encode._dct_quant_plain(xp, sf, cfg)
+    ids_a0, coef_a0, _ok = fk.dct_quant_verify(xp, sf, tol, n, cfg.error_bound, False)
+    torch.cuda.synchronize()
+    esc_f = (ids_f == 255) & (col > 0)
+    mism_f = int((ids_f != ids_fp).sum())
+    err_f = (dcac_f - dcac_fp).abs().max().item()
+    like_a = (torch.equal(ids_f[:, 1:], ids_a0[:, 1:])
+              and torch.equal(dcac_f[esc_f], coef_a0[esc_f])
+              and torch.equal(dcac_f[:, 0], coef_a0[:, 0]))
+    emit("kernel_check", kernel="dct_quant", id_mismatches=mism_f, max_abs_err=err_f,
+         escapes=int(esc_f.sum()), equal_to_a=like_a)
+    require(mism_f == 0, f"F: {mism_f} id mismatches")
+    require(bool(((dcac_f - dcac_fp).abs() <= budget_b).all()), "F: dcac beyond the budget")
+    require(like_a, "F: differs from kernel A's ids or coefficients")
+    kernels["dct_quant"] = {"max_abs_err": err_f, "id_mismatch": 0.0}
+
+    q_b = fused_encode.qtable_qmax(xp, sf, cfg.error_bound)
+    ids_g, dcac_g = fused_encode.dct_quant(xp, sf, cfg.error_bound, q_b)
+    ids_gp, dcac_gp = fused_encode._dct_quant_plain(xp, sf, cfg_qt, q_b)
+    torch.cuda.synchronize()
+    esc_g = (ids_g == 255) & (col > 0)
+    mism_g = int((ids_g != ids_gp).sum())
+    lim_g = torch.where(esc_g, budget_b * (cfg.error_bound * cfg_qt.qt_factor) / q_b
+                        + 4 * EPS32 * dcac_gp.abs(), budget_b.expand_as(dcac_gp))
+    over_g = int(((dcac_g - dcac_gp).abs() > lim_g).sum())
+    err_g = (dcac_g - dcac_gp).abs().max().item()
+    emit("kernel_check", kernel="dct_quant_qt", id_mismatches=mism_g, max_abs_err=err_g,
+         over_budget=over_g, escapes=int(esc_g.sum()),
+         qtable_entries_above_1=int((q_b[1:] > 1.0).sum()))
+    require(mism_g == 0, f"G: {mism_g} id mismatches")
+    require(over_g == 0, "G: stored values beyond the budget")
+    kernels["dct_quant_qt"] = {"max_abs_err": err_g, "id_mismatch": 0.0}
+
+    # H on F's AC escapes at the default capacity, as the v1_ec encode runs it
+    mask_h = esc_f.reshape(-1, cw)
+    vals_h = dcac_f.reshape(-1, cw)
+    capc_h = min(128, cw)
+    rows_h, cnt_h = shuffle.compact_f32(mask_h, vals_h, capc_h)
+    rows_hp, cnt_hp = cp.compact_rows(mask_h, vals_h, capc_h)
+    torch.cuda.synchronize()
+    require(torch.equal(rows_h.view(torch.int32), rows_hp.view(torch.int32))
+            and torch.equal(cnt_h, cnt_hp), "H: differs from the plain version")
+    emit("kernel_check", kernel="chunk_compact", byte_equal=True, max_abs_err=0.0,
+         rows=rows_h.shape[0], cw=cw, capacity=capc_h,
+         overflowed_rows=int((cnt_h > capc_h).sum()))
+    kernels["chunk_compact"] = {"max_abs_err": 0.0}
+
+    # I on what the decode of the v1_ec container hands it
+    blob_v1 = dz.compress(x_np, device="cuda")
+    h1, bz1, dz1, az1, _q1 = ct.parse_v1(blob_v1)
+    raw1 = entropy.inflate_streams([bz1, dz1, az1])
+    (ids_h1, _dc1, rows1), n_str1, _cfg1 = api._host_coded_prep(h1, *raw1)
+    ids_i = torch.from_numpy(np.array(ids_h1)).to(dev)
+    rows_i = torch.from_numpy(np.array(rows1)).to(dev)
+    mask_i = (qz.ac_mask(ids_i.shape[0], 64, n_str1, dev) & (ids_i == 255)).reshape(
+        rows_i.shape[0], -1)
+    acv_i = shuffle.expand(mask_i, rows_i)
+    acv_ip = cp.expand_rows(mask_i, rows_i)
+    tight_i = torch.from_numpy(np.frombuffer(raw1[2], np.float32, h1.ac_count).copy()).to(dev)
+    out_i = torch.zeros_like(acv_i)
+    out_i.masked_scatter_(mask_i, tight_i)
+    torch.cuda.synchronize()
+    require(torch.equal(acv_i.view(torch.int32), acv_ip.view(torch.int32)),
+            "I: differs from the plain version")
+    require(torch.equal(acv_i, out_i), "I: differs from masked_scatter of the AC stream")
+    emit("kernel_check", kernel="chunk_expand", byte_equal=True, max_abs_err=0.0,
+         rows=rows_i.shape[0], cw=mask_i.shape[1], capacity=rows_i.shape[1])
+    kernels["chunk_expand"] = {"max_abs_err": 0.0}
+
     # 4. end to end through the public API, one path at a time; the counters
     # count each path's own run only
-    inputs = {"bench": x_np, "x30": x_qt_np}
+    inputs = {"bench": x_np, "x30": x_qt_np, "cesm": climate_formula_np(N_CESM)}
     tolx = {k: cfg.error_bound * float(x.max() - x.min()) for k, x in inputs.items()}
     launches, blobs, decoded, e2e = {}, {}, {}, {}
-    for path, (mode, seg, inp) in PATHS.items():
-        pcfg = cfg_of(mode, seg)
+    for path, (kw, inp, needed) in PATHS.items():
+        pcfg = cfg_of(path)
+        seg = (kw or {}).get("segment_elems")
         x = inputs[inp]
-        needed = KERNELS_OF[mode]
         fk.reset_launches()
         blob = dz.compress(x, config=pcfg, device="cuda")
         y = dz.decompress(blob, device="cuda")
@@ -463,14 +586,19 @@ def main() -> int:
         ev = dz.evaluate(x, y, cfg.error_bound)
         ratio = x.nbytes / len(blob)
         dtzs = blob[:4] == b"DTZS"
-        emit("end_to_end", path=path, input=inp, n=n, bytes_in=x.nbytes,
-             bytes_out=len(blob),
+        fmt = "dtzs" if dtzs else ct.detect_format(blob)
+        if fmt == "v2":
+            fmt += " dpk" if ct.parse_v2(blob)[0].dpk else " host-coded"
+        emit("end_to_end", path=path, input=inp, n=x.size, bytes_in=x.nbytes,
+             bytes_out=len(blob), container=fmt,
              ratio=ratio, dtzs=dtzs, launches=launches[path], psnr_db=ev["psnr_db"],
              max_rel_err=ev["max_rel_err"], bound_satisfied=ev["bound_satisfied"])
         missing = [k for k in needed if launches[path][k] == 0]
         require(not missing, f"{path}: kernels not launched: {missing}")
         require(ev["bound_satisfied"], f"{path}: pointwise bound violated")
-        require(dtzs == (seg == "auto"), f"{path}: unexpected container")
+        want = ("dtzs" if seg == "auto" else "v1" if kw is None or "container" not in kw
+                else "v2 dpk" if kw["ids_codec"] == "device" else "v2 host-coded")
+        require(fmt == want, f"{path}: wrote {fmt}, not {want}")
         if dtzs:
             same_bits = y.tobytes() == decoded[path.removesuffix("_dtzs")].tobytes()
             emit("dtzs_vs_monolithic", path=path, bit_equal=same_bits)
@@ -501,8 +629,9 @@ def main() -> int:
     from dctz_tpu_torch.utils.timing import StageTimer
 
     report["throughput"], report["stages"], report["profile"] = {}, {}, {}
-    for path, (mode, seg, inp) in PATHS.items():
-        pcfg, x, blob = cfg_of(mode, seg), inputs[inp], blobs[path]
+    for path, (kw, inp, _needed) in PATHS.items():
+        pcfg, x, blob = cfg_of(path), inputs[inp], blobs[path]
+        seg = (kw or {}).get("segment_elems")
         t_c = wall_s(lambda: dz.compress(x, config=pcfg, device="cuda"), REPS)
         t_d = wall_s(lambda: dz.decompress(blob, device="cuda"), REPS)
         gbs_c, gbs_d = x.nbytes / t_c / 1e9, x.nbytes / t_d / 1e9
@@ -519,18 +648,28 @@ def main() -> int:
                                       "card": card}
         report["stages"][path] = {"compress": tc.report(x.nbytes),
                                   "decompress": td.report(x.nbytes)}
-        if mode == "ec":
+        if path in ("ec", "ec_dtzs", "v1_ec"):
             report["profile"][path] = profile_once(dz, x, pcfg, blob, card, path)
         if seg == "auto" and inp == "bench":
             report.setdefault("pipeline_trace", {})[path] = pipeline_trace(
                 dz, x, pcfg, blob, card, path)
 
-    # each kernel's time against its plain version and its bound: bytes are
+    # each kernel's time against its plain version, its bound and, where
+    # one PyTorch call computes the same function, that call: bytes are
     # each input read once and each output written once; operations are the
-    # fp32 FMAs of the transforms (2 FLOP each): E's and A's forward DCT and
-    # D's inverse, 64 per sample (A's verify reconstructs depend on the
-    # screen and are not counted, so A's bound is a least time)
+    # fp32 FMAs of the transforms (2 FLOP each): E's, A's, F's and G's
+    # forward DCT and D's inverse, 64 per sample (A's verify reconstructs
+    # depend on the screen and are not counted, so A's bound is a least
+    # time); H and I do no arithmetic to speak of, and read a value only
+    # where it is kept (H: the first capc masked values of a row; I: one
+    # row slot per masked position), so their bytes count those values of
+    # this run's data, not the whole value array
     dct_flops = 2.0 * 64 * n_pad
+    out_lib = torch.zeros_like(acv_i)
+    library = {
+        "chunk_compact": lambda: torch.masked_select(vals_h, mask_h),
+        "chunk_expand": lambda: out_lib.masked_scatter_(mask_i, tight_i),
+    }
     timed = {
         "qtable_qmax": (
             lambda: fused_encode.qtable_qmax(xq, sf_q, cfg.error_bound),
@@ -561,6 +700,23 @@ def main() -> int:
             lambda: fk._dequant_idct_plain(ids_qck, acv_qck, dcq_d, sfq_d, hq_cfg,
                                            nq_stream, q_d),
             nbytes(ids_qck, acv_qck, dcq_d, q_d, x_dqk), 2.0 * 64 * nblk_q * 64),
+        "dct_quant": (
+            lambda: fused_encode.dct_quant(xp, sf, cfg.error_bound),
+            lambda: fused_encode._dct_quant_plain(xp, sf, cfg),
+            nbytes(xp, ids_f, dcac_f), dct_flops),
+        "dct_quant_qt": (
+            lambda: fused_encode.dct_quant(xp, sf, cfg.error_bound, q_b),
+            lambda: fused_encode._dct_quant_plain(xp, sf, cfg_qt, q_b),
+            nbytes(xp, q_b, ids_g, dcac_g), dct_flops),
+        "chunk_compact": (
+            lambda: shuffle.compact_f32(mask_h, vals_h, capc_h),
+            lambda: cp.compact_rows(mask_h, vals_h, capc_h),
+            nbytes(mask_h, rows_h, cnt_h)
+            + 4 * int(torch.clamp_max(cnt_h, capc_h).sum()), 0.0),
+        "chunk_expand": (
+            lambda: shuffle.expand(mask_i, rows_i),
+            lambda: cp.expand_rows(mask_i, rows_i),
+            nbytes(mask_i, acv_i) + 4 * int(mask_i.sum()), 0.0),
     }
     require(nblk_pad == nblk == nblk_q, "kernel shapes differ from the main path's")
     rows_out = []
@@ -570,16 +726,21 @@ def main() -> int:
         k2 = cuda_ms(kfn, REPS)
         p2 = cuda_ms(pfn, REPS)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        lib_runs = ([cuda_ms(library[name], REPS) for _ in range(2)]
+                    if name in library else [])
+        lib_ms = sum(lib_runs) / 2 if lib_runs else None
         b_ms, b_by = bound_ms(n_bytes, flops)
         src, rep = SOURCES[name]
         rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                          "launches": launches[MAIN_PATH[name]][name],
                          "max_abs_err": kernels[name]["max_abs_err"],
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": None})
+                         "bound_by": b_by, "library_ms": lib_ms})
         emit("kernel_time", kernel=name, card=card, ms=ms, plain_ms=plain_ms,
-             bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops,
-             runs=[k1, k2], plain_runs=[p1, p2], ptxas=ptxas.get(name))
+             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+             library=LIBRARY_NOTE.get(name), bytes=n_bytes, flops=flops,
+             runs=[k1, k2], plain_runs=[p1, p2], library_runs=lib_runs,
+             ptxas=ptxas.get(name))
     report["kernels"] = rows_out
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -1,16 +1,18 @@
 """dctz_tpu_torch: the PyTorch + CUDA port of DCTZ-TPU.
 
-The JAX package dctz_tpu stays the reference. This package runs the slice its
-benchmark measures (float32, EC or QT, v2 container with the device-packed id
-stream, verify on or off, monolithic or as a segmented DTZS stream) on an
-NVIDIA H100 through hand-written CUDA kernels (ops/dpk_fuse.py,
-ops/fused_encode.py, csrc/), and on the CPU through their plain PyTorch
-versions. It imports torch and numpy, never jax or triton.
+The JAX package dctz_tpu stays the reference. This package runs float32
+input, EC or QT, verify on or off, in the v1 container (the reference's own
+format and the default), in v2 with the device-packed id stream (monolithic
+or as a segmented DTZS stream) and in host-coded v2 (ids_codec "deflate" or
+"rans"), on an NVIDIA H100 through hand-written CUDA kernels
+(ops/dpk_fuse.py, ops/fused_encode.py, ops/shuffle.py, csrc/), and on the
+CPU through their plain PyTorch versions. It imports torch and numpy, never
+jax or triton.
 
     import numpy as np, dctz_tpu_torch as dz
-    cfg = dz.CodecConfig(mode="qt", container="v2", ids_codec="device",
-                         verify=True)
-    blob = dz.compress(x, config=cfg, device="cuda")  # DTZS from 32Mi on
+    blob = dz.compress(x, 1e-3, "ec", device="cuda")  # a v1 container
+    cfg = dz.CodecConfig(mode="qt", container="v2", verify=True)
+    blob = dz.compress(x, config=cfg, device="cuda")  # DPK; DTZS from 32Mi on
     y = dz.decompress(blob, device="cuda")
 
 The stream writer and readers are in dz.stream, as in dctz_tpu.stream:

@@ -1,20 +1,37 @@
 """Public compress / decompress of the PyTorch port (port of dctz_tpu/api.py).
 
-The port runs the slice of the JAX package's configurations that its
-benchmark measures: float32 input, mode "ec" or "qt", a v2 container with
-the device-packed id stream (ids_codec="device", DPK), verify on or off,
-monolithic or segmented into a DTZS stream (segment_elems, stream.py; the
-default "auto" segments arrays of stream.AUTO_THRESHOLD elements or more).
-Everything else raises NotImplementedError naming the ROADMAP item that
-will port it; nothing falls back silently.
+The port runs float32 input, mode "ec" or "qt", verify on or off, in three
+container families, dispatched as the JAX package dispatches on its TPU:
 
-  compress:   stats (sf, mean) -> tolerance -> [QT: kernel E, the qtable]
-              -> kernels A + B (ops/dpk_fuse.encode_x_fused; retried at full
-              chunk width on exception overflow) -> byte-plane split on the
-              device -> host container assembly (_pack_dpk_v2); the
-              monolithic container is the stream writer's one-segment case
-  decompress: parse -> host re-pad of the tight sections (_dpk_decode_prep)
-              -> planes back to float32 on the device -> kernels C + D
+  DPK v2 (ids_codec="device", what "auto" means for v2), monolithic or
+    segmented into a DTZS stream (segment_elems; the default "auto" segments
+    arrays of stream.AUTO_THRESHOLD elements or more):
+      compress:   stats -> tolerance -> [QT: kernel E] -> kernels A + B
+                  (retried at full chunk width on exception overflow) ->
+                  byte planes on the device -> host assembly (_pack_dpk_v2);
+                  the monolithic container is the stream writer's
+                  one-segment case
+      decompress: parse -> host re-pad (_dpk_decode_prep) -> kernels C + D
+  v1, the reference's own format and the default (CodecConfig() and
+    compress(x) with no config), and host-coded v2 (ids_codec "deflate" or
+    "rans", monolithic):
+      compress, fused branch (v2 always, v1 when n % 1024 == 0;
+                  _fused_eligible): pad to 1024 -> stats -> [QT: kernel E]
+                  -> kernel F or G -> [verify: _repair_fused, torch ops]
+                  -> kernel H (full chunk width on overflow) -> host
+                  streams (deflate, ids4/rANS for v2) -> container
+      compress, generic chain (v1 with n % 1024 != 0): stats -> DCT with a
+                  rem-point tail -> bins (QT: column-max qtable) -> [verify]
+                  -> kernel H; the transform, bins and repair are torch ops
+                  on the device in full float32, as dctz_tpu leaves them to
+                  XLA (_compress_generic)
+      decompress: parse -> inflate -> DC marks on a partial last block ->
+                  per-chunk AC counts from the ids -> rows -> kernel I ->
+                  kernel D (rem-point tail in-kernel) -> the first n samples
+
+Everything else raises NotImplementedError naming the ROADMAP item that
+will port it (host-coded DTZS frames: item 8; float64, brsf != 1 and the
+other codec options: item 9); nothing falls back silently.
 
 `device` is explicit ("cuda" by default; the CPU tests pass "cpu"). On a
 CUDA device every kernel of the path launches; on the CPU each kernel's
@@ -23,6 +40,7 @@ plain version runs instead.
 
 from __future__ import annotations
 
+import dataclasses
 import struct
 import warnings
 from typing import Any
@@ -47,13 +65,9 @@ def _todo(what: str, item: str) -> NotImplementedError:
     )
 
 
-def _check_slice(cfg: CodecConfig, n: int) -> None:
-    """Raise for every configuration outside the ported slice."""
-    if cfg.container != "v2":
-        raise _todo("the v1 container", "8")
-    if cfg.ids_codec != "device":
-        raise _todo(f"ids_codec={cfg.ids_codec!r} ({cfg.mode.upper()} mode)",
-                    "8")
+def _check_slice(cfg: CodecConfig) -> None:
+    """Raise for every codec option outside the ported slice (the container
+    families are checked where they are dispatched)."""
     if cfg.rate != "fixed" or cfg.brsf != 1.0:
         raise _todo("rate='auto' / brsf != 1", "9")
     if cfg.dct_precision != "highest":
@@ -64,6 +78,38 @@ def _check_slice(cfg: CodecConfig, n: int) -> None:
         raise _todo("non-default block/bin geometry or truncate=False", "9")
     if cfg.internal_dtype not in ("auto", "float32"):
         raise ValueError(f"internal_dtype {cfg.internal_dtype!r}")
+
+
+def _resolve_ids_codec(cfg: CodecConfig) -> CodecConfig:
+    """ids_codec="auto" with a v2 container means the device (DPK) coder
+    (dctz_tpu/api.py:1742-1755 on its accelerator), on every device: the
+    CPU run is the plain twin of the card run and writes the same
+    container."""
+    if cfg.ids_codec == "auto" and cfg.container == "v2":
+        return dataclasses.replace(cfg, ids_codec="device")
+    return cfg
+
+
+def _upgrade_container(cfg: CodecConfig) -> CodecConfig:
+    """The v1 format has no geometry or brsf fields (dctz_tpu/api.py:
+    1811-1832): v1 with a non-default block size or bin count, or with
+    brsf != 1, warns and writes v2."""
+    if cfg.container == "v1" and (cfg.block_size != C.BLK_SZ
+                                  or cfg.nbins != C.NBINS):
+        warnings.warn(
+            "v1 containers only support block_size=64 / nbins=255 (the "
+            "reference layout has no geometry fields); writing v2 instead",
+            stacklevel=3,
+        )
+        cfg = dataclasses.replace(cfg, container="v2")
+    if cfg.brsf != 1.0 and cfg.container == "v1":
+        warnings.warn(
+            "v1 containers cannot record brsf (fixed reference layout); "
+            "writing v2 instead",
+            stacklevel=3,
+        )
+        cfg = dataclasses.replace(cfg, container="v2")
+    return cfg
 
 
 def _resolve_segment(cfg: CodecConfig, n: int) -> int | None:
@@ -310,27 +356,31 @@ def _resolve_input(x, device) -> torch.Tensor:
 
 def compress(
     x: Any,
+    error_bound: float = 1e-3,
+    mode: str = "ec",
     *,
-    config: CodecConfig,
+    config: CodecConfig | None = None,
     timer=None,
     device: str | torch.device = "cuda",
 ) -> bytes:
-    """Compress a flat float32 array (numpy or torch) into a DPK v2
-    container, or into a DTZS stream of them when the array is segmented
-    (cfg.segment_elems, _resolve_segment).
-
-    Unlike dctz_tpu.compress, `config` is required and must select the
-    ported slice (container="v2", ids_codec="device", mode "ec" or "qt")."""
+    """Compress a flat float32 array (numpy or torch); returns the container
+    bytes. The signature of dctz_tpu.compress plus `device`: with no config
+    it writes CodecConfig(mode=mode, error_bound=error_bound), a v1
+    container. A v2 config writes a DPK container (ids_codec "device" or
+    "auto"), or a DTZS stream of them when the array is segmented
+    (cfg.segment_elems, _resolve_segment), or a host-coded v2 container
+    (ids_codec "deflate" or "rans")."""
     from .utils.timing import StageTimer
 
     timer = timer or StageTimer()
-    cfg = config
+    cfg = config or CodecConfig(mode=mode, error_bound=error_bound)
+    cfg = _resolve_ids_codec(_upgrade_container(cfg))
     with timer.stage("transfer"):
         arr = _resolve_input(x, device)
     n = int(arr.shape[0])
     if n == 0:
         raise ValueError("cannot compress an empty array")
-    _check_slice(cfg, n)
+    _check_slice(cfg)
     seg = _resolve_segment(cfg, n)
     if seg:
         # the pipelined path: the device encodes segment k + 1 while a host
@@ -345,10 +395,199 @@ def compress(
             stream.compress_stream(arr, buf, config=cfg, segment_elems=seg,
                                    device=arr.device)
         return buf.getvalue()
-    return _compress_fused(arr, n, cfg, timer)
+    if _fused_eligible(cfg, n):
+        return _compress_fused(arr, n, cfg, timer)
+    return _compress_generic(arr, n, cfg, timer)
+
+
+def _fused_eligible(cfg: CodecConfig, n: int) -> bool:
+    """dctz_tpu/api.py:269-305 for the configurations _check_slice admits:
+    the fused kernels take every v2 container, and a v1 container only when
+    n % 1024 == 0 (the reference stream layout allows no padding)."""
+    return cfg.container == "v2" or n % 1024 == 0
+
+
+def _warn_bound() -> None:
+    warnings.warn(
+        "verify-repair could not fully satisfy the pointwise bound "
+        "(float32-truncation floor)",
+        stacklevel=4,
+    )
 
 
 def _compress_fused(arr: torch.Tensor, n: int, cfg: CodecConfig, timer) -> bytes:
+    """dctz_tpu.api._compress_fused: the DPK branch, or the non-DPK branch
+    for v1 and host-coded v2. The latter pads to the 1024 quantum, then
+    without verify runs fused_encode_pipeline(_qt) (F, or E and G, then H);
+    with verify it runs F or G and _repair_fused, skipping the pipeline's
+    compaction that the JAX package computes and discards before its repair
+    (dctz_tpu/api.py:420-448). The id stream holds n ids for v1 (n == n_pad
+    there) and n_pad for v2 (dctz_tpu/api.py:526)."""
+    from . import stream
+    from .ops import fused_encode as fe
+
+    if cfg.container == "v2" and cfg.ids_codec == "device":
+        return _compress_fused_dpk(arr, n, cfg, timer)
+    eb = cfg.error_bound
+    with timer.stage("device"):
+        x = stream._on_device(arr, arr.device)
+        n_pad = int(x.shape[0])
+        sf, mean = _stats_device(x, n, cfg.sf_adj)
+        ok = None
+        if cfg.verify:
+            if cfg.mode == "qt":
+                ids, dcac, qtable = fe.fused_encode_qt(x, sf, eb)
+            else:
+                (ids, dcac), qtable = fe.fused_encode_ec(x, sf, eb), None
+            q, ok = _repair_fused(x, sf, ids, dcac[:, 0], n, cfg, qtable)
+        elif cfg.mode == "qt":
+            q = fe.fused_encode_pipeline_qt(x, sf, eb)
+        else:
+            q = fe.fused_encode_pipeline(x, sf, eb)
+        qtable = (fe.patch_slot0(q.qtable, q.dc, n) if q.qtable is not None
+                  else None)
+    stream_len = n if cfg.container == "v1" else n_pad
+    return _pack_host_coded(q, qtable, ok, sf, mean, n, stream_len, cfg, timer)
+
+
+def _repair_fused(x: torch.Tensor, sf: torch.Tensor, ids: torch.Tensor,
+                  dc: torch.Tensor, n: int, cfg: CodecConfig, qtable=None):
+    """Verify-repair of the fused non-DPK branch (dctz_tpu/api.py:308-332):
+    recompute the coefficients with a torch matmul (as the JAX package does
+    with XLA; ulp differences from kernel F or G are absorbed by the bin-id
+    indirection), repair over the padded length with the tolerance of the n
+    real samples, and compact (kernel H). Returns (Quantized, ok)."""
+    from .ops import fused_encode as fe
+    from .ops import repair
+
+    n_pad = x.shape[0]
+    bs = cfg.block_size
+    coeffs = _forward_padded(x / sf, bs)
+    tol = fe.tolerance(x, n, cfg.error_bound)
+    ids2, ok = repair.verify_repair(x, coeffs, sf, ids, dc, n_pad, n, cfg,
+                                    tol, qtable)
+    acm = qz.ac_mask(n_pad // bs, bs, n_pad, x.device)
+    dense = repair.stored_dense(coeffs, ids2, acm, cfg, qtable)
+    return qz.repack(ids2, dense, dc, qtable, n_pad, cfg), ok
+
+
+def _forward_padded(xs: torch.Tensor, bs: int) -> torch.Tensor:
+    """(nblk, bs) coefficients of a flat scaled array: whole blocks, and a
+    partial last block through the rem-point basis, zero-padded to a row
+    (transform.forward then dctz_tpu.api._pad_coeffs)."""
+    from .core import transform
+
+    main_c, tail_c = transform.forward(xs, bs)
+    if tail_c.shape[0] == 0:
+        return main_c
+    tail_row = torch.nn.functional.pad(tail_c, (0, bs - tail_c.shape[0]))
+    return torch.cat([main_c, tail_row[None, :]])
+
+
+def _compress_generic(arr: torch.Tensor, n: int, cfg: CodecConfig,
+                      timer) -> bytes:
+    """The generic chain (dctz_tpu/api.py:1870-1978, _encode_device), taken
+    by v1 containers with n % 1024 != 0: stats over the n samples, the DCT
+    with a rem-point tail, bins (QT: the column-max qtable, slot 0 the last
+    block's DC, unclamped), verify-repair when asked, and the compaction
+    (kernel H). The ids of the n real positions make the stream."""
+    from .core.stats import amax_mean, scaling_factor
+    from .ops import fused_encode as fe
+    from .ops import repair
+
+    bs = cfg.block_size
+    with timer.stage("device"):
+        amax, mean = amax_mean(arr, n)
+        sf = scaling_factor(amax, cfg.sf_adj)
+        coeffs = _forward_padded(arr / sf, bs)
+        ids, dc, vals, qtable = qz.quantize(coeffs, n, cfg)
+        ok = None
+        if cfg.verify:
+            tol = fe.tolerance(arr, n, cfg.error_bound)
+            ids, ok = repair.verify_repair(arr, coeffs, sf, ids, dc, n, n, cfg,
+                                           tol, qtable)
+            acm = qz.ac_mask(coeffs.shape[0], bs, n, arr.device)
+            vals = repair.stored_dense(coeffs, ids, acm, cfg, qtable)
+        q = qz.repack(ids, vals, dc, qtable, n, cfg)
+    return _pack_host_coded(q, qtable, ok, sf, mean, n, n, cfg, timer)
+
+
+def _pack_host_coded(q, qtable, ok, sf, mean, n: int, stream_len: int,
+                     cfg: CodecConfig, timer) -> bytes:
+    """Pull the device streams (pinned memory on the card) and assemble a v1
+    or host-coded v2 container: the first stream_len ids, the DC stream and
+    the tight AC stream (dctz_tpu/api.py:524-545)."""
+    from . import stream
+
+    with timer.stage("transfer"):
+        ids, dc, ac_rows, counts, qt, ok = stream._start_pull(
+            [q.bin_ids, q.dc, q.ac_buf, q.ac_count, qtable, ok])()
+        sf, mean = float(sf), float(mean)
+    if ok is not None and not bool(ok):
+        _warn_bound()
+    header = ct.Header(
+        dtype=np.dtype(np.float32),
+        num_elements=n,
+        error_bound=cfg.error_bound,
+        ac_count=int(counts.sum()),
+        scaling_factor=sf,
+        mean=mean,
+        bindex_nbytes=0,
+        dc_nbytes=0,
+        ac_nbytes=0,
+        mode=cfg.mode,
+        block_size=cfg.block_size,
+        nbins=cfg.nbins,
+        truncate=cfg.truncate,
+        brsf=cfg.brsf,
+    )
+    with timer.stage("zlib"):
+        ac = entropy.take_row_prefixes(ac_rows, counts)
+        flat_ids = ids.reshape(-1)[:stream_len].tobytes()
+        if cfg.container == "v1":
+            bz, dz, az = entropy.deflate_streams(
+                [flat_ids, dc.tobytes(), ac.tobytes()], cfg.zlib_level)
+            header.bindex_nbytes, header.dc_nbytes, header.ac_nbytes = (
+                len(bz), len(dz), len(az))
+            return ct.pack_v1(header, bz, dz, az, qt)
+        header.shuffle = cfg.shuffle
+        streams = _ids_streams(flat_ids, cfg, header) + (
+            _float_sections(dc.tobytes(), 4, cfg, header, dc=True),
+            _float_sections(ac.tobytes(), 4, cfg, header),
+        )
+        return ct.pack_v2(header, streams, qt, cfg.chunk_bytes)
+
+
+def _ids_streams(ids_bytes: bytes, cfg: CodecConfig, header: ct.Header):
+    """The bin-index section(s) of a host-coded v2 container: (packed,
+    exceptions) with the IDS4 nibble filter, the packed nibbles in native
+    rANS for ids_codec="rans" else Huffman-only deflate; or the raw stream
+    deflated (a copy of dctz_tpu.api._ids_streams; "auto" never reaches
+    here, _resolve_ids_codec makes it "device")."""
+    if not cfg.ids4:
+        level = cfg.ids_zlib_level or cfg.zlib_level
+        return (entropy.chunked_deflate(ids_bytes, cfg.chunk_bytes, level),)
+    header.ids4 = True
+    packed, exc = entropy.pack_ids4(ids_bytes)
+    header.zst = cfg.ids_zlib_level is None and _zstd_on(cfg)
+    exc_sec = (
+        entropy.chunked_zstd(exc, cfg.chunk_bytes, 1)
+        if header.zst
+        else entropy.chunked_deflate(exc, cfg.chunk_bytes, cfg.ids_zlib_level or 1)
+    )
+    if cfg.ids_codec == "rans":
+        from . import native
+
+        header.rans = True
+        return ([native.rans_compress(packed)], exc_sec)
+    return (
+        entropy.chunked_deflate(packed, cfg.chunk_bytes, 1, entropy.HUFFMAN_ONLY),
+        exc_sec,
+    )
+
+
+def _compress_fused_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
+                        timer) -> bytes:
     """The DPK EC/QT branch of dctz_tpu.api._compress_fused, as the
     one-segment case of the stream writer: pad to the tile quantum, stats,
     tolerance, [QT: kernel E], then the segment's device stage (kernels
@@ -377,11 +616,7 @@ def _compress_fused(arr: torch.Tensor, n: int, cfg: CodecConfig, timer) -> bytes
             cfg, bound_bad,
         )
     if bound_bad:
-        warnings.warn(
-            "verify-repair could not fully satisfy the pointwise bound "
-            "(float32-truncation floor)",
-            stacklevel=3,
-        )
+        _warn_bound()
     return blob
 
 
@@ -407,12 +642,20 @@ def _float_raw(header: ct.Header, chunks, planes_ok: bool):
         if itemsize == 1:
             return shuffled
         return entropy.unshuffle_bytes(shuffled, itemsize)
+    return _decode_float_section(header, chunks)
+
+
+def _decode_float_section(header: ct.Header, chunks, dc: bool = False) -> bytes:
+    """Inverse of _float_sections; dc=True also inverts the DC delta
+    (header.dcd) on the host, as dctz_tpu's generic decode does."""
     if header.plc:
         raw = entropy.decode_float_stream(chunks)
     else:
         raw = entropy.chunked_inflate(chunks)
         if header.shuffle:
             raw = entropy.unshuffle_bytes(raw, header.stored_dtype.itemsize)
+    if dc and header.dcd:
+        raw = entropy.f32_delta_inv(np.frombuffer(raw, np.float32)).tobytes()
     return raw
 
 
@@ -541,17 +784,22 @@ def _decode_device_dpk(width, packed_rows, exc_rows, dc, ac_buf, n: int,
                                  cw, n, qtable)
 
 
+def _require_f32(header: ct.Header) -> None:
+    if header.dtype != np.float32:
+        raise _todo("float64 containers (the v1 float64 parity path "
+                    "among them)", "9")
+
+
 def _parse_dpk(blob):
-    """(header, streams, qtable) of a DPK v2 float32 container; raises for
-    every other container."""
+    """(header, streams, qtable) of a DTZS frame, which the port reads only
+    as a DPK v2 float32 container: a host-coded frame raises."""
     if ct.detect_format(blob) != "v2":
-        raise _todo("the v1 container", "8")
+        raise _todo("a DTZS frame that is a v1 container", "8")
     header, streams, qtable, _cb = ct.parse_v2(blob)
     if not header.dpk:
-        raise _todo(f"v2 {header.mode.upper()} containers without the DPK "
-                    f"id stream", "8")
-    if header.dtype != np.float32:
-        raise _todo("float64 containers", "9")
+        raise _todo("a DTZS frame without the DPK id stream (host-coded "
+                    "DTZS frames)", "8")
+    _require_f32(header)
     return header, streams, qtable
 
 
@@ -582,10 +830,108 @@ def _decompress_dpk(header: ct.Header, streams, qtable, timer,
     return out[:n]
 
 
+def _inflate_v2_streams(header: ct.Header, streams):
+    """Inflate and de-filter a host-coded v2 container's sections -> (bindex,
+    dc, ac) bytes (a copy of dctz_tpu.api._inflate_v2_streams)."""
+    if header.ids4:
+        packed_z, exc_z, dz, az = streams
+        if header.rans:
+            from . import native
+
+            packed = native.rans_decompress(b"".join(packed_z))
+        else:
+            packed = entropy.chunked_inflate(packed_z)
+        exc = (entropy.chunked_unzstd(exc_z) if header.zst
+               else entropy.chunked_inflate(exc_z))
+        # the stream length is self-describing: one exception byte per
+        # 15-nibble plus the odd tail byte (if any)
+        p = np.frombuffer(packed, np.uint8)
+        count15 = int(((p & 15) == 15).sum()) + int(((p >> 4) == 15).sum())
+        odd = len(exc) - count15
+        bindex = entropy.unpack_ids4(packed, exc, 2 * len(packed) + odd)
+    else:
+        bz, dz, az = streams
+        bindex = entropy.chunked_inflate(bz)
+    return (bindex, _decode_float_section(header, dz, dc=True),
+            _decode_float_section(header, az))
+
+
+def _chunk_escape_counts(flat_ids: np.ndarray, cw: int, bs: int) -> np.ndarray:
+    """Per-chunk AC counts from the bin_index stream: every block carries
+    exactly one DC escape mark (dctz-comp-lib.c:361), so counts = (#ESCAPE
+    bytes per chunk) - cw/bs. Split over the entropy thread pool (numpy
+    releases the GIL in the compare and the sum), as dctz_tpu does."""
+    nc = flat_ids.size // cw
+    view = flat_ids.reshape(nc, cw)
+    nthreads = min(4, max(1, nc // 64))
+    bounds = np.linspace(0, nc, nthreads + 1, dtype=int)
+    out = np.empty(nc, np.int32)
+
+    def work(i):
+        lo, hi = bounds[i], bounds[i + 1]
+        out[lo:hi] = (view[lo:hi] == C.ESCAPE).sum(axis=1, dtype=np.int32)
+
+    list(entropy._pool().map(work, range(nthreads)))
+    return out - cw // bs
+
+
+def _host_coded_prep(header: ct.Header, bindex, dc_raw, ac_raw):
+    """Host stage of a v1 or host-coded v2 decode (dctz_tpu/api.py:
+    2022-2058): the id stream holds n_stream ids (v1: n; v2 from the fused
+    branch: the padded length); a partial last block is padded with DC
+    marks, the per-chunk AC counts come from the ids, and the AC stream is
+    cut into rows of the smallest capacity tier that holds them. Returns
+    ((ids (nblk, bs) u8, dc (nblk,) f32, ac_rows (nc, capc) f32), n_stream,
+    cfg)."""
+    cfg = _header_config(header)
+    bs = header.block_size
+    if bs != C.BLK_SZ or header.nbins != C.NBINS:
+        raise _todo("non-default block/bin geometry", "9")
+    n_stream = len(bindex)
+    nblk = -(-n_stream // bs)
+    flat_ids = np.frombuffer(bindex, dtype=np.uint8, count=n_stream)
+    pad = nblk * bs - n_stream
+    if pad:
+        # bin 0 on the padding, and the padded block's DC mark, so that
+        # every block of a chunk holds one DC escape for the count below
+        flat_ids = np.concatenate([flat_ids, np.zeros(pad, np.uint8)])
+        flat_ids.reshape(nblk, bs)[:, 0] = C.ESCAPE
+    dc = np.frombuffer(dc_raw, dtype=np.float32, count=nblk)
+    ac = np.frombuffer(ac_raw, dtype=np.float32, count=header.ac_count)
+    cw = qz.chunk_width(nblk * bs, bs)
+    counts = _chunk_escape_counts(flat_ids, cw, bs)
+    capc = _capc_tier(int(counts.max()) if counts.size else 0, cw)
+    ac_rows = entropy.pad_row_prefixes(ac, counts, capc, np.float32)
+    return (flat_ids.reshape(nblk, bs), dc, ac_rows), n_stream, cfg
+
+
+def _decompress_host_coded(header: ct.Header, bindex, dc_raw, ac_raw, qtable,
+                           timer, device) -> np.ndarray:
+    """Decode of a v1 or host-coded v2 container: the host stage
+    (_host_coded_prep), then kernel I puts the AC rows back at the escapes
+    and kernel D dequantizes and runs the IDCT (the rem-point basis for a
+    partial last block); the first n samples are the result."""
+    from .ops import dpk_fuse
+
+    with timer.stage("host"):
+        host_arrays, n_stream, cfg = _host_coded_prep(header, bindex, dc_raw,
+                                                      ac_raw)
+    with timer.stage("transfer"):
+        (ids_d, dc_d, ac_d), sf, qt = _to_device(host_arrays, header, qtable,
+                                                 device)
+    with timer.stage("device"):
+        acv = qz.expand_ac(ids_d, ac_d, n_stream)
+        x = dpk_fuse.dequant_idct(ids_d, acv, dc_d, sf, cfg, n_stream, qt)
+    with timer.stage("transfer"):
+        out = x[:header.num_elements].cpu().numpy()
+    return out
+
+
 def decompress(blob: bytes | memoryview, *, timer=None,
                device: str | torch.device = "cuda") -> np.ndarray:
-    """Decompress a DPK EC/QT v2 container, or a DTZS stream of them, back
-    to a flat float32 numpy array."""
+    """Decompress a container of either format (v1, v2 with DPK or
+    host-coded ids) or a DTZS stream of DPK v2 containers back to a flat
+    float32 numpy array."""
     from .utils.timing import StageTimer
 
     timer = timer or StageTimer()
@@ -601,6 +947,18 @@ def decompress(blob: bytes | memoryview, *, timer=None,
             return stream.decompress_stream_all(stream.MemReader(blob),
                                                 device=device)
     with timer.stage("host"):
-        header, streams, qtable = _parse_dpk(blob)
-    return _decompress_dpk(header, streams, qtable, timer, device)
-
+        dpk = False
+        if ct.detect_format(blob) == "v2":
+            header, streams, qtable, _cb = ct.parse_v2(blob)
+            _require_f32(header)
+            dpk = header.dpk
+            if not dpk:
+                bindex, dc_raw, ac_raw = _inflate_v2_streams(header, streams)
+        else:
+            header, bz, dz, az, qtable = ct.parse_v1(blob)
+            _require_f32(header)
+            bindex, dc_raw, ac_raw = entropy.inflate_streams([bz, dz, az])
+    if dpk:
+        return _decompress_dpk(header, streams, qtable, timer, device)
+    return _decompress_host_coded(header, bindex, dc_raw, ac_raw, qtable,
+                                  timer, device)

@@ -21,9 +21,15 @@ class CodecConfig:
     """Full codec configuration: the same fields, defaults and validation
     as dctz_tpu.config.CodecConfig, whose docstring describes each field.
 
-    The port runs one slice of this space (api.py: mode "ec", container
-    "v2", ids_codec "device", float32 input, monolithic); compress() raises
-    NotImplementedError, naming the ROADMAP item, for the rest.
+    The port runs this slice of the space (api.py): float32 input, mode
+    "ec" or "qt", verify on or off; the v1 container (the default) at any
+    length; v2 with the device-packed ids (ids_codec "device", or "auto",
+    which means it for v2), monolithic or as a DTZS stream; and host-coded
+    v2 (ids_codec "deflate" or "rans", ids4 on or off), monolithic.
+    compress() raises NotImplementedError, naming the ROADMAP item, for the
+    rest: host-coded DTZS frames (item 8); rate="auto", brsf != 1,
+    dc_delta, dct_precision="high", float64 and non-default geometry
+    (item 9).
     """
 
     mode: Mode = "ec"

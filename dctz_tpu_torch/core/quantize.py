@@ -1,17 +1,23 @@
 """Bin assignment and dequantization (port of dctz_tpu/core/quantize.py).
 
-Only what the DPK slice needs: the bin geometry, the compaction chunk
-width, pass-1 bin assignment with escapes, the QT renormalization of
-escapes through the quantizer table (qtable) and its inverse, and the
-dequantization of bin ids plus escaped values back to coefficients.
+The bin geometry, the compaction chunk width, pass-1 bin assignment with
+escapes, the QT quantizer table (qtable), the renormalization of escapes
+through it and its inverse, the generic chain's quantization (quantize) and
+chunked AC compaction (repack, kernel H on the card), the expansion of the
+AC rows back onto the escapes (expand_ac, kernel I), and the dequantization
+of bin ids plus escaped values back to coefficients.
 
-All of it runs in float32, as the fused TPU path does: the float64 branch
-of dctz_tpu.core.quantize.encode (x64 on) is not this path. Every QT step
-is a separate, individually rounded float32 operation; the CUDA kernels
-reproduce that order with IEEE intrinsics (csrc/common.cuh).
+All of it runs in float32, as the fused TPU path does and as dctz_tpu's
+generic chain does with x64 off (its float32 input default): the float64
+arm of dctz_tpu.core.quantize.encode/decode (promote=True under x64) is not
+ported (ROADMAP item 9). Every QT step is a separate, individually rounded
+float32 operation; the CUDA kernels reproduce that order with IEEE
+intrinsics (csrc/common.cuh).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -122,6 +128,83 @@ def encode_ids_qt(coeffs: torch.Tensor, n: int, cfg: CodecConfig,
     re_in, ids = assign_bins(torch.where(in_range, coeffs, norm), cfg)
     binned = ac_mask(nblk, bs, n, coeffs.device) & re_in
     return torch.where(binned, ids, torch.full_like(ids, C.ESCAPE))
+
+
+class Quantized(NamedTuple):
+    """One array's quantized streams in the chunked AC layout (the JAX
+    package's chunked Quantized): ac_buf (nc, capc) rows, ac_count (nc,)
+    their true counts. overflowed: whether the default capacity overflowed
+    (repack then recompacted at full chunk width, so nothing was lost)."""
+
+    bin_ids: torch.Tensor  # (nblk, bs) uint8; DC, escapes, padding: ESCAPE
+    dc: torch.Tensor  # (nblk,) float32
+    ac_buf: torch.Tensor  # (nc, capc) float32
+    ac_count: torch.Tensor  # (nc,) int32
+    qtable: torch.Tensor | None  # (bs,) QT only
+    overflowed: torch.Tensor  # bool scalar
+
+
+def qtable_colmax(coeffs: torch.Tensor, n: int, cfg: CodecConfig):
+    """The generic chain's qtable (dctz_tpu/core/quantize.py:192-205): the
+    per-position max |escaped AC coefficient| over the real positions,
+    clamped to >= 1.0, with slot 0 = the DC of the last block, unclamped
+    (the reference quirk; the decoder never reads it)."""
+    nblk, bs = coeffs.shape
+    in_range, _ = assign_bins(coeffs, cfg)
+    escape = ac_mask(nblk, bs, n, coeffs.device) & ~in_range
+    col_max = torch.where(escape, torch.abs(coeffs),
+                          torch.zeros_like(coeffs)).amax(dim=0)
+    qtable = torch.clamp_min(col_max, 1.0)
+    qtable[0] = coeffs[-1, 0]
+    return qtable
+
+
+def quantize(coeffs: torch.Tensor, n: int, cfg: CodecConfig):
+    """Pass 1 and pass 2 of the generic chain on padded block coefficients
+    (nblk, bs), n the true element count: (bin ids int32 (nblk, bs), dc
+    (nblk,), stored values (nblk, bs), qtable or None). The stored value of
+    an escape is the coefficient (EC) or its renormalization (QT).
+    dctz_tpu's quantize.encode is this followed by the compaction (repack
+    here); the caller verifies in between when asked to."""
+    dc = coeffs[:, 0]
+    if cfg.mode != "qt":
+        return encode_ids(coeffs, n, cfg), dc, coeffs, None
+    qtable = qtable_colmax(coeffs, n, cfg)
+    in_range, _ = assign_bins(coeffs, cfg)
+    vals = torch.where(in_range, coeffs, qt_renorm(coeffs, qtable, cfg))
+    return encode_ids_qt(coeffs, n, cfg, qtable), dc, vals, qtable
+
+
+def repack(bin_ids: torch.Tensor, dense_vals: torch.Tensor, dc: torch.Tensor,
+           qtable: torch.Tensor | None, n: int, cfg: CodecConfig) -> Quantized:
+    """Compact the stored values at the AC escapes of the first n positions
+    into chunk rows of the default capacity, and again at full chunk width
+    when a row overflows (kernel H for CUDA tensors; only the compaction is
+    rerun). The streams are those of dctz_tpu's _compact_stream / repack and
+    its overflow retry."""
+    from ..ops import compaction as cp
+
+    nblk, bs = bin_ids.shape
+    escape = ac_mask(nblk, bs, n, bin_ids.device) & (bin_ids == C.ESCAPE)
+    cw = chunk_width(nblk * bs, bs)
+    flat_m, flat_v = escape.reshape(-1), dense_vals.reshape(-1)
+    ac, counts, ovf = cp.compact_chunked(flat_m, flat_v, cw, min(cp.CAPC, cw))
+    if bool(ovf):
+        ac, counts, _ = cp.compact_chunked(flat_m, flat_v, cw, cw)
+    return Quantized(bin_ids.to(torch.uint8), dc, ac, counts, qtable, ovf)
+
+
+def expand_ac(bin_ids: torch.Tensor, ac_rows: torch.Tensor, n: int):
+    """The chunked-layout half of dctz_tpu's quantize.decode: the AC rows
+    back at the escapes of the first n positions (kernel I for CUDA
+    tensors) -> (nblk, bs) float32, 0 elsewhere. decode_dense (kernel D on
+    the card) dequantizes the rest."""
+    from ..ops import compaction as cp
+
+    nblk, bs = bin_ids.shape
+    escape = ac_mask(nblk, bs, n, bin_ids.device) & (bin_ids == C.ESCAPE)
+    return cp.expand_chunked(escape.reshape(ac_rows.shape[0], -1),
+                             ac_rows).reshape(nblk, bs)
 
 
 def decode_dense(

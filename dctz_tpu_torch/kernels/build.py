@@ -69,6 +69,14 @@ SIGNATURES = {
     # denom, out, stream
     "dctz_dequant_idct_qt": [P, P, P, P, P, P, I64, I32, F32, P, F32, F32,
                              F32, P, P],
+    # x, basis, sf, n_pad, rmin, rmax, w, ids, dcac, stream
+    "dctz_dct_quant": [P, P, P, I64, F32, F32, F32, P, P, P],
+    # x, basis, sf, qtable, eb, qtf, n_pad, rmin, rmax, w, ids, dcac, stream
+    "dctz_dct_quant_qt": [P, P, P, P, F32, F32, I64, F32, F32, F32, P, P, P],
+    # mask, vals, nc, cw, capc, rows, counts, stream
+    "dctz_chunk_compact": [P, P, I64, I32, I32, P, P, P],
+    # mask, rows, nc, cw, capc, out, stream
+    "dctz_chunk_expand": [P, P, I64, I32, I32, P, P],
 }
 
 

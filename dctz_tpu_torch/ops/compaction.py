@@ -5,8 +5,9 @@ Streams are cut into chunk rows of `cw` elements; the masked values of each
 row move to its front in position order and keep at most `capc` slots. The
 JAX package did this with sorts or butterfly networks because the TPU has no
 fast scatter; here the plain versions are a prefix sum plus a scatter or a
-gather, and the hot path does the same work inside the CUDA kernels of
-ops/dpk_fuse.py with warp ballots.
+gather (compact_rows, expand_rows), and compact_chunked / expand_chunked
+launch CUDA kernels H and I (ops/shuffle.py) for CUDA tensors. The DPK
+kernels of ops/dpk_fuse.py do the same work inside kernels B and C.
 """
 
 from __future__ import annotations
@@ -40,15 +41,21 @@ def expand_rows(mask2: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def compact_chunked(flat_mask, flat_vals, cw: int = CHUNK_W, capc: int = CAPC):
-    """(ac_chunks (n/cw, capc), counts (n/cw,), overflowed bool tensor)."""
+    """(ac_chunks (n/cw, capc), counts (n/cw,), overflowed bool tensor);
+    kernel H for CUDA tensors."""
+    from . import shuffle
+
     n = flat_mask.shape[0]
     assert n % cw == 0, (n, cw)
-    rows, counts = compact_rows(
+    rows, counts = shuffle.compact_f32(
         flat_mask.reshape(-1, cw), flat_vals.reshape(-1, cw), capc
     )
     return rows, counts, torch.any(counts > capc)
 
 
 def expand_chunked(mask2: torch.Tensor, ac_chunks: torch.Tensor) -> torch.Tensor:
-    """Values back at the masked positions of (nc, cw) mask rows."""
-    return expand_rows(mask2, ac_chunks)
+    """Values back at the masked positions of (nc, cw) mask rows; kernel I
+    for CUDA tensors."""
+    from . import shuffle
+
+    return shuffle.expand(mask2, ac_chunks)

@@ -24,7 +24,7 @@ wrappers count their launches in LAUNCHES, only where a kernel launches.
 Plain versions, composed from the ported modules:
   A: core.transform.block_dct + core.quantize.encode_ids(_qt) + ops.repair
   B: ops.idpack.pack_ids_with_ac
-  C: ops.idpack.unpack_ids + ops.compaction.expand_chunked
+  C: ops.idpack.unpack_ids + ops.compaction.expand_rows
   D: core.quantize.decode_dense + core.transform.block_idct
   E: ops.fused_encode._qtable_qmax_plain
 """
@@ -54,6 +54,11 @@ LAUNCHES = {
     "dpk_unpack_expand": 0,
     "dequant_idct": 0,
     "dequant_idct_qt": 0,
+    # the non-DPK containers' kernels (ops/fused_encode.py, ops/shuffle.py)
+    "dct_quant": 0,
+    "dct_quant_qt": 0,
+    "chunk_compact": 0,
+    "chunk_expand": 0,
 }
 
 
@@ -250,7 +255,7 @@ def _dpk_unpack_expand_plain(width, packed, exc_rows, ac_rows, nblk,
                              n_stream, cw):
     ids = idpack.unpack_ids(width, packed, exc_rows, nblk, BS, TILE_B, cw)
     esc = qz.ac_mask(nblk, BS, n_stream, ids.device) & (ids == C.ESCAPE)
-    acv = cp.expand_chunked(esc.reshape(-1, cw), ac_rows.to(torch.float32))
+    acv = cp.expand_rows(esc.reshape(-1, cw), ac_rows.to(torch.float32))
     return ids, acv.reshape(nblk, BS)
 
 

@@ -1,11 +1,16 @@
-"""QT pass 1 and the DPK QT encode pipeline (port of
-dctz_tpu/ops/fused_encode.py: qtable_qmax and fused_encode_pipeline_dpk_qt_v2;
-the non-DPK pipelines wait for ROADMAP item 8).
+"""The fused encode front ends (port of dctz_tpu/ops/fused_encode.py).
 
-QT runs two passes over the input, as the reference does: pass 1 (kernel E,
-qtable_qmax) reduces the per-position maximum |escaped AC coefficient| of the
-whole array into the quantizer table, and pass 2 (kernels A + B with that
-qtable) renormalizes the escapes through it.
+  E qtable_qmax:    QT pass 1, the quantizer table
+  F dct_quant:      scale, DCT and bins of the non-DPK containers (EC)
+  G dct_quant_qt:   the same with the escapes renormalized through the
+                    qtable (QT pass 2)
+
+QT runs two passes over the input, as the reference does: pass 1 (kernel E)
+reduces the per-position maximum |escaped AC coefficient| of the whole array
+into the quantizer table, and pass 2 (kernel G, or kernels A + B on the DPK
+path) renormalizes the escapes through it. The pipelines put kernel H
+(ops/shuffle.py, through core/quantize.repack) behind F and G: the whole
+device encode of a v1 or host-coded v2 container without verify.
 """
 
 from __future__ import annotations
@@ -78,6 +83,116 @@ def qtable_qmax(x: torch.Tensor, sf: torch.Tensor,
                          sf32.data_ptr(), n_pad, rmin, rmax, bits.data_ptr())
         qmax = bits.view(torch.float32)
     return torch.clamp_min(qmax, 1.0)
+
+
+def _dct_quant_plain(x: torch.Tensor, sf: torch.Tensor, cfg: CodecConfig,
+                     qtable: torch.Tensor | None = None):
+    """Kernels F and G's plain version: transform.block_dct composed with
+    the fused kernels' contract (see dct_quant)."""
+    _, rmin, rmax = qz._geometry(cfg)
+    coef = transform.block_dct((x / sf).reshape(-1, BS))
+    nblk = coef.shape[0]
+    if qtable is None:
+        ids = qz.encode_ids(coef, nblk * BS, cfg)
+        stored = coef
+    else:
+        # the TPU kernel's side, coef > rmax (qz.qt_renorm picks it by sign:
+        # the same value wherever coef is out of range, the only place used)
+        dev = x.device
+        side = torch.where(coef > _f32(rmax, dev), _f32(rmax, dev), _f32(rmin, dev))
+        norm = ((coef / qtable[None, :]) * _f32(cfg.error_bound, dev)) * _f32(
+            cfg.qt_factor, dev) + side
+        ids = qz.encode_ids_qt(coef, nblk * BS, cfg, qtable)
+        stored = norm
+    esc = ids == C.ESCAPE
+    esc[:, 0] = False
+    dcac = torch.where(esc, stored, torch.zeros_like(coef))
+    dcac[:, 0] = coef[:, 0]
+    return ids.to(torch.uint8), dcac
+
+
+def dct_quant(x: torch.Tensor, sf: torch.Tensor, error_bound: float,
+              qtable: torch.Tensor | None = None):
+    """Kernel F (qtable None) or G (csrc/dct_quant.cu). F replaces the TPU
+    kernel dctz_tpu/ops/fused_encode.py:fused_encode_ec (line 363), G the
+    pass-2 kernel of fused_encode_qt (line 294).
+
+    x: flat float32 (n_pad,), n_pad a multiple of 1024, zero-padded; sf:
+    float32 scalar tensor on x's device; qtable: the (64,) quantizer table
+    (kernel E's; slot 0 is not read). Returns (ids u8 (n_pad/64, 64):
+    ESCAPE at DC and at what stays out of range, padding binned like data;
+    dcac f32 (n_pad/64, 64): the DC at column 0, the stored value at AC
+    escapes, 0 elsewhere)."""
+    cfg = CodecConfig(mode="ec" if qtable is None else "qt",
+                      error_bound=error_bound)
+    args = (x, sf) + (() if qtable is None else (qtable,))
+    if not dpk_fuse._on_cuda(*args):
+        return _dct_quant_plain(x, sf, cfg, qtable)
+    dpk_fuse._check(x, torch.float32, "x")
+    n_pad = x.shape[0]
+    if x.dim() != 1 or n_pad % 1024:
+        raise ValueError(f"x must be flat with a length that is a multiple "
+                         f"of 1024, got shape {tuple(x.shape)}")
+    w, rmin, rmax = qz._geometry(cfg)
+    ids = torch.empty((n_pad // BS, BS), dtype=torch.uint8, device=x.device)
+    dcac = torch.empty((n_pad // BS, BS), dtype=torch.float32, device=x.device)
+    sf32 = sf.reshape(1).to(torch.float32).contiguous()
+    basis = transform.dct2_basis(BS, x.device)
+    if qtable is None:
+        dpk_fuse._launch("dct_quant", x.data_ptr(), basis.data_ptr(),
+                         sf32.data_ptr(), n_pad, rmin, rmax, w,
+                         ids.data_ptr(), dcac.data_ptr())
+    else:
+        q32 = dpk_fuse._qtable32(qtable)
+        dpk_fuse._launch("dct_quant_qt", x.data_ptr(), basis.data_ptr(),
+                         sf32.data_ptr(), q32.data_ptr(),
+                         float(cfg.error_bound), float(cfg.qt_factor), n_pad,
+                         rmin, rmax, w, ids.data_ptr(), dcac.data_ptr())
+    return ids, dcac
+
+
+def fused_encode_ec(x: torch.Tensor, sf: torch.Tensor, error_bound: float):
+    """Kernel F: (ids (nblk, 64) u8, dcac (nblk, 64) f32), the contract of
+    dctz_tpu's fused_encode_ec."""
+    return dct_quant(x, sf, error_bound)
+
+
+def fused_encode_qt(x: torch.Tensor, sf: torch.Tensor, error_bound: float):
+    """Kernel E, then kernel G with its qtable: (ids, dcac, qtable), the
+    contract of dctz_tpu's fused_encode_qt (the qtable's slot 0 as E leaves
+    it; the pipeline patches it)."""
+    qtable = qtable_qmax(x, sf, error_bound)
+    return dct_quant(x, sf, error_bound, qtable) + (qtable,)
+
+
+def _compact(ids, dcac, error_bound: float, qtable=None) -> qz.Quantized:
+    return qz.repack(ids, dcac, dcac[:, 0], qtable, ids.shape[0] * BS,
+                     CodecConfig(error_bound=error_bound))
+
+
+def fused_encode_pipeline(x: torch.Tensor, sf: torch.Tensor,
+                          error_bound: float) -> qz.Quantized:
+    """Kernel F, then kernel H over the AC escapes: the whole EC device
+    encode of a v1 or host-coded v2 container without verify. The fields of
+    the returned Quantized are those of
+    dctz_tpu.ops.fused_encode.fused_encode_pipeline (ids, dc, ac_chunks
+    (nc, capc), counts (nc,), then qtable None and the overflow flag),
+    except that an overflow of the default capacity is already recompacted
+    at full chunk width (H alone is rerun; `overflowed` says it was)."""
+    ids, dcac = fused_encode_ec(x, sf, error_bound)
+    return _compact(ids, dcac, error_bound)
+
+
+def fused_encode_pipeline_qt(x: torch.Tensor, sf: torch.Tensor,
+                             error_bound: float) -> qz.Quantized:
+    """Kernels E and G, then H: the QT twin of fused_encode_pipeline, with
+    the (64,) qtable whose slot 0 holds the last block's DC, as the JAX
+    pipeline sets it (the container stores the last REAL block's instead:
+    patch_slot0)."""
+    ids, dcac, qtable = fused_encode_qt(x, sf, error_bound)
+    qtable = qtable.clone()
+    qtable[0] = dcac[-1, 0]
+    return _compact(ids, dcac, error_bound, qtable)
 
 
 def patch_slot0(qtable: torch.Tensor, dc: torch.Tensor, n_true: int):

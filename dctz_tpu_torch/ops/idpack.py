@@ -147,7 +147,7 @@ def unpack_ids(width: torch.Tensor, packed: torch.Tensor, exc_rows: torch.Tensor
     mask_tm = nib == thr[:, None]
     nib_bm = nib.reshape(t, bs, b).transpose(1, 2).reshape(t * b, bs)[:nblk]
     mask = mask_tm.reshape(t, bs, b).transpose(1, 2).reshape(t * b, bs)[:nblk]
-    exc = cp.expand_chunked(mask.reshape(-1, cw), exc_rows.to(torch.int32))
+    exc = cp.expand_rows(mask.reshape(-1, cw), exc_rows.to(torch.int32))
     ids = torch.where(mask, exc.reshape(nblk, bs), nib_bm)
     ids[:, 0] = C.ESCAPE
     return ids.to(torch.uint8)

@@ -25,9 +25,12 @@ the device encodes segment k + 1; the reader's host worker re-inflates frame
 k + 1 while the device decodes frame k. Besides the input, the device holds
 at most two segments in flight.
 
-Only DPK v2 frames (ids_codec="device") are ported: the generic segment path
-(other ids codecs, non-DPK frames) raises NotImplementedError naming ROADMAP
-item 8, on both sides.
+Only DPK v2 frames (ids_codec="device", or "auto", which means it for v2)
+are ported. Host-coded DTZS frames, the generic segment path of the JAX
+package (stream._encode_segment, _qtable_colmax_segment, _pack_segment:
+v1 configurations and the ids codecs "deflate" and "rans"), raise
+NotImplementedError naming ROADMAP item 8 on both sides; the same
+containers are ported monolithic (api.py).
 """
 
 from __future__ import annotations
@@ -166,7 +169,11 @@ def compress_stream(
     n = int(x.shape[0])
     if n == 0:
         raise ValueError("cannot compress an empty array")
-    api._check_slice(cfg, n)
+    cfg = api._resolve_ids_codec(cfg)
+    api._check_slice(cfg)
+    if cfg.container != "v2" or cfg.ids_codec != "device":
+        raise api._todo(f"host-coded DTZS frames (container {cfg.container!r}, "
+                        f"ids_codec {cfg.ids_codec!r})", "8")
     bs = cfg.block_size
     segment_elems = max(bs, segment_elems - segment_elems % bs)
 
@@ -391,7 +398,7 @@ def _frame_stages(f, trace, device: torch.device):
 
     def prep(blob, fi):
         """Host stage of one frame. A frame that is not a DPK v2 float32
-        container raises (ROADMAP item 8): nothing else decodes it."""
+        container raises (host-coded frames: ROADMAP item 8)."""
         t0 = time.perf_counter()
         header, streams, qtable = api._parse_dpk(blob)
         host_arrays, (n_stream, tile_b, cw, cfg) = api._dpk_decode_prep(

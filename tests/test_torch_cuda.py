@@ -318,3 +318,113 @@ def test_dtzs_round_trip_on_card(dev, mode):
     blob_cpu = dz.compress(x, config=cfg, device="cpu")
     assert abs(len(blob) / len(blob_cpu) - 1.0) <= 1e-3
     assert np.abs(dz.decompress(blob_cpu, device="cuda") - x).max() <= 1e-3 * float(x.max() - x.min())
+
+
+V1_KERNELS = {"dct_quant", "chunk_compact", "chunk_expand", "dequant_idct"}
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("n", [3 * TILE_N, 5 * TILE_N - 11])
+def test_kernels_f_g_match_plain(dev, mode, n):
+    """F and G against their plain version (a torch matmul) on the same
+    inputs: ids within 1e-4, DC and stored values within the coefficient
+    budget (QT: times eb*qt_factor/q[k], plus 4 ulp); and F against A with
+    verify off: the same ids at every AC position and the same values at
+    the DC and the escapes (one forward-DCT function)."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.config import CodecConfig
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+
+    x = _qt_input(n, n + 7) if mode == "qt" else _signal(n, n + 7)
+    xp = _padded_on(dev, x)
+    sf, _ = api._stats_device(xp, n, 1)
+    q = _qtable(dev, xp, sf) if mode == "qt" else None
+    fk.reset_launches()
+    ik, dk = fe.dct_quant(xp, sf, 1e-3, q)
+    assert fk.LAUNCHES["dct_quant_qt" if q is not None else "dct_quant"] == 1
+    ip, dp = fe._dct_quant_plain(xp, sf, CodecConfig(mode=mode, error_bound=1e-3), q)
+    assert (ik != ip).float().mean().item() <= 1e-4
+    budget = 32 * 2.0**-23 * (xp / sf).reshape(-1, 64).abs().amax(1, keepdim=True)
+    col = torch.arange(64, device=dev)
+    esc = (ik == 255) & (col > 0)
+    lim = budget.expand_as(dp)
+    if q is not None:
+        lim = torch.where(esc, budget * 1e-2 / q + 4 * 2.0**-23 * dp.abs(), lim)
+    assert torch.all(((dk - dp).abs() <= lim)[ik == ip])
+    if q is None:
+        _ia, ca, _ok = fk.dct_quant_verify(xp, sf, torch.ones((), device=dev), n,
+                                           1e-3, False)
+        assert torch.equal(ik[:, 1:], _ia[:, 1:])
+        assert torch.equal(dk[esc], ca[esc]) and torch.equal(dk[:, 0], ca[:, 0])
+
+
+@pytest.mark.parametrize("cw", [64, 128, 256, 512])
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.25, 1.0])
+def test_kernels_h_i_byte_equal(dev, cw, density):
+    """H and I against compact_rows / expand_rows, byte for byte, at
+    capacities that are not lane multiples; I on float32 and int32 rows."""
+    from dctz_tpu_torch.ops import compaction as cp
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import shuffle
+
+    rng = np.random.default_rng(cw + int(density * 100))
+    nc = 77
+    mask = torch.from_numpy(rng.random((nc, cw)) < density).to(dev)
+    vals = torch.from_numpy(rng.standard_normal((nc, cw)).astype(np.float32)).to(dev)
+    for capc in sorted({min(96, cw), min(130, cw), cw}):
+        fk.reset_launches()
+        rows, counts = shuffle.compact_f32(mask, vals, capc)
+        assert fk.LAUNCHES["chunk_compact"] == 1
+        rows_p, counts_p = cp.compact_rows(mask, vals, capc)
+        assert torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
+        assert torch.equal(counts, counts_p)
+        back = shuffle.expand(mask, rows)
+        assert fk.LAUNCHES["chunk_expand"] == 1
+        assert torch.equal(back.view(torch.int32),
+                           cp.expand_rows(mask, rows).view(torch.int32))
+        ints = rows.view(torch.int32)
+        assert torch.equal(shuffle.expand(mask, ints), cp.expand_rows(mask, ints))
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("n", [3 * TILE_N, 7777, 3 * TILE_N + 128])
+def test_v1_round_trip_on_card(dev, mode, n):
+    """v1 containers on the card: the fused branch (n % 1024 == 0) and the
+    generic chain (a rem-point tail; chunk width 128) hold the bound with
+    verify on, launch the path's kernels, match the plain path's ratio and
+    decode each other's containers within the bound."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    x = _qt_input(n, n + 2)
+    cfg = dz.CodecConfig(mode=mode, verify=True)
+    fk.reset_launches()
+    blob = dz.compress(x, config=cfg, device="cuda")
+    y = dz.decompress(blob, device="cuda")
+    launched = {k for k, v in fk.LAUNCHES.items() if v}
+    if n % 1024 == 0:
+        want = {"dct_quant_qt", "qtable_qmax"} if mode == "qt" else {"dct_quant"}
+    else:
+        want = set()
+    want |= {"chunk_compact", "chunk_expand",
+             "dequant_idct_qt" if mode == "qt" else "dequant_idct"}
+    assert launched == want
+    assert blob[:4] != b"DTZS" and dz.evaluate(x, y, 1e-3)["bound_satisfied"]
+    blob_cpu = dz.compress(x, config=cfg, device="cpu")
+    assert abs(len(blob) / len(blob_cpu) - 1.0) <= 1e-3
+    tol = 1e-3 * float(x.max() - x.min())
+    assert np.abs(dz.decompress(blob_cpu, device="cuda") - x).max() <= tol
+    assert np.abs(dz.decompress(blob, device="cpu") - x).max() <= tol
+
+
+def test_tf32_is_refused(dev):
+    import dctz_tpu_torch as dz
+
+    x = _signal(7777, 1)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            dz.compress(x, device="cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -43,6 +43,24 @@ def oracle():
     jax.config.update("jax_enable_x64", old_x64)
 
 
+@pytest.fixture(scope="module")
+def oracle_shuffle(oracle):
+    """The oracle with the Pallas shuffle kernels forced on as well
+    (interpret mode): the non-DPK containers' compaction and expansion run
+    through shuffle.compact_f32 / expand, as on the TPU. The jit caches do
+    not key on these switches either (tests/test_shuffle.py), so they are
+    cleared on the way in and out."""
+    from dctz_tpu.ops import shuffle
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(shuffle, "_FORCE", True)
+    mp.setattr(shuffle, "_INTERPRET", True)
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+    mp.undo()
+
+
 def slice_cfg(pkg, **kw):
     """The benchmark's configuration in either package (monolithic)."""
     base = dict(mode="ec", error_bound=EB, container="v2", ids_codec="device",

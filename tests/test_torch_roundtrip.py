@@ -1,7 +1,8 @@
-"""The ported slice end to end on the CPU: round trips, containers decoded
+"""The DPK EC path end to end on the CPU: round trips, containers decoded
 both ways between the port and dctz_tpu, the DPK EC goldens, the ratio, and
-the configurations that are not ported yet (QT mode and DTZS streams are
-ported on the DPK path only: test_torch_qt.py, test_torch_stream.py)."""
+the configurations that are not ported yet (QT mode and DTZS streams:
+test_torch_qt.py, test_torch_stream.py; v1 and host-coded v2:
+test_torch_v1.py)."""
 
 import json
 import pathlib
@@ -113,9 +114,11 @@ def test_overflow_retry_round_trip():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(container="v1"), "8"),
-    (dict(mode="qt", ids_codec="deflate"), "8"),
-    (dict(ids_codec="rans"), "8"),
+    # v1, qt + deflate and rans are ported monolithic (test_torch_v1.py);
+    # as DTZS frames they are host-coded frames, still item 8
+    (dict(container="v1", segment_elems=4096), "8"),
+    (dict(mode="qt", ids_codec="deflate", segment_elems=4096), "8"),
+    (dict(ids_codec="rans", segment_elems=4096), "8"),
     (dict(rate="auto"), "9"),
     (dict(dct_precision="high"), "9"),
     (dict(dc_delta=True), "9"),
@@ -130,10 +133,19 @@ def test_outside_the_slice_raises(kw, item):
 
 
 def test_compress_requires_config():
+    """compress no longer requires a config: without one it writes the
+    JAX package's default, a v1 EC container; what it still requires is a
+    keyword config (a positional one lands in the error-bound slot, as in
+    dctz_tpu) and a float32 array."""
     import dctz_tpu_torch as dz
+    from dctz_tpu_torch.core import container as ct
 
+    x = signal(4096, 0)
+    assert ct.detect_format(dz.compress(x, device="cpu")) == "v1"
     with pytest.raises(TypeError):
-        dz.compress(signal(4096, 0), device="cpu")
+        dz.compress(x, slice_cfg(dz), device="cpu")
+    with pytest.raises(TypeError):
+        dz.compress(x.astype(np.int32), device="cpu")
 
 
 def test_float64_and_foreign_containers_raise():
@@ -141,10 +153,14 @@ def test_float64_and_foreign_containers_raise():
 
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         dz.compress(np.ones(4096), config=slice_cfg(dz), device="cpu")
-    for name, item in [("golden_v1_ec_f64", "8"), ("golden_v2_qt_f32", "8"),
-                       ("golden_v2_ec_f32_rans", "8")]:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            dz.decompress((GOLDEN / f"{name}.z").read_bytes(), device="cpu")
+    # float64 containers (the v1 float64 parity path) are item 9; the two
+    # float32 non-DPK goldens now decode (all 17: test_torch_v1.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        dz.decompress((GOLDEN / "golden_v1_ec_f64.z").read_bytes(), device="cpu")
+    x = np.fromfile(GOLDEN / "golden_input_f64.bin", np.float64).astype(np.float32)
+    for name in ("golden_v2_qt_f32", "golden_v2_ec_f32_rans"):
+        got = dz.decompress((GOLDEN / f"{name}.z").read_bytes(), device="cpu")
+        assert got.shape == x.shape and np.abs(got - x).max() <= bound(x)
     # a DTZS stream whose frame is a v2 container without the DPK id stream
     import struct
 
