@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out build/chip_smoke.json]
 
-Drives the port's paths once each at full size and checks them. Eleven
+Drives the port's paths once each at full size and checks them. Twelve
 paths, on 32Mi float32 elements (128 MB) unless named otherwise:
 
   DPK v2, the bench.py configuration (eb 1e-3, v2 container, DPK ids, verify
@@ -17,6 +17,11 @@ paths, on 32Mi float32 elements (128 MB) unless named otherwise:
   row), v1_cesm (verify on, 3600x1800 = 6,480,000 elements, the length of
   one CESM field: n % 1024 = 128 takes the generic chain, chunk width 128)
   and v2_deflate (ids_codec="deflate", segment_elems=0, verify on).
+  dpk_onepass, the research entry points on the bench array: the one-pass
+  encode (kernel L) and decode (kernel M) at tile 256; kernel F, then
+  idpack.pack_ids_with_ac at tile 64 (kernel J), then M at tile 64; and
+  shuffle.compact_bytes (kernel K, which no caller reaches) on the DPK
+  exception bytes, equal to L's exception rows.
 
 Phases, each printed as one JSON line:
 
@@ -33,20 +38,33 @@ Phases, each printed as one JSON line:
      and G with no id mismatch and DC and stored values within the budget
      (F also equal to A's ids and coefficients), H byte-equal on F's
      escapes at capacity 128, I byte-equal on the rows the decode of the
-     v1_ec container hands it (and equal to masked_scatter of its AC stream)
+     v1_ec container hands it (and equal to masked_scatter of its AC stream).
+     The last four on the bench array: L's integer streams byte-equal to
+     its plain version's (AC and DC within 32 ulp of max|x/sf|) and all its
+     streams equal to F -> idpack.pack_ids -> H; M bit-equal to C + D on
+     L's streams, within D's budget of its plain version at tile 64 (else
+     128 or 32, whichever holds every chunk row in 128 slots) and in QT (G's
+     streams with the x30 input's qtable from E, on the x30 input unless a
+     chunk row there holds more than 128 exceptions, then on the bench
+     array), and of C + D-QT; J (pack_ids_with_ac at tile 64) and K
+     byte-equal
   4. end to end, per path: compress and decompress through the public API on
      the card with the launch counters reset just before and read just after
      (every kernel of the path > 0), the container family expected, the
      pointwise bound satisfied, the ratio within 0.1% of the plain (CPU)
      path's, each path's output decoded by the other within the bound, and a
      DTZS decode bit-equal to the monolithic decode of the same data
+     (dpk_onepass: both decodes within the bound, every kernel > 0, K's rows
+     equal to L's exception rows)
   5. times, per path: compress and decompress GB/s (median of warm runs) and
      their split into stages; a torch.profiler pass over one call of each
      direction of ec, ec_dtzs and v1_ec (device busy and idle share); one
      traced run of each direction of the bench-array DTZS paths (the
      stream's per-segment spans); each kernel's time beside its plain
-     version's (CUDA events), its bound and, for H and I, one PyTorch call
-     that computes the same function from the tight stream (library_ms)
+     version's (CUDA events), its bound and, for H, I, J and K, one PyTorch
+     call that computes the same function from or to the tight stream
+     (library_ms); then, for the record, L beside A (verify off) + B and
+     beside F + pack_ids + H, and M beside C + D
 
 Any failed check raises, and the script exits non-zero without a result.
 Without CUDA it exits 2 at once. The line before the last two is the kernel
@@ -84,6 +102,11 @@ V1_EC_KERNELS = ("dct_quant", "chunk_compact", "chunk_expand", "dequant_idct")
 V1_QT_KERNELS = ("qtable_qmax", "dct_quant_qt", "chunk_compact", "chunk_expand",
                  "dequant_idct_qt")
 GENERIC_KERNELS = ("chunk_compact", "chunk_expand", "dequant_idct")
+#: the one-pass DPK path (its own block in phase 4, not a PATHS entry: it
+#: runs through the research entry points and pack_ids_with_ac, not
+#: dz.compress); kernel F runs in it too
+ONEPASS_KERNELS = ("fused_encode_dpk", "fused_decode_dpk", "chunk_compact_unified",
+                   "chunk_compact_bytes")
 N_CESM = 3600 * 1800  # one CESM field: n % 1024 == 128, the generic chain
 DPK = dict(error_bound=1e-3, container="v2", ids_codec="device", verify=True)
 #: path name -> (CodecConfig keywords, None for dz.compress(x)'s defaults;
@@ -109,7 +132,7 @@ PATHS = {
 MAIN_PATH = {k: "ec_dtzs" for k in EC_KERNELS} | {
     k: "qt_dtzs" for k in QT_KERNELS if k not in EC_KERNELS} | {
     "dct_quant": "v1_ec", "chunk_compact": "v1_ec", "chunk_expand": "v1_ec",
-    "dct_quant_qt": "v1_qt"}
+    "dct_quant_qt": "v1_qt"} | {k: "dpk_onepass" for k in ONEPASS_KERNELS}
 SOURCES = {
     "qtable_qmax": ("dctz_tpu_torch/csrc/qtable_qmax.cu",
                     "dctz_tpu/ops/fused_encode.py:203"),
@@ -133,6 +156,14 @@ SOURCES = {
                       "dctz_tpu/ops/shuffle.py:422"),
     "chunk_expand": ("dctz_tpu_torch/csrc/chunk_shuffle.cu",
                      "dctz_tpu/ops/shuffle.py:435"),
+    "chunk_compact_unified": ("dctz_tpu_torch/csrc/chunk_shuffle.cu",
+                              "dctz_tpu/ops/shuffle.py:392"),
+    "chunk_compact_bytes": ("dctz_tpu_torch/csrc/chunk_shuffle.cu",
+                            "dctz_tpu/ops/shuffle.py:409"),
+    "fused_encode_dpk": ("dctz_tpu_torch/csrc/fused_encode_dpk.cu",
+                         "dctz_tpu/ops/research/fused_encode_dpk.py:360"),
+    "fused_decode_dpk": ("dctz_tpu_torch/csrc/fused_decode_dpk.cu",
+                         "dctz_tpu/ops/research/fused_decode.py:380"),
 }
 #: what the library yardstick of a kernel computes, where there is one
 LIBRARY_NOTE = {
@@ -140,6 +171,10 @@ LIBRARY_NOTE = {
                      "host assembles from H's rows, not the rows",
     "chunk_expand": "out.masked_scatter_(mask, tight): from the tight "
                     "stream, not from rows",
+    "chunk_compact_unified": "torch.masked_select(id_bytes, mask): the tight "
+                             "exception stream alone, not the AC rows",
+    "chunk_compact_bytes": "torch.masked_select(id_bytes, mask): the tight "
+                           "stream, not the rows",
 }
 
 
@@ -323,7 +358,9 @@ def main() -> int:
     from dctz_tpu_torch.ops import compaction as cp
     from dctz_tpu_torch.ops import dpk_fuse as fk
     from dctz_tpu_torch.ops import fused_encode
+    from dctz_tpu_torch.ops import idpack
     from dctz_tpu_torch.ops import shuffle
+    from dctz_tpu_torch.ops.research import fused_decode, fused_encode_dpk
     from dctz_tpu_torch.utils.bench_data import climate_formula_np
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -569,6 +606,136 @@ def main() -> int:
          rows=rows_i.shape[0], cw=mask_i.shape[1], capacity=rows_i.shape[1])
     kernels["chunk_expand"] = {"max_abs_err": 0.0}
 
+    # L, M, J and K on the bench array (tile 256, chunk width 512 unless
+    # named). L: its integer streams byte-equal to its plain version's (F's
+    # ids had no mismatch above), AC and DC within 32 ulp of max|x/sf|; all
+    # seven streams equal to F -> pack_ids (cape 128) -> H of F's escapes
+    # (the rows H wrote above), DC by value
+    lim_l = 32 * EPS32 * (xp / sf).abs().max().item()
+    l_out = fused_encode_dpk.fused_encode_dpk(xp, sf, cfg.error_bound)
+    l_plain = fused_encode_dpk._fused_encode_dpk_plain(xp, sf, cfg.error_bound)
+    chain = idpack.pack_ids(ids_f, n_pad, 256, 128)[:4] + (rows_h, cnt_h, dcac_f[:, 0])
+    torch.cuda.synchronize()
+    names = ["width", "packed", "exc", "exc_counts", "ac", "ac_counts", "dc"]
+    for i, (a, b, c, nm) in enumerate(zip(l_out, l_plain, chain, names)):
+        require(a.shape == b.shape == c.shape and a.dtype == b.dtype == c.dtype,
+                f"L: {nm} shape/dtype")
+        require(torch.equal(a, c) if nm != "dc" else bool((a == c).all()),
+                f"L: {nm} differs from F -> pack_ids -> H")
+        require(torch.equal(a, b) if nm not in ("ac", "dc")
+                else (a - b).abs().max().item() <= lim_l,
+                f"L: {nm} differs from the plain version")
+    err_l = max_abs_diff(zip(l_out, l_plain))
+    emit("kernel_check", kernel="fused_encode_dpk", equal_to_f_pack_ids_h=True,
+         integer_streams_equal_to_plain=True, max_abs_err=err_l, limit=lim_l,
+         exc_peak=int(l_out[3].max()), ac_peak=int(l_out[5].max()))
+    kernels["fused_encode_dpk"] = {"max_abs_err": err_l}
+
+    # M on L's streams: C + D's bits, and the round trip within the bound
+    w_l, pk_l, exc_l, _ec, ac_l, _acn, dc_l = l_out
+    require(int(l_out[3].max()) <= 128 and int(l_out[5].max()) <= 128,
+            "L: a chunk row holds more than 128 exceptions or escapes")
+    x_m = fused_decode.fused_decode_dpk(w_l, pk_l, exc_l, dc_l, ac_l, sf, n_pad, 256,
+                                        512, cfg)
+    x_cd = fk.decode_fused(w_l, pk_l, exc_l, ac_l, dc_l, sf, cfg, 512, n_pad)
+    torch.cuda.synchronize()
+    tol_bench = cfg.error_bound * float(x_np.max() - x_np.min())
+    rt_err = (x_m - xp).abs().max().item()
+    require(torch.equal(x_m.view(torch.int32), x_cd.view(torch.int32)),
+            "M: differs from C + D at tile 256")
+    require(rt_err <= tol_bench, f"L -> M round trip: {rt_err} > {tol_bench}")
+
+    def m_budget(arrays, sf_m, b, cw_m, cfg_m, q_m):
+        co = fused_decode._coefficients_plain(*arrays, b, cw_m, cfg_m, q_m)
+        return (D_ULPS * EPS32 * float(sf_m) * co.abs().amax(1)).repeat_interleave(64)[:n_pad]
+
+    # M at another tile, on the streams pack_ids_with_ac (kernel J) codes
+    # from F's output; tile 64 unless a chunk row there overflows 128
+    for b_m in (64, 128, 32):
+        st_j = idpack.pack_ids_with_ac(ids_f, dcac_f, n_pad, b_m, 128)
+        if int(st_j[3].max()) <= 128 and int(st_j[5].max()) <= 128:
+            break
+    else:
+        raise AssertionError("M: every tile of 64, 128, 32 overflows 128")
+    arr_j = (st_j[0], st_j[1], st_j[2], st_j[6], st_j[4])
+    x_mb = fused_decode.fused_decode_dpk(*arr_j, sf, n_pad, b_m, cw, cfg)
+    x_mbp = fused_decode._fused_decode_dpk_plain(*arr_j, sf, n_pad, b_m, cw, cfg, None)
+    lim_mb = m_budget(arr_j, sf, b_m, cw, cfg, None)
+    torch.cuda.synchronize()
+    over_mb = int(((x_mb - x_mbp).abs() > lim_mb).sum())
+    err_m = max((x_m - fused_decode._fused_decode_dpk_plain(
+        w_l, pk_l, exc_l, dc_l, ac_l, sf, n_pad, 256, 512, cfg, None)).abs().max().item(),
+        (x_mb - x_mbp).abs().max().item())
+    require(over_mb == 0, f"M at tile {b_m}: {over_mb} samples beyond D's budget")
+    require((x_mb - xp).abs().max().item() <= tol_bench, f"M at tile {b_m}: bound")
+
+    # M in QT on the x30 input: G's ids and stored values with E's qtable
+    # (entries above 1), coded by kernel B at tile 256 and full capacity, at
+    # the first chunk width of 512, 256, 128 whose rows hold at most 128
+    # exceptions (the format takes any of them; the x30 spikes put 136 in a
+    # row of 512), cut to the capacity tier of the peaks; C + D-QT decode
+    # the same streams
+    ids_g2, dcac_g2 = fused_encode.dct_quant(xq, sf_q, cfg.error_bound, qt_e)
+    qt_peaks = {}
+    for cw_q in (512, 256, 128):
+        st_q = fk.encode_fused(ids_g2, dcac_g2, n_pad, 256, cw_q, cw_q)
+        pe, pc = int(st_q[3].max()), int(st_q[5].max())
+        qt_peaks[cw_q] = [pe, pc]
+        if pe <= 128 and pc <= 128:
+            break
+    else:
+        raise AssertionError(f"M-QT: every chunk width overflows 128: {qt_peaks}")
+    tier = lambda p: next(c for c in (32, 64, 128) if c >= p)  # noqa: E731
+    arr_q = (st_q[0], st_q[1], st_q[2][:, :tier(pe)].contiguous(), st_q[6],
+             st_q[4][:, :tier(pc)].contiguous())
+    x_mq = fused_decode.fused_decode_dpk(*arr_q, sf_q, n_pad, 256, cw_q, cfg_qt, qt_e)
+    x_mqp = fused_decode._fused_decode_dpk_plain(*arr_q, sf_q, n_pad, 256, cw_q, cfg_qt,
+                                                 qt_e)
+    x_cdq = fk.decode_fused(st_q[0], st_q[1], st_q[2], st_q[4], st_q[6], sf_q, cfg_qt,
+                            cw_q, n_pad, qt_e)
+    lim_mq = m_budget(arr_q, sf_q, 256, cw_q, cfg_qt, qt_e)
+    torch.cuda.synchronize()
+    over_mq = int(((x_mq - x_mqp).abs() > lim_mq).sum())
+    over_cdq = int(((x_mq - x_cdq).abs() > lim_mq).sum())
+    err_m = max(err_m, (x_mq - x_mqp).abs().max().item())
+    emit("kernel_check", kernel="fused_decode_dpk", bit_equal_to_c_d=True,
+         round_trip_max_err=rt_err, bound=tol_bench, tile=b_m,
+         tile_exc_peak=int(st_j[3].max()), qt_input="x30", qt_chunk_width=cw_q,
+         qt_peaks=qt_peaks, qt_capacities=[arr_q[2].shape[1], arr_q[4].shape[1]],
+         qt_entries_above_1=int((qt_e[1:] > 1.0).sum()),
+         qt_bit_equal_to_c_d=bool(torch.equal(x_mq, x_cdq)), over_budget=over_mq,
+         over_budget_vs_c_d=over_cdq, max_abs_err=err_m)
+    require(over_mq == 0 and over_cdq == 0, "M-QT: beyond D's budget")
+    kernels["fused_decode_dpk"] = {"max_abs_err": err_m}
+
+    # J: pack_ids_with_ac at tile 64 launches J (kernel B takes tile 256) and
+    # gives its plain version's bytes
+    st_j64 = st_j if b_m == 64 else idpack.pack_ids_with_ac(ids_f, dcac_f, n_pad, 64, 128)
+    st_j64p = idpack._pack_ids_with_ac_plain(ids_f, dcac_f, n_pad, 64, 128)
+    _w, _pk, ids_i64, mask64 = idpack._code_tiles(ids_f, n_pad, 64)
+    mask_j, idb_j = mask64.reshape(-1, cw), ids_i64.to(torch.uint8).reshape(-1, cw)
+    vals_j = dcac_f.reshape(-1, cw)
+    torch.cuda.synchronize()
+    for a, b in zip(st_j64, st_j64p):
+        require(a.dtype == b.dtype and torch.equal(a, b), "J: differs from the plain version")
+    emit("kernel_check", kernel="chunk_compact_unified", byte_equal=True, max_abs_err=0.0,
+         tile=64, rows=mask_j.shape[0], cw=cw, exc_peak=int(st_j64[3].max()))
+    kernels["chunk_compact_unified"] = {"max_abs_err": 0.0}
+
+    # K on the DPK exception mask and id bytes of F's ids (tile 256): the
+    # plain version's rows, and the exception rows of pack_ids and of L
+    _w, _pk, ids_i256, mask256 = idpack._code_tiles(ids_f, n_pad, 256)
+    mask_k, byt_k = mask256.reshape(-1, cw), ids_i256.to(torch.uint8).reshape(-1, cw)
+    rows_k = shuffle.compact_bytes(mask_k, byt_k, 128)
+    rows_kp = cp.compact_rows(mask_k, byt_k, 128)[0]
+    torch.cuda.synchronize()
+    require(torch.equal(rows_k, rows_kp), "K: differs from the plain version")
+    require(torch.equal(rows_k, chain[2]) and torch.equal(rows_k, exc_l),
+            "K: differs from the exception rows of pack_ids and L")
+    emit("kernel_check", kernel="chunk_compact_bytes", byte_equal=True, max_abs_err=0.0,
+         rows=mask_k.shape[0], cw=cw, capacity=128)
+    kernels["chunk_compact_bytes"] = {"max_abs_err": 0.0}
+
     # 4. end to end through the public API, one path at a time; the counters
     # count each path's own run only
     inputs = {"bench": x_np, "x30": x_qt_np, "cesm": climate_formula_np(N_CESM)}
@@ -623,6 +790,43 @@ def main() -> int:
         require(e1 <= tolx[inp] and e2 <= tolx[inp], f"{path}: cross decode violates the bound")
         e2e[path] = {"ratio": ratio, "ratio_plain": ratio_cpu, "launches": launches[path],
                      "evaluate": ev}
+
+    # the one-pass DPK path, through the research entry points and
+    # pack_ids_with_ac: L encodes the bench array and M decodes it (tile
+    # 256); F, then pack_ids_with_ac at tile 64 (kernel J), then M at that
+    # tile; and shuffle.compact_bytes (kernel K, which no caller in either
+    # package reaches) on the exception bytes of the tile-256 coding, which
+    # must equal L's exception rows
+    path = "dpk_onepass"
+    x_dev = torch.from_numpy(x_np).to(dev)
+    fk.reset_launches()
+    sf_o, _ = api._stats_device(x_dev, n, cfg.sf_adj)
+    st_o = fused_encode_dpk.fused_encode_dpk(x_dev, sf_o, cfg.error_bound)
+    y_o = fused_decode.fused_decode_dpk(st_o[0], st_o[1], st_o[2], st_o[6], st_o[4], sf_o,
+                                        n, 256, 512, cfg)
+    ids_o, dcac_o = fused_encode.fused_encode_ec(x_dev, sf_o, cfg.error_bound)
+    st_64 = idpack.pack_ids_with_ac(ids_o, dcac_o, n, 64, 128)
+    y_64 = fused_decode.fused_decode_dpk(st_64[0], st_64[1], st_64[2], st_64[6], st_64[4],
+                                         sf_o, n, 64, 512, cfg)
+    _w, _pk, ids_oi, mask_o = idpack._code_tiles(ids_o, n, 256)
+    exc_o = shuffle.compact_bytes(mask_o.reshape(-1, 512),
+                                  ids_oi.to(torch.uint8).reshape(-1, 512), 128)
+    torch.cuda.synchronize()
+    launches[path] = dict(fk.LAUNCHES)
+    err_o = (y_o - x_dev).abs().max().item()
+    err_64 = (y_64 - x_dev).abs().max().item()
+    emit("end_to_end", path=path, input="bench", n=n, bytes_in=x_np.nbytes,
+         launches=launches[path], max_err=err_o, max_err_tile64=err_64,
+         bound=tolx["bench"], exc_peak=int(st_o[3].max()),
+         exc_peak_tile64=int(st_64[3].max()))
+    missing = [k for k in ONEPASS_KERNELS + ("dct_quant",) if launches[path][k] == 0]
+    require(not missing, f"{path}: kernels not launched: {missing}")
+    require(err_o <= tolx["bench"] and err_64 <= tolx["bench"],
+            f"{path}: pointwise bound violated")
+    require(int(st_64[3].max()) <= 128, f"{path}: a tile-64 chunk row overflows 128")
+    require(torch.equal(exc_o, st_o[2]), f"{path}: K's rows differ from L's")
+    e2e[path] = {"launches": launches[path], "max_err": err_o, "max_err_tile64": err_64}
+    del x_dev, y_o, y_64, ids_o, dcac_o, mask_o, ids_oi
     report["end_to_end"] = e2e
 
     # 5. times (the card's name and power limit go beside every number)
@@ -660,15 +864,18 @@ def main() -> int:
     # fp32 FMAs of the transforms (2 FLOP each): E's, A's, F's and G's
     # forward DCT and D's inverse, 64 per sample (A's verify reconstructs
     # depend on the screen and are not counted, so A's bound is a least
-    # time); H and I do no arithmetic to speak of, and read a value only
-    # where it is kept (H: the first capc masked values of a row; I: one
-    # row slot per masked position), so their bytes count those values of
-    # this run's data, not the whole value array
+    # time); H-K do no arithmetic to speak of, and read a value only where
+    # it is kept (H and K: the first capc masked values of a row; I: one
+    # row slot per masked position; J: the id bytes of the first 128
+    # exceptions of a row and the AC values it keeps), so their bytes count
+    # those values of this run's data, not the whole value arrays
     dct_flops = 2.0 * 64 * n_pad
     out_lib = torch.zeros_like(acv_i)
     library = {
         "chunk_compact": lambda: torch.masked_select(vals_h, mask_h),
         "chunk_expand": lambda: out_lib.masked_scatter_(mask_i, tight_i),
+        "chunk_compact_unified": lambda: torch.masked_select(idb_j, mask_j),
+        "chunk_compact_bytes": lambda: torch.masked_select(byt_k, mask_k),
     }
     timed = {
         "qtable_qmax": (
@@ -717,6 +924,29 @@ def main() -> int:
             lambda: shuffle.expand(mask_i, rows_i),
             lambda: cp.expand_rows(mask_i, rows_i),
             nbytes(mask_i, acv_i) + 4 * int(mask_i.sum()), 0.0),
+        "chunk_compact_unified": (
+            lambda: shuffle.compact_unified(mask_j, idb_j, vals_j, 128, 128),
+            lambda: shuffle._compact_unified_plain(mask_j, idb_j, vals_j, 128, 128, 128),
+            nbytes(mask_j, st_j64[2], st_j64[4])
+            + int(torch.clamp_max(mask_j.sum(1), 128).sum())
+            + 4 * int(torch.clamp_max(((mask_j & (idb_j == 255)) & (
+                torch.cumsum(mask_j.to(torch.int32), 1) <= 128)).sum(1), 128).sum()),
+            0.0),
+        "chunk_compact_bytes": (
+            lambda: shuffle.compact_bytes(mask_k, byt_k, 128),
+            lambda: cp.compact_rows(mask_k, byt_k, 128),
+            nbytes(mask_k, rows_k) + int(torch.clamp_max(mask_k.sum(1), 128).sum()),
+            0.0),
+        "fused_encode_dpk": (
+            lambda: fused_encode_dpk.fused_encode_dpk(xp, sf, cfg.error_bound),
+            lambda: fused_encode_dpk._fused_encode_dpk_plain(xp, sf, cfg.error_bound),
+            nbytes(xp, *l_out), dct_flops),
+        "fused_decode_dpk": (
+            lambda: fused_decode.fused_decode_dpk(w_l, pk_l, exc_l, dc_l, ac_l, sf, n_pad,
+                                                  256, 512, cfg),
+            lambda: fused_decode._fused_decode_dpk_plain(w_l, pk_l, exc_l, dc_l, ac_l, sf,
+                                                         n_pad, 256, 512, cfg, None),
+            nbytes(w_l, pk_l, exc_l, dc_l, ac_l, x_m), dct_flops),
     }
     require(nblk_pad == nblk == nblk_q, "kernel shapes differ from the main path's")
     rows_out = []
@@ -742,6 +972,32 @@ def main() -> int:
              runs=[k1, k2], plain_runs=[p1, p2], library_runs=lib_runs,
              ptxas=ptxas.get(name))
     report["kernels"] = rows_out
+
+    # for the record, not a claim: the one-pass kernels beside the launches
+    # they could replace, in turns (each measured twice, in mirrored order)
+    def f_pack_h():
+        ids_c, dcac_c = fused_encode.dct_quant(xp, sf, cfg.error_bound)
+        idpack.pack_ids(ids_c, n_pad, 256, 128)
+        esc_c = (ids_c == 255) & (col > 0)
+        shuffle.compact_f32(esc_c.reshape(-1, cw), dcac_c.reshape(-1, cw), 128)
+
+    pairs = {
+        "L fused_encode_dpk": lambda: fused_encode_dpk.fused_encode_dpk(
+            xp, sf, cfg.error_bound),
+        "A (verify off) + B": lambda: fk.encode_x_fused(
+            xp, sf, tol, n, cfg.error_bound, 128, cw, False),
+        "F + pack_ids (H) + H": f_pack_h,
+        "M fused_decode_dpk": lambda: fused_decode.fused_decode_dpk(
+            w_l, pk_l, exc_l, dc_l, ac_l, sf, n_pad, 256, 512, cfg),
+        "C + D": lambda: fk.decode_fused(w_l, pk_l, exc_l, ac_l, dc_l, sf, cfg, 512, n_pad),
+    }
+    order = list(pairs) + list(reversed(pairs))
+    runs: dict = {k: [] for k in pairs}
+    for k in order:
+        runs[k].append(cuda_ms(pairs[k], REPS))
+    onepass = {k: sum(v) / len(v) for k, v in runs.items()}
+    emit("onepass_vs_launches", card=card, ms=onepass, runs=runs)
+    report["onepass_vs_launches"] = {"card": card, "ms": onepass, "runs": runs}
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -26,6 +26,14 @@ __device__ __forceinline__ float center_of(int id, float w) {
   return static_cast<float>((id & 1) ? k2 + 1 : -k2) * w;
 }
 
+// Zigzag bin id of an in-range value v: (v - rmin) / w truncated, clamped to
+// the bins (kernels F, G and L).
+__device__ __forceinline__ int bin_of(float v, float rmin, float w) {
+  int lin = __float2int_rz((v - rmin) / w);
+  lin = min(max(lin, 0), NBINS - 1);
+  return zigzag_of_lin(lin);
+}
+
 // xs[m] = xr[m] / sf (a division, as the reference); returns max |xs|.
 __device__ __forceinline__ float scale_block(const float* __restrict__ xr,
                                             float sf, float (&xs)[BS]) {
@@ -50,6 +58,20 @@ __device__ __forceinline__ void forward_dct(const float (&xs)[BS],
 #pragma unroll
     for (int m = 0; m < BS; ++m) c = fmaf(xs[m], sB[k * BS + m], c);
     emit(k, c);
+  }
+}
+
+// Inverse DCT of one block held in registers, written over its shared-memory
+// row: cr[m] = (sum_k c[k] * B[k][m]) * sf, an fmaf chain in index order.
+// Kernels D and M share it, so M at tile 256 decodes C+D's bits.
+__device__ __forceinline__ void inverse_dct(const float (&c)[BS],
+                                            const float* __restrict__ sB,
+                                            float sf, float* __restrict__ cr) {
+  for (int m = 0; m < BS; ++m) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < BS; ++k) s = fmaf(c[k], sB[k * BS + m], s);
+    cr[m] = s * sf;
   }
 }
 

@@ -49,12 +49,6 @@ constexpr int LD = 65;           // padded float row of the sample tile
 template <bool QT>
 constexpr size_t SMEM_BYTES = sizeof(float) * (BS * BS + BPB * LD + (QT ? BS : 0));
 
-__device__ __forceinline__ int bin_of(float v, float rmin, float w) {
-  int lin = __float2int_rz((v - rmin) / w);
-  lin = min(max(lin, 0), NBINS - 1);
-  return zigzag_of_lin(lin);
-}
-
 template <bool QT>
 __global__ void __launch_bounds__(BPB)
     dct_quant_kernel(const float* __restrict__ x,

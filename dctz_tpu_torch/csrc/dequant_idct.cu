@@ -94,12 +94,7 @@ __global__ void __launch_bounds__(TILE_B)
       cr[m] = s * sf;
     }
   } else {
-    for (int m = 0; m < BS; ++m) {
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < BS; ++k) s = fmaf(c[k], sB[k * BS + m], s);
-      cr[m] = s * sf;
-    }
+    inverse_dct(c, sB, sf, cr);
   }
   __syncthreads();
 

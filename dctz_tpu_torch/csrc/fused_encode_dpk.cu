@@ -1,0 +1,124 @@
+// Kernel L: the one-pass DPK encode, raw samples to coded DPK streams (EC,
+// no verify): scale, forward DCT, bin ids, then widths, bit packing and the
+// chunk-row compaction of exception bytes and AC escapes, with the tile's
+// ids and coefficients kept in shared memory between the two halves.
+//
+// Replaces the TPU kernel dctz_tpu/ops/research/fused_encode_dpk.py
+// (fused_encode_dpk, pallas_call at line 360, body _kernel lines 195-315).
+// Plain version: ops/research/fused_encode_dpk.py:_fused_encode_dpk_plain
+// (kernel F's plain version, then idpack.pack_ids at cape 128, then
+// compact_rows of the AC escapes at capc 128).
+//
+// One CUDA block per DPK tile (256 DCT blocks, 16384 samples), one thread per
+// DCT block. The samples are staged coalesced into shared memory (rows padded
+// to 65 floats) next to the 64x64 basis; each thread runs the scale and
+// forward DCT of kernels A, E and F (common.cuh:scale_block, forward_dct), so
+// the coefficients are bit-identical to F's, and writes them over its row.
+// The block then bins them as F does into the two id copies of kernel B and
+// runs B's stages on them (dpk_tile.cuh): B's bytes, except that AC escapes
+// are ranked among their chunk row's escapes alone (the rule of
+// compaction.compact_chunked behind F), not among its first 128 exceptions.
+// The TPU kernel's matmul-built ranks, scatters and packing become the warp
+// ballots and shifts of B. Zero padding of the tail tile bins to id 0.
+//
+// What bounds it: 4 bytes read per sample against about 0.4 written, and 64
+// FMAs per sample (at 32Mi samples: 0.04 ms for the bytes at 3.35 TB/s, 0.064
+// ms for the FMAs at 67 TFLOP/s): operations, in principle. 116 KB of shared
+// memory per block leaves one 256-thread block per SM, so the per-thread FMA
+// chains of the DCT and the serial chunk-row walks are expected to keep it
+// latency-bound (achieved occupancy not measured).
+
+#include "dpk_tile.cuh"
+
+namespace {
+
+using namespace dctz;
+
+constexpr int LD = 65;   // padded float row of the sample tile
+constexpr int CW = 512;  // chunk width (n % 1024 == 0 always gives 512)
+constexpr int CAP = 128; // exception and AC slots per chunk row
+// shared memory: basis, samples (then coefficients), ids, nibbles, widths
+constexpr size_t SMEM_BYTES = sizeof(float) * (BS * BS + TILE_B * LD) +
+                              TILE_N + BS * LDN + sizeof(int) * BS;
+
+__global__ void __launch_bounds__(TILE_B)
+    fused_encode_dpk_kernel(const float* __restrict__ x,
+                            const float* __restrict__ basis,
+                            const float* __restrict__ sf_p, long long n,
+                            float rmin, float rmax, float w,
+                            uint8_t* __restrict__ width_out,
+                            uint8_t* __restrict__ packed_out,
+                            uint8_t* __restrict__ exc_out,
+                            float* __restrict__ ac_out,
+                            int* __restrict__ exc_cnt,
+                            int* __restrict__ ac_cnt,
+                            float* __restrict__ dc_out) {
+  extern __shared__ float smem[];
+  float* sB = smem;                  // basis B[k][m]
+  float* sX = sB + BS * BS;          // samples, then coefficients
+  uint8_t* sId = reinterpret_cast<uint8_t*>(sX + TILE_B * LD);
+  uint8_t* sN = sId + TILE_N;
+  int* sW = reinterpret_cast<int*>(sN + BS * LDN);
+
+  const int tid = threadIdx.x;
+  const long long tile = blockIdx.x;
+  const long long base = tile * TILE_N;
+  const float sf = *sf_p;
+
+  for (int i = tid; i < BS * BS; i += TILE_B) sB[i] = basis[i];
+  for (int i = tid; i < TILE_N; i += TILE_B) {
+    const long long gi = base + i;
+    sX[(i >> 6) * LD + (i & 63)] = gi < n ? x[gi] : 0.f;
+  }
+  __syncthreads();
+
+  {
+    float* row = sX + tid * LD;
+    float xs[BS];
+    scale_block(row, sf, xs);
+    forward_dct(xs, sB, [&](int k, float c) { row[k] = c; });
+  }
+  __syncthreads();
+
+  // bins as kernel F; the DC column and padding enter the tile as 0
+  for (int i = tid; i < TILE_N; i += TILE_B) {
+    const int blk = i >> 6, pos = i & 63;
+    const float c = sX[blk * LD + pos];
+    int v = 0;
+    if (pos == 0) {
+      dc_out[tile * TILE_B + blk] = c;
+    } else if (base + i < n) {
+      v = (c >= rmin && c <= rmax) ? bin_of(c, rmin, w) : ESCAPE;
+    }
+    put_id(sId, sN, i, v);
+  }
+  __syncthreads();
+
+  select_widths(sN, sW);
+  __syncthreads();
+  if (tid < BS) width_out[tile * BS + tid] = static_cast<uint8_t>(sW[tid]);
+
+  pack_rows(sN, sW, packed_out + tile * BS * 128);
+
+  compact_chunks<false>(sId, sW, tile, CW, CAP, CAP, exc_out, ac_out, exc_cnt,
+                        ac_cnt, [&](int blk, int pos) { return sX[blk * LD + pos]; });
+}
+
+}  // namespace
+
+extern "C" int dctz_fused_encode_dpk(const float* x, const float* basis,
+                                     const float* sf, long long n, float rmin,
+                                     float rmax, float w, uint8_t* width,
+                                     uint8_t* packed, uint8_t* exc, float* ac,
+                                     int* exc_counts, int* ac_counts,
+                                     float* dc, void* stream) {
+  cudaFuncSetAttribute(fused_encode_dpk_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(SMEM_BYTES));
+  const long long tiles = (n + TILE_N - 1) / TILE_N;
+  fused_encode_dpk_kernel<<<static_cast<unsigned>(tiles), TILE_B, SMEM_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, basis, sf, n, rmin, rmax, w, width, packed, exc, ac, exc_counts,
+      ac_counts, dc);
+  return static_cast<int>(cudaGetLastError());
+}

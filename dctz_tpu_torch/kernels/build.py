@@ -77,6 +77,18 @@ SIGNATURES = {
     "dctz_chunk_compact": [P, P, I64, I32, I32, P, P, P],
     # mask, rows, nc, cw, capc, out, stream
     "dctz_chunk_expand": [P, P, I64, I32, I32, P, P],
+    # mask, vals, nc, cw, capc, rows, stream
+    "dctz_chunk_compact_bytes": [P, P, I64, I32, I32, P, P],
+    # mask, idb, vals, nc, cw, cape, capc, cut, exc, ac, stream
+    "dctz_chunk_compact_unified": [P, P, P, I64, I32, I32, I32, I32, P, P, P],
+    # x, basis, sf, n, rmin, rmax, w, width, packed, exc, ac, exc_counts,
+    # ac_counts, dc, stream
+    "dctz_fused_encode_dpk": [P, P, P, I64, F32, F32, F32, P, P, P, P, P, P,
+                              P, P],
+    # width, packed, exc_rows, ac_rows, dc, basis, sf, qtable, nblk, nce,
+    # ncc, b, cw, cape, capc, w, rmin, rmax, denom, qt, out, stream
+    "dctz_fused_decode_dpk": [P, P, P, P, P, P, P, P, I64, I64, I64, I32, I32,
+                              I32, I32, F32, F32, F32, F32, I32, P, P],
 }
 
 

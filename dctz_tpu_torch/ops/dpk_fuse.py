@@ -23,7 +23,7 @@ wrappers count their launches in LAUNCHES, only where a kernel launches.
 
 Plain versions, composed from the ported modules:
   A: core.transform.block_dct + core.quantize.encode_ids(_qt) + ops.repair
-  B: ops.idpack.pack_ids_with_ac
+  B: ops.idpack._pack_ids_with_ac_plain
   C: ops.idpack.unpack_ids + ops.compaction.expand_rows
   D: core.quantize.decode_dense + core.transform.block_idct
   E: ops.fused_encode._qtable_qmax_plain
@@ -59,6 +59,11 @@ LAUNCHES = {
     "dct_quant_qt": 0,
     "chunk_compact": 0,
     "chunk_expand": 0,
+    # kernels J, K (ops/shuffle.py) and L, M (ops/research/)
+    "chunk_compact_unified": 0,
+    "chunk_compact_bytes": 0,
+    "fused_encode_dpk": 0,
+    "fused_decode_dpk": 0,
 }
 
 
@@ -179,7 +184,8 @@ def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
 
 
 def _dpk_pack_compact_plain(ids2d, vals2d, n_valid: int, cape_k: int):
-    return idpack.pack_ids_with_ac(ids2d, vals2d, n_valid, TILE_B, cape_k)[:7]
+    return idpack._pack_ids_with_ac_plain(ids2d, vals2d, n_valid, TILE_B,
+                                          cape_k)[:7]
 
 
 def dpk_pack_compact(ids2d, vals2d, n_valid: int, cape_k: int, cw: int):

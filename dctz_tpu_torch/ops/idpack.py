@@ -4,16 +4,21 @@ Per tile of B = 256 blocks and per coefficient position, the nibbles
 min(id, 15) pack at the width w in 0..4 that minimises w*B + 8*#exceptions
 (first minimum wins); nibbles >= 2^w - 1 pack as that marker and their
 original id byte goes to the exception stream, compacted in block-major
-chunk rows like the AC stream. These are the plain versions: pack_ids_with_ac
-is kernel B's twin and unpack_ids is the id half of kernel C's twin
-(ops/dpk_fuse.py).
+chunk rows like the AC stream. _pack_ids_with_ac_plain is kernel B's twin
+and unpack_ids is the id half of kernel C's twin (ops/dpk_fuse.py).
+pack_ids_with_ac dispatches as the JAX package does: kernel B at B's
+geometry, kernel J (ops/shuffle.compact_unified) at any other tile, for CUDA
+tensors; pack_ids compacts its exception bytes through kernel H. Any tile
+b that is a multiple of 8 codes (the 3-bit packing takes groups of 8).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import constants as C
+from ..core import quantize as qz
 from . import compaction as cp
 
 B_DEFAULT = 256  # blocks per tile (128-byte max packed row)
@@ -29,8 +34,6 @@ def tiles_of(nblk: int, b: int) -> int:
 
 def packed_nbytes(widths, b: int):
     """Per-tile packed byte counts for host slicing/assembly (numpy)."""
-    import numpy as np
-
     return (widths.astype(np.int64) * b) // 8
 
 
@@ -72,17 +75,10 @@ def _thr_block_major(width: torch.Tensor, nblk: int, b: int) -> torch.Tensor:
     return thr[:, None, :].expand(t, b, bs).reshape(t * b, bs)[:nblk]
 
 
-def pack_ids_with_ac(ids2d: torch.Tensor, dcac2d: torch.Tensor, n_valid: int,
-                     b: int, cape: int):
-    """Code the (nblk, bs) bin-id grid and compact its AC escapes.
-
-    Returns (width (T,bs) u8, packed (T*bs, b//2) u8, exc_rows (nc,cape) u8,
-    exc_counts (nc,) i32, ac_rows (nc,cape) f32, ac_counts (nc,) i32,
-    dc (nblk,) f32, overflow bool tensor). AC values are compacted among the
-    first `cape` exceptions of each chunk row; both counts are the true,
-    unclipped ones."""
-    from ..core.quantize import chunk_width
-
+def _code_tiles(ids2d: torch.Tensor, n_valid: int, b: int):
+    """Widths and packing of the (nblk, bs) grid at tile b: (width (T, bs)
+    int32, packed (T*bs, b//2) u8, ids_i (nblk, bs) int32 with DC and
+    padding zeroed, exc_mask (nblk, bs) bool: nibble >= the tile's marker)."""
     nblk, bs = ids2d.shape
     t = tiles_of(nblk, b)
     dev = ids2d.device
@@ -110,26 +106,106 @@ def pack_ids_with_ac(ids2d: torch.Tensor, dcac2d: torch.Tensor, n_valid: int,
         packed = torch.where((width == wb)[..., None], pk, packed)
 
     exc_mask = nib_bm >= _thr_block_major(width, nblk, b)
-    cw = chunk_width(nblk * bs, bs)
+    return width, packed.reshape(t * bs, cap), ids_i, exc_mask
+
+
+def _pack_ids(ids2d, n_valid: int, b: int, cape: int, compact):
+    nblk, bs = ids2d.shape
+    width, packed, ids_i, exc_mask = _code_tiles(ids2d, n_valid, b)
+    cw = qz.chunk_width(nblk * bs, bs)
     cape = min(cape, cw)
+    rows, counts = compact(exc_mask.reshape(-1, cw),
+                           ids_i.reshape(-1, cw).to(torch.float32), cape)
+    return (width.to(torch.uint8), packed, rows.to(torch.uint8), counts,
+            torch.any(counts > cape))
+
+
+def pack_ids(ids2d: torch.Tensor, n_valid: int, b: int, cape: int):
+    """Code the (nblk, bs) bin-id grid (dctz_tpu's idpack.pack_ids): widths
+    and packing in torch ops, the exception bytes compacted per block-major
+    chunk row, as compaction.compact_chunked does (kernel H for CUDA
+    tensors).
+
+    Returns (width (T, bs) u8, packed (T*bs, b//2) u8, exc_rows (nc,
+    min(cape, cw)) u8, exc_counts (nc,) i32, overflow bool tensor)."""
+    from . import shuffle
+
+    return _pack_ids(ids2d, n_valid, b, cape, shuffle.compact_f32)
+
+
+def _pack_ids_plain(ids2d: torch.Tensor, n_valid: int, b: int, cape: int):
+    """pack_ids in torch ops alone, on any device."""
+    return _pack_ids(ids2d, n_valid, b, cape, cp.compact_rows)
+
+
+def _pack_ids_with_ac(ids2d, dcac2d, n_valid: int, b: int, cape: int, compact):
+    nblk, bs = ids2d.shape
+    cw = qz.chunk_width(nblk * bs, bs)
+    cape = min(cape, cw)
+    width, packed, ids_i, exc_mask = _code_tiles(ids2d, n_valid, b)
     mask2 = exc_mask.reshape(-1, cw)
     ids2 = ids_i.reshape(-1, cw)
-    vals2 = dcac2d.reshape(-1, cw).to(torch.float32)
-    exc_rows, exc_counts = cp.compact_rows(mask2, ids2, cape)
-    rank = torch.cumsum(mask2.to(torch.int32), dim=1) - 1
-    esc = mask2 & (ids2 == C.ESCAPE)
-    ac_rows, _ = cp.compact_rows(esc & (rank < cape), vals2, cape)
-    ac_counts = esc.sum(dim=1, dtype=torch.int32)
-    return (
-        width.to(torch.uint8),
-        packed.reshape(t * bs, cap),
-        exc_rows.to(torch.uint8),
-        exc_counts,
-        ac_rows,
-        ac_counts,
-        dcac2d[:, 0].to(torch.float32).contiguous(),
-        torch.any(exc_counts > cape),
-    )
+    exc_rows, ac_rows = compact(mask2, ids2.to(torch.uint8),
+                                dcac2d.reshape(-1, cw).to(torch.float32), cape)
+    exc_counts = mask2.sum(dim=1, dtype=torch.int32)
+    ac_counts = (mask2 & (ids2 == C.ESCAPE)).sum(dim=1, dtype=torch.int32)
+    return (width.to(torch.uint8), packed, exc_rows, exc_counts, ac_rows,
+            ac_counts, dcac2d[:, 0].to(torch.float32).contiguous(),
+            torch.any(exc_counts > cape))
+
+
+def _pack_ids_with_ac_plain(ids2d: torch.Tensor, dcac2d: torch.Tensor,
+                            n_valid: int, b: int, cape: int):
+    """pack_ids_with_ac in torch ops alone, on any device (kernel B's
+    twin): the exception bytes, and the AC values among the first `cape`
+    exceptions (the sort arm of dctz_tpu's pack_ids_with_ac)."""
+    from . import shuffle
+
+    return _pack_ids_with_ac(
+        ids2d, dcac2d, n_valid, b, cape,
+        lambda m, i, v, c: shuffle._compact_unified_plain(m, i, v, c, c, c))
+
+
+def pack_ids_with_ac(ids2d: torch.Tensor, dcac2d: torch.Tensor, n_valid: int,
+                     b: int, cape: int):
+    """Code the (nblk, bs) bin-id grid and compact its AC escapes.
+
+    Returns (width (T,bs) u8, packed (T*bs, b//2) u8, exc_rows (nc,cape) u8,
+    exc_counts (nc,) i32, ac_rows (nc,cape) f32, ac_counts (nc,) i32,
+    dc (nblk,) f32, overflow bool tensor). AC values are compacted among the
+    first `cape` exceptions of each chunk row; both counts are the true,
+    unclipped ones.
+
+    Dispatched as dctz_tpu's pack_ids_with_ac: for CUDA tensors at kernel
+    B's geometry (b = 256, cw a multiple of 128 dividing the tile)
+    dpk_fuse.encode_fused (kernel B); for CUDA tensors at any other tile,
+    widths and packing in torch ops, then shuffle.compact_unified (kernel
+    J, _pack_ids_with_ac_unified); for CPU tensors the plain version. The
+    card's arms cut the AC values at the exception rank min(cw, cape
+    rounded up to 128), as the JAX kernels do: the same bytes as the plain
+    version wherever cape is a multiple of 128 or at least cw."""
+    from . import dpk_fuse
+
+    if not dpk_fuse._on_cuda(ids2d, dcac2d):
+        return _pack_ids_with_ac_plain(ids2d, dcac2d, n_valid, b, cape)
+    nblk, bs = ids2d.shape
+    cw = qz.chunk_width(nblk * bs, bs)
+    if (b == dpk_fuse.TILE_B and bs == dpk_fuse.BS and cw % 128 == 0
+            and dpk_fuse.TILE_N % cw == 0):
+        return dpk_fuse.encode_fused(ids2d, dcac2d, n_valid, b, min(cape, cw), cw)
+    return _pack_ids_with_ac_unified(ids2d, dcac2d, n_valid, b, cape)
+
+
+def _pack_ids_with_ac_unified(ids2d: torch.Tensor, dcac2d: torch.Tensor,
+                              n_valid: int, b: int, cape: int):
+    """pack_ids_with_ac's arm for any tile: widths and packing in torch ops,
+    then one shuffle.compact_unified (kernel J on the card) for both
+    streams, as dctz_tpu's shuffle arm."""
+    from . import shuffle
+
+    return _pack_ids_with_ac(
+        ids2d, dcac2d, n_valid, b, cape,
+        lambda m, i, v, c: shuffle.compact_unified(m, i, v, c, c))
 
 
 def unpack_ids(width: torch.Tensor, packed: torch.Tensor, exc_rows: torch.Tensor,
@@ -151,3 +227,4 @@ def unpack_ids(width: torch.Tensor, packed: torch.Tensor, exc_rows: torch.Tensor
     ids = torch.where(mask, exc.reshape(nblk, bs), nib_bm)
     ids[:, 0] = C.ESCAPE
     return ids.to(torch.uint8)
+

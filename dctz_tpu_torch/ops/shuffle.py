@@ -1,22 +1,31 @@
 """Chunk-row compaction and expansion as CUDA kernels (port of
-dctz_tpu/ops/shuffle.py: compact_f32 and expand).
+dctz_tpu/ops/shuffle.py: compact_f32, expand, compact_unified and
+compact_bytes).
 
-  H chunk_compact: the masked values of each (nc, cw) chunk row, moved to
-                   the front in position order, into (nc, capc) rows
-  I chunk_expand:  the inverse, rows back at the masked positions
+  H chunk_compact:         the masked values of each (nc, cw) chunk row,
+                           moved to the front in position order, into
+                           (nc, capc) rows
+  I chunk_expand:          the inverse, rows back at the masked positions
+  J chunk_compact_unified: the masked id bytes of a row and, in the same
+                           walk, the values of the ESCAPE bytes among them
+  K chunk_compact_bytes:   H on uint8 values
 
 The JAX package routes values through butterfly roll networks because the
 TPU has no fast scatter; the kernels here rank the masked lanes of each row
 with warp ballots (csrc/chunk_shuffle.cu). The plain versions are
-ops/compaction.compact_rows and expand_rows. As in ops/dpk_fuse.py, a
-wrapper takes the plain version for CPU tensors and launches the kernel for
-CUDA tensors, or raises; it counts launches in dpk_fuse.LAUNCHES.
+ops/compaction.compact_rows and expand_rows (J: two compact_rows). As in
+ops/dpk_fuse.py, a wrapper takes the plain version for CPU tensors and
+launches the kernel for CUDA tensors, or raises; it counts launches in
+dpk_fuse.LAUNCHES.
+
+As in the JAX package, J and K's output rows are min(capacity, cw) wide.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core import constants as C
 from . import compaction as cp
 from . import dpk_fuse
 
@@ -75,3 +84,61 @@ def expand(mask: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         dpk_fuse._launch("chunk_expand", m.data_ptr(), rows.data_ptr(), nc, cw,
                          rows.shape[1], out.data_ptr())
     return out
+
+
+def compact_bytes(mask: torch.Tensor, byt: torch.Tensor, capc: int) -> torch.Tensor:
+    """Kernel K. mask (nc, cw) bool/u8, byt (nc, cw) uint8 -> (nc, min(capc,
+    cw)) uint8: each row's masked bytes in position order, zero-filled."""
+    nc, cw = mask.shape
+    width = min(capc, cw)
+    if not dpk_fuse._on_cuda(mask, byt):
+        return cp.compact_rows(mask.bool(), byt, width)[0]
+    _check_rows(mask, "compact_bytes")
+    dpk_fuse._check(byt, torch.uint8, "byt")
+    if byt.shape != mask.shape or capc < 1:
+        raise ValueError(f"compact_bytes: bytes {tuple(byt.shape)} against mask "
+                         f"{tuple(mask.shape)}, capc {capc}")
+    rows = torch.empty((nc, width), dtype=torch.uint8, device=byt.device)
+    if nc:
+        dpk_fuse._launch("chunk_compact_bytes", _mask_u8(mask).data_ptr(),
+                         byt.data_ptr(), nc, cw, width, rows.data_ptr())
+    return rows
+
+
+def _compact_unified_plain(mask, idb, vals, width_e: int, width_c: int, cut: int):
+    m = mask.bool()
+    exc, _ = cp.compact_rows(m, idb, width_e)
+    rank = torch.cumsum(m.to(torch.int32), dim=1) - 1
+    esc = m & (idb == C.ESCAPE) & (rank < cut)
+    ac, _ = cp.compact_rows(esc, vals.to(torch.float32), width_c)
+    return exc, ac
+
+
+def compact_unified(mask: torch.Tensor, idb: torch.Tensor, vals: torch.Tensor,
+                    cape: int, capc: int):
+    """Kernel J. mask (nc, cw) bool/u8, idb (nc, cw) uint8 id bytes, vals
+    (nc, cw) float32 -> (exc (nc, min(cape, cw)) uint8: the masked id bytes
+    in position order; ac (nc, min(capc, cw)) float32: the values at the
+    masked ESCAPE bytes whose exception rank is below the kernel capacity
+    min(cw, cape rounded up to 128), the JAX kernel's cut), both zero-filled.
+    The cut equals cape wherever cape is a multiple of 128 or at least cw,
+    which is where idpack.pack_ids_with_ac's two arms agree."""
+    nc, cw = mask.shape
+    width_e, width_c = min(cape, cw), min(capc, cw)
+    cut = min(cw, -(-cape // 128) * 128)
+    if not dpk_fuse._on_cuda(mask, idb, vals):
+        return _compact_unified_plain(mask, idb, vals, width_e, width_c, cut)
+    _check_rows(mask, "compact_unified")
+    dpk_fuse._check(idb, torch.uint8, "idb")
+    dpk_fuse._check(vals, torch.float32, "vals")
+    if (idb.shape != mask.shape or vals.shape != mask.shape or cape < 1
+            or capc < 1):
+        raise ValueError(f"compact_unified: idb {tuple(idb.shape)}, vals "
+                         f"{tuple(vals.shape)} against mask {tuple(mask.shape)}")
+    exc = torch.empty((nc, width_e), dtype=torch.uint8, device=vals.device)
+    ac = torch.empty((nc, width_c), dtype=torch.float32, device=vals.device)
+    if nc:
+        dpk_fuse._launch("chunk_compact_unified", _mask_u8(mask).data_ptr(),
+                         idb.data_ptr(), vals.data_ptr(), nc, cw, width_e,
+                         width_c, cut, exc.data_ptr(), ac.data_ptr())
+    return exc, ac

@@ -428,3 +428,170 @@ def test_tf32_is_refused(dev):
             dz.compress(x, device="cuda")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("cw", [128, 512])
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.25, 1.0])
+def test_kernels_j_k_byte_equal(dev, cw, density):
+    """J and K against their plain versions, byte for byte, at capacities
+    that are not lane multiples and at J's cut above cape (96 -> 128)."""
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import shuffle
+
+    rng = np.random.default_rng(3 * cw + int(density * 100))
+    nc = 77
+    mask = torch.from_numpy(rng.random((nc, cw)) < density).to(dev)
+    idb = rng.integers(0, 255, (nc, cw)).astype(np.uint8)
+    idb = torch.from_numpy(np.where(rng.random((nc, cw)) < 0.3, np.uint8(255), idb)).to(dev)
+    vals = torch.from_numpy(rng.standard_normal((nc, cw)).astype(np.float32)).to(dev)
+    for capc in (96, 130):
+        fk.reset_launches()
+        got = shuffle.compact_bytes(mask, idb, capc)
+        assert fk.LAUNCHES["chunk_compact_bytes"] == 1
+        assert torch.equal(got, shuffle.compact_bytes(mask.cpu(), idb.cpu(), capc).to(dev))
+    for cape, capc in ((96, 96), (130, 130), (96, 130)):
+        fk.reset_launches()
+        got = shuffle.compact_unified(mask, idb, vals, cape, capc)
+        assert fk.LAUNCHES["chunk_compact_unified"] == 1
+        ref = shuffle.compact_unified(mask.cpu(), idb.cpu(), vals.cpu(), cape, capc)
+        assert torch.equal(got[0].cpu(), ref[0])
+        assert torch.equal(got[1].cpu().view(torch.int32), ref[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("nblk,b,cape", [(512, 64, 128), (700, 64, 128), (700, 32, 256),
+                                         (512, 128, 512)])
+def test_pack_ids_with_ac_launches_j(dev, nblk, b, cape):
+    """At a tile other than 256, pack_ids_with_ac on the card runs kernel J
+    alone and gives its plain version's bytes."""
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import idpack
+
+    ids, vals = _ids(np.random.default_rng(nblk + b), nblk, 0.02)
+    it, vt = torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
+    fk.reset_launches()
+    got = idpack.pack_ids_with_ac(it, vt, nblk * 64 - 7, b, cape)
+    assert {k for k, v in fk.LAUNCHES.items() if v} == {"chunk_compact_unified"}
+    ref = idpack.pack_ids_with_ac(it.cpu(), vt.cpu(), nblk * 64 - 7, b, cape)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+
+
+def _bench(n):
+    from dctz_tpu_torch.utils.bench_data import climate_formula_np
+
+    return climate_formula_np(n)
+
+
+@pytest.mark.parametrize("n", [TILE_N, 5 * TILE_N - 1024, 16 * TILE_N])
+def test_kernel_l_byte_equal(dev, n):
+    """L against its plain version, and against F, then pack_ids (kernel H)
+    at cape 128, then H of F's escapes, on the card: the same bytes, DC by
+    value (one forward-DCT function, kernel F's)."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+    from dctz_tpu_torch.ops import idpack, shuffle
+    from dctz_tpu_torch.ops.research import fused_encode_dpk as fed
+
+    x = torch.from_numpy(_bench(n)).to(dev)
+    sf, _ = api._stats_device(x, n, 1)
+    fk.reset_launches()
+    got = fed.fused_encode_dpk(x, sf, 1e-3)
+    assert {k for k, v in fk.LAUNCHES.items() if v} == {"fused_encode_dpk"}
+    plain = fed._fused_encode_dpk_plain(x, sf, 1e-3)
+    ids, dcac = fe.dct_quant(x, sf, 1e-3)
+    chain = idpack.pack_ids(ids, n, 256, 128)[:4]
+    esc = (ids == 255) & (torch.arange(64, device=dev) > 0)
+    chain += shuffle.compact_f32(esc.reshape(-1, 512), dcac.reshape(-1, 512), 128)
+    chain += (dcac[:, 0],)
+    ids_g = idpack.unpack_ids(*got[:3], n // 64, 64, 256, 512)
+    ids_p = idpack.unpack_ids(*plain[:3], n // 64, 64, 256, 512)
+    assert (ids_g != ids_p).float().mean().item() <= 1e-4
+    for i, (g, c) in enumerate(zip(got, chain)):
+        assert g.dtype == c.dtype and g.shape == c.shape, i
+        assert torch.equal(g, c) if i != 6 else bool((g == c).all()), i
+    if torch.equal(ids_g, ids_p):
+        for i in (0, 1, 2, 3, 5):
+            assert torch.equal(got[i], plain[i]), i
+
+
+def _decode_case(dev, b, mode, esc_p, seed):
+    """Decode inputs at tile b (four tiles and three quarters of a fifth)
+    built with the port's own coder: pack_ids at full capacity, exception
+    rows cut to the smallest tier that holds the peak, AC rows of
+    out-of-range values at the escapes."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.core import quantize as qz
+    from dctz_tpu_torch.ops import compaction as cp
+    from dctz_tpu_torch.ops import idpack
+
+    rng = np.random.default_rng(seed)
+    nblk = 4 * b + 3 * b // 4
+    n = nblk * 64
+    ids, _ = _ids(rng, nblk, esc_p)
+    cw = qz.chunk_width(n, 64)
+    w, pk, exc, cnt, _ = idpack.pack_ids(torch.from_numpy(ids), n, b, cw)
+    cape = next(c for c in (32, 64, 128) if c >= int(cnt.max()))
+    esc = torch.from_numpy((ids == 255) & (np.arange(64) >= 1))
+    dense = torch.from_numpy((rng.standard_normal((nblk, 64)) * 3 + 1.0).astype(np.float32))
+    ac, acn = cp.compact_rows(esc.reshape(-1, cw), dense.reshape(-1, cw), 128)
+    assert int(acn.max()) <= 128
+    dc = torch.from_numpy((rng.standard_normal(nblk) * 10).astype(np.float32))
+    q = (torch.from_numpy(np.abs(rng.standard_normal(64)).astype(np.float32) + 1.0)
+         if mode == "qt" else None)
+    arrays = [a.contiguous().to(dev) for a in (w, pk, exc[:, :cape], dc, ac)]
+    cfg = dz.CodecConfig(mode=mode, error_bound=1e-3)
+    return arrays, n, cw, cfg, None if q is None else q.to(dev)
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("b", [32, 64, 256])
+def test_kernel_m_matches_plain(dev, mode, b):
+    """M against its plain version within 32 ulp of sf * max|coef| of the
+    block (kernel D's budget), at tiles 32, 64 and 256 with a partial tail."""
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops.research import fused_decode as fd
+
+    arrays, n, cw, cfg, q = _decode_case(dev, b, mode, 0.02, b)
+    sf = torch.tensor(37.5, device=dev)
+    fk.reset_launches()
+    got = fd.fused_decode_dpk(*arrays, sf, n, b, cw, cfg, q)
+    assert fk.LAUNCHES["fused_decode_dpk"] == 1
+    ref = fd._fused_decode_dpk_plain(*arrays, sf, n, b, cw, cfg, q)
+    co = fd._coefficients_plain(*arrays, b, cw, cfg, q)
+    lim = (32 * 2.0**-23 * 37.5 * co.abs().amax(1)).repeat_interleave(64)[:n]
+    assert got.shape == ref.shape == (n,)
+    assert torch.all((got - ref).abs() <= lim)
+
+
+def test_kernel_m_equals_c_d_at_tile_256(dev):
+    """On L's streams of the benchmark array, M decodes C + D's bits."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops.research import fused_decode as fd
+    from dctz_tpu_torch.ops.research import fused_encode_dpk as fed
+
+    n = 5 * TILE_N - 1024
+    x = torch.from_numpy(_bench(n)).to(dev)
+    sf, _ = api._stats_device(x, n, 1)
+    w, pk, exc, _ec, ac, _acn, dc = fed.fused_encode_dpk(x, sf, 1e-3)
+    cfg = dz.CodecConfig(error_bound=1e-3)
+    fk.reset_launches()
+    got = fd.fused_decode_dpk(w, pk, exc, dc, ac, sf, n, 256, 512, cfg)
+    assert {k for k, v in fk.LAUNCHES.items() if v} == {"fused_decode_dpk"}
+    ref = fk.decode_fused(w, pk, exc, ac, dc, sf, cfg, 512, n)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert (got - x).abs().max().item() <= 1e-3 * float(x.max() - x.min())
+
+
+def test_kernel_m_refuses_a_tile_beyond_one_block(dev):
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops.research import fused_decode as fd
+
+    b = 512
+    z = lambda *s, **k: torch.zeros(s, device=dev, **k)  # noqa: E731
+    args = (z(1, 64, dtype=torch.uint8), z(64, b // 2, dtype=torch.uint8),
+            z(64, 128, dtype=torch.uint8), z(b), z(64, 128), torch.tensor(1.0, device=dev))
+    with pytest.raises(ValueError, match="at most 256"):
+        fd.fused_decode_dpk(*args, b * 64, b, 512, dz.CodecConfig())
