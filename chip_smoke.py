@@ -27,14 +27,21 @@ Phases, each printed as one JSON line:
 
   1. device: the card's name, and its name and power limit from nvidia-smi
   2. build:  the CUDA kernels compiled from dctz_tpu_torch/csrc (one nvcc per
-     source, in parallel), with ptxas' registers and spills per kernel
+     source, in parallel), with ptxas' registers and spills per kernel; then
+     one "occupancy" line per kernel: its resident CTAs per SM at its launch
+     configuration (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the
+     kernels' library) beside those registers and spills. A, A-QT, D and
+     D-QT must not spill and must fit at least 2 CTAs per SM
   3. kernels against their plain PyTorch versions on the card, at the main
      paths' shapes. EC input (the bench array): B and C byte-equal, A within
      1e-5 of ids, D within 32 ulp of sf. QT input (the x30 array): E
      bit-equal to the clamped maximum over A-EC's own coefficients and
      within 4 ulp of its plain version, A-QT within 1e-5 of ids and its
      stored values within the budget below, D-QT within 32 ulp of sf *
-     max|coef| of the block. The v1 paths' kernels on the bench array: F
+     max|coef| of the block; "screen" lines: the share of blocks A's and
+     A-QT's L2 screen sends to the exact check and the share repaired, on
+     the bench and x30 inputs (A's optional counters; the plain version's
+     counts beside them). The v1 paths' kernels on the bench array: F
      and G with no id mismatch and DC and stored values within the budget
      (F also equal to A's ids and coefficients), H byte-equal on F's
      escapes at capacity 128, I byte-equal on the rows the decode of the
@@ -46,8 +53,8 @@ Phases, each printed as one JSON line:
      128 or 32, whichever holds every chunk row in 128 slots) and in QT (G's
      streams with the x30 input's qtable from E, on the x30 input unless a
      chunk row there holds more than 128 exceptions, then on the bench
-     array), and of C + D-QT; J (pack_ids_with_ac at tile 64) and K
-     byte-equal
+     array), and bit-equal to C + D-QT; J (pack_ids_with_ac at tile 64)
+     and K byte-equal
   4. end to end, per path: compress and decompress through the public API on
      the card with the launch counters reset just before and read just after
      (every kernel of the path > 0), the container family expected, the
@@ -63,8 +70,13 @@ Phases, each printed as one JSON line:
      stream's per-segment spans); each kernel's time beside its plain
      version's (CUDA events), its bound and, for H, I, J and K, one PyTorch
      call that computes the same function from or to the tight stream
-     (library_ms); then, for the record, L beside A (verify off) + B and
-     beside F + pack_ids + H, and M beside C + D
+     (library_ms); for A, A-QT, D and D-QT the kernel's own device time
+     from torch.profiler beside the wrapper's CUDA-event time (which also
+     holds the wrapper's small launches); then, for the record, L beside A
+     (verify off) + B and beside F + pack_ids + H, M beside C + D, and a
+     transform-only yardstick, torch.matmul(blocks, basis.T) and
+     torch.matmul(coef, basis) in full fp32 (transform_matmul_ms): not the
+     same function as A or D, and never called by the port
 
 Any failed check raises, and the script exits non-zero without a result.
 Without CUDA it exits 2 at once. The line before the last two is the kernel
@@ -96,6 +108,11 @@ PEAK_BYTES = 3.35e12  # bytes/s of HBM3
 
 EC_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
               "dequant_idct")
+#: the kernels on the register-tiled transform (csrc/dct_tile.cuh): no spill,
+#: at least MIN_CTAS_PER_SM resident CTAs per SM
+TILE_KERNELS = ("dct_quant_verify", "dct_quant_verify_qt", "dequant_idct",
+                "dequant_idct_qt")
+MIN_CTAS_PER_SM = 2
 QT_KERNELS = ("qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
               "dpk_unpack_expand", "dequant_idct_qt")
 V1_EC_KERNELS = ("dct_quant", "chunk_compact", "chunk_expand", "dequant_idct")
@@ -314,6 +331,33 @@ def pipeline_trace(dz, x_np, cfg, blob, card, path) -> dict:
     return out
 
 
+def profiled_kernel_ms(fn, symbol: str, reps: int) -> dict:
+    """One kernel's own device time per call under torch.profiler, over
+    `reps` calls of fn (after a warm-up), and all of fn's device time per
+    call. A session that records none of the kernel's launches (the
+    profiler drops a session's device records now and then) is run again,
+    three times at most; None where none recorded them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.name.startswith("Activity Buffer")]
+        mine = [ev.time_range.elapsed_us() for ev in evs if symbol in ev.name]
+        if len(mine) == reps:
+            break
+    every = sum(ev.time_range.elapsed_us() for ev in evs)
+    return {"profiler_kernel_ms": sum(mine) / 1e3 / len(mine) if mine else None,
+            "profiler_device_ms_per_call": every / 1e3 / reps if evs else None,
+            "profiler_launches": len(mine), "calls": reps, "sessions": attempt}
+
+
 def max_abs_diff(pairs) -> float:
     """Largest |a - b| over pairs of equal-shape tensors (any dtype)."""
     return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
@@ -354,6 +398,7 @@ def main() -> int:
     from dctz_tpu_torch.core import container as ct
     from dctz_tpu_torch.core import entropy
     from dctz_tpu_torch.core import quantize as qz
+    from dctz_tpu_torch.core import transform
     from dctz_tpu_torch.kernels import build
     from dctz_tpu_torch.ops import compaction as cp
     from dctz_tpu_torch.ops import dpk_fuse as fk
@@ -382,7 +427,14 @@ def main() -> int:
     emit("build", seconds=round(build.last_build_s, 3), library=str(build.LIB_PATH),
          ptxas=ptxas)
     require(set(SOURCES) <= set(ptxas), f"ptxas reports no kernel of {set(SOURCES) - set(ptxas)}")
-    report["build"] = {"seconds": build.last_build_s, "ptxas": ptxas}
+    ctas = {k: build.ctas_per_sm(k) for k in build.OCCUPANCY}
+    for k in build.OCCUPANCY:
+        emit("occupancy", kernel=k, ctas_per_sm=ctas[k], **ptxas[k])
+    for k in TILE_KERNELS:
+        require(ptxas[k].get("spill_stores") == 0 and ptxas[k].get("spill_loads") == 0,
+                f"{k}: ptxas reports spills {ptxas[k]}")
+        require(ctas[k] >= MIN_CTAS_PER_SM, f"{k}: {ctas[k]} resident CTAs per SM")
+    report["build"] = {"seconds": build.last_build_s, "ptxas": ptxas, "ctas_per_sm": ctas}
 
     # 3. kernels against their plain versions, at the main paths' shapes
     def cfg_of(path):
@@ -511,6 +563,26 @@ def main() -> int:
     require(bool(ok_qk) == bool(ok_qp), "A-QT: ok flags differ")
     require(not bool(over.any()), "A-QT: stored values outside the budget")
     kernels["dct_quant_verify_qt"] = {"max_abs_err": err_aq, "id_mismatch": mism_q}
+
+    # A's L2 screen on the bench and x30 inputs, EC and QT (each input's own
+    # qtable): blocks sent to the exact check and blocks repaired, through
+    # A's counters, beside the plain version's counts of the same
+    report["screen"] = []
+    for inp, x_in, sf_in, tol_in in (("bench", xp, sf, tol), ("x30", xq, sf_q, tol_q)):
+        q_in = fused_encode.qtable_qmax(x_in, sf_in, cfg.error_bound)
+        for name, q, c in (("dct_quant_verify", None, cfg), ("dct_quant_verify_qt", q_in, cfg_qt)):
+            ck = torch.zeros(2, dtype=torch.int64, device=dev)
+            cp_ = torch.zeros(2, dtype=torch.int64, device=dev)
+            fk.dct_quant_verify(x_in, sf_in, tol_in, n, cfg.error_bound, True, q, ck)
+            fk._dct_quant_verify_plain(x_in, sf_in, tol_in, n, c, True, q, cp_)
+            (flagged, repaired), (flagged_p, missed_p) = ck.tolist(), cp_.tolist()
+            row = {"kernel": name, "input": inp, "blocks": nblk_pad, "flagged": flagged,
+                   "repaired": repaired, "flagged_share": flagged / nblk_pad,
+                   "repaired_share": repaired / nblk_pad, "plain_flagged": flagged_p,
+                   "plain_missed": missed_p}
+            emit("screen", **row)
+            report["screen"].append(row)
+            require(repaired <= flagged, f"{name} on {inp}: repaired blocks the screen passed")
 
     blob_q0 = dz.compress(x_qt_np, config=cfg_qt, device="cuda")
     (hq, dq_in, dcq_d, acq_d, sfq_d, q_d, nq_stream, cwq_d, hq_cfg, _e,
@@ -703,9 +775,11 @@ def main() -> int:
          tile_exc_peak=int(st_j[3].max()), qt_input="x30", qt_chunk_width=cw_q,
          qt_peaks=qt_peaks, qt_capacities=[arr_q[2].shape[1], arr_q[4].shape[1]],
          qt_entries_above_1=int((qt_e[1:] > 1.0).sum()),
-         qt_bit_equal_to_c_d=bool(torch.equal(x_mq, x_cdq)), over_budget=over_mq,
-         over_budget_vs_c_d=over_cdq, max_abs_err=err_m)
+         qt_bit_equal_to_c_d=bool(torch.equal(x_mq.view(torch.int32), x_cdq.view(torch.int32))),
+         over_budget=over_mq, over_budget_vs_c_d=over_cdq, max_abs_err=err_m)
     require(over_mq == 0 and over_cdq == 0, "M-QT: beyond D's budget")
+    require(torch.equal(x_mq.view(torch.int32), x_cdq.view(torch.int32)),
+            "M-QT: differs from C + D-QT")
     kernels["fused_decode_dpk"] = {"max_abs_err": err_m}
 
     # J: pack_ids_with_ac at tile 64 launches J (kernel B takes tile 256) and
@@ -973,6 +1047,17 @@ def main() -> int:
              ptxas=ptxas.get(name))
     report["kernels"] = rows_out
 
+    # A's and D's own device time (torch.profiler) beside the wrapper's
+    # CUDA-event time of the table above
+    event_ms = {r["name"]: r["ms"] for r in rows_out}
+    report["kernel_device_time"] = {}
+    for name in TILE_KERNELS:
+        symbol = name.removesuffix("_qt") + ("_kernel<true>" if name.endswith("_qt")
+                                             else "_kernel<false>")
+        dev_ms = profiled_kernel_ms(timed[name][0], symbol, REPS)
+        emit("kernel_device_time", card=card, kernel=name, event_ms=event_ms[name], **dev_ms)
+        report["kernel_device_time"][name] = {"event_ms": event_ms[name], **dev_ms}
+
     # for the record, not a claim: the one-pass kernels beside the launches
     # they could replace, in turns (each measured twice, in mirrored order)
     def f_pack_h():
@@ -998,6 +1083,19 @@ def main() -> int:
     onepass = {k: sum(v) / len(v) for k, v in runs.items()}
     emit("onepass_vs_launches", card=card, ms=onepass, runs=runs)
     report["onepass_vs_launches"] = {"card": card, "ms": onepass, "runs": runs}
+
+    # for the record: the transforms alone as full-fp32 library matmuls at
+    # 32Mi (TF32 off above); not the same function as A or D (no division,
+    # bins, verify, dequantization or fmaf order), and the port never calls it
+    basis = transform.dct2_basis(64, dev)
+    blocks = (xp / sf).reshape(-1, 64)
+    mm = {"forward": [cuda_ms(lambda: torch.matmul(blocks, basis.T), REPS) for _ in range(2)],
+          "inverse": [cuda_ms(lambda: torch.matmul(coef_k, basis), REPS) for _ in range(2)]}
+    transform_mm = {k: sum(v) / 2 for k, v in mm.items()}
+    emit("transform_matmul_ms", card=card, ms=transform_mm, runs=mm,
+         note="torch.matmul in fp32, TF32 off: a yardstick for the transform "
+              "alone, not the function of A or D; the port never calls it")
+    report["transform_matmul_ms"] = {"card": card, "ms": transform_mm, "runs": mm}
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -192,3 +192,9 @@ extern "C" int dctz_chunk_compact_unified(const uint8_t* mask,
       mask, idb, vals, nc, cw, cape, capc, cut, exc, ac);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Resident CTAs per SM at the launch configuration.
+extern "C" int dctz_ctas_per_sm_chunk_compact() { return dctz::ctas_per_sm(chunk_compact_kernel, WARPS * 32, 0); }
+extern "C" int dctz_ctas_per_sm_chunk_expand() { return dctz::ctas_per_sm(chunk_expand_kernel, WARPS * 32, 0); }
+extern "C" int dctz_ctas_per_sm_chunk_compact_unified() { return dctz::ctas_per_sm(chunk_compact_unified_kernel, WARPS * 32, 0); }
+extern "C" int dctz_ctas_per_sm_chunk_compact_bytes() { return dctz::ctas_per_sm(chunk_compact_bytes_kernel, WARPS * 32, 0); }

@@ -47,8 +47,9 @@ __device__ __forceinline__ float scale_block(const float* __restrict__ xr,
 }
 
 // Forward DCT-II of one block, coef[k] = sum_m xs[m] * B[k][m] as an fmaf
-// chain in index order, handed to emit(k, coef[k]). Kernels A and E share it,
-// so E's maxima are taken over the very coefficients A bins.
+// chain in index order, handed to emit(k, coef[k]). Kernels E, F, G and L run
+// it; kernel A's tiled transform (dct_tile.cuh) computes the same chains, so
+// E's maxima are taken over the very coefficients A bins.
 template <class Emit>
 __device__ __forceinline__ void forward_dct(const float (&xs)[BS],
                                             const float* __restrict__ sB,
@@ -63,7 +64,8 @@ __device__ __forceinline__ void forward_dct(const float (&xs)[BS],
 
 // Inverse DCT of one block held in registers, written over its shared-memory
 // row: cr[m] = (sum_k c[k] * B[k][m]) * sf, an fmaf chain in index order.
-// Kernels D and M share it, so M at tile 256 decodes C+D's bits.
+// Kernel M runs it; kernel D's tiled transform (dct_tile.cuh) computes the
+// same chains, so M at tile 256 decodes C+D's bits.
 __device__ __forceinline__ void inverse_dct(const float (&c)[BS],
                                             const float* __restrict__ sB,
                                             float sf, float* __restrict__ cr) {
@@ -95,6 +97,23 @@ __device__ __forceinline__ float qt_inverse(float v, float q, float denom,
 // Lanes below this one, for ballot prefix counts.
 __device__ __forceinline__ unsigned lanes_below() {
   return (1u << (threadIdx.x & 31)) - 1u;
+}
+
+// Resident CTAs per SM of a kernel at a launch configuration
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on an error. Dynamic
+// shared memory above 48 KB is allowed for the kernel first, as its launch
+// does.
+template <class Kernel>
+int ctas_per_sm(Kernel kernel, int threads, size_t smem) {
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace dctz

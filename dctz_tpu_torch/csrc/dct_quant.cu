@@ -23,16 +23,16 @@
 // One CUDA block per 128 DCT blocks (8192 samples), one thread per DCT block.
 // The samples are staged coalesced through shared memory (rows padded to 65
 // floats) next to the 64x64 basis (16 KB, read as a broadcast). Each thread
-// runs the same scale and forward DCT as kernels A and E
-// (common.cuh:scale_block, forward_dct), so F's coefficients are bit-identical
-// to A's, and writes them over its own row; the block then bins them and
-// stores ids and dcac coalesced. Unlike A there is no verify, so 49.5 KB of
-// shared memory suffices and several blocks share an SM.
+// runs the scale and forward DCT of common.cuh (scale_block, forward_dct), as
+// kernel E does; kernel A's tiled transform computes the same divisions and
+// fmaf chains, so F's coefficients are bit-identical to A's. Each thread
+// writes them over its own row; the block then bins them and stores ids and
+// dcac coalesced. 49.5 KB of shared memory lets several blocks share an SM.
 //
 // What bounds it: 4 bytes in and 5 out per sample (302 MB at 32Mi samples,
 // 0.090 ms at 3.35 TB/s) against 64 FMAs per sample (4.3 GFLOP, 0.064 ms at
 // 67 TFLOP/s): bytes, in principle. The per-thread FMA chains of the forward
-// DCT, as in A and E, are expected to keep it latency-bound instead (achieved
+// DCT, as in E, are expected to keep it latency-bound instead (achieved
 // occupancy not measured). No TF32: plain fp32 FMAs in index order, and x/sf
 // and (v - rmin)/w are IEEE divisions (the build never uses --use_fast_math).
 
@@ -144,3 +144,7 @@ extern "C" int dctz_dct_quant_qt(const float* x, const float* basis,
   return launch<true>(x, basis, sf, qtable, eb, qtf, n_pad, rmin, rmax, w,
                       ids, dcac, stream);
 }
+
+// Resident CTAs per SM at the launch configuration.
+extern "C" int dctz_ctas_per_sm_dct_quant() { return dctz::ctas_per_sm(dct_quant_kernel<false>, BPB, SMEM_BYTES<false>); }
+extern "C" int dctz_ctas_per_sm_dct_quant_qt() { return dctz::ctas_per_sm(dct_quant_kernel<true>, BPB, SMEM_BYTES<true>); }

@@ -12,41 +12,60 @@
 // does, raises the repair floor to 3e-6 * |qtable[k]|, and writes the stored
 // (renormalized) values in place of the coefficients at AC escapes.
 //
-// One CUDA block per DPK tile (256 DCT blocks, 16384 samples), one thread per
-// DCT block. The tile's samples and coefficients sit in dynamic shared memory
-// (2 x 66.5 KB, rows padded to 65 floats so the per-thread rows fall on
-// distinct banks) with the 64x64 float32 basis (16 KB), which every thread
-// reads at the same address (a broadcast). Global loads and stores are
-// coalesced through shared memory.
+// What bounds it on the H100: 128 MB read and 160 MB written for 32Mi
+// samples, 0.090 ms at 3.35 TB/s; the forward DCT's 64 fmaf per sample,
+// 0.064 ms at 67 TFLOP/s; the reconstructions of the blocks the L2 screen
+// flags come on top. The two are close, so the design keeps the FMA units fed
+// while the next tile's samples are in flight:
+// - A CTA of 256 threads takes a tile of 64 DCT blocks (dct_tile.cuh): a
+//   register-tiled product with 16 independent chains per thread, two 16-byte
+//   shared loads per 16 fmaf, in place of one 64-long chain per thread with a
+//   shared load per fmaf. 55 KB of shared memory and __launch_bounds__(256, 4)
+//   (at most 64 registers) let four CTAs share an SM.
+// - The CTAs are persistent (a grid of CTAs-per-SM x SMs walks the tiles) and
+//   load the next tile with cp.async into a raw buffer while they transform
+//   this one. cp.async rather than a prefetch into registers: the 16 floats a
+//   thread would hold across the product and the repair cost registers that
+//   the 64-register budget does not have, and the raw buffer is free as soon
+//   as the staging pass has divided it into the transposed tile, so one
+//   buffer suffices.
+// - The epilogue bins each thread's 16 coefficients of the tile. The L2
+//   screen sums d*d per block in k order on one thread per block, the
+//   same sum as before (hat and d are recomputed there from the coefficient
+//   and its id rather than stored: a d tile would cost 16 KB and a CTA per
+//   SM), so the screen flags exactly the blocks it flagged. The exact check
+//   and the two repair passes run one warp per flagged block: lanes own
+//   positions m = lane, lane + 32 of the reconstruction and coefficients k =
+//   lane, lane + 32 of hat and the repair; the block's max error is a
+//   __shfl_xor max. The samples of the error are read again from device
+//   memory (the raw buffer already holds the next tile; the L2 still has it).
 //
-// What bounds it: the forward DCT is 64 FMAs per sample (4.3 GFLOP for 32Mi
-// samples) plus a reconstruct (another 64 FMAs per sample) for every block the
-// L2 screen flags; against 128 MB read and 160 MB written. At one 256-thread
-// block per SM (the shared memory allows no second) the FMA chains run with
-// few warps to hide shared-memory latency, so latency rather than bandwidth is
-// the expected bound (achieved occupancy not measured). Kept simple on
-// purpose; tensor cores (wgmma) and fusing
-// with kernel B are later work. No TF32: the sums are plain fp32 FMAs in
-// index order, and x/sf and (v - rmin)/w are IEEE divisions (the build never
-// uses --use_fast_math).
+// Bit-exactness: every coefficient is fmaf(xs[m], B[k][m], c) from 0.f over
+// m = 0..63 in order with xs[m] = x[m] / sf an IEEE division, and every
+// reconstructed sample the k-order chain times sf, as common.cuh's
+// forward_dct / inverse_dct (kernels E, F, L and M) compute them. No TF32 and
+// no --use_fast_math; (v - rmin) / w and the QT renormalization are IEEE.
 //
 // The L2 screen gates the exact check per DCT block (the TPU kernel gates per
 // tile); the screen is a rigorous bound, so which blocks are repaired does
-// not depend on the gating granularity.
+// not depend on the gating granularity. ok_tiles gets one flag per 64-block
+// tile. counters, when not null, accumulates (blocks the screen flagged,
+// blocks whose exact check failed and were repaired).
 
-#include "common.cuh"
+#include "dct_tile.cuh"
 
 namespace {
 
 using namespace dctz;
+using namespace dctz::tile;
 
-constexpr int LD = 65;   // padded float row of the sample/coefficient tiles
-constexpr int LDI = 68;  // padded byte row of the id tile
-// shared memory: basis, samples, coefficients, the qtable (QT only), ids
-template <bool QT>
-constexpr size_t SMEM_BYTES = sizeof(float) * (BS * BS + 2 * TILE_B * LD +
-                                               (QT ? BS : 0)) +
-                              TILE_B * LDI;
+constexpr int MIN_CTAS = 4;  // resident CTAs per SM that __launch_bounds__ asks
+constexpr int LDI = 68;      // padded byte row of the id tile
+// shared memory: transposed basis, raw samples, the transposed sample tile
+// (then the coefficient tile), per-warp hat rows, qtable, per-block max|xs|,
+// the flagged-block list, ids
+constexpr size_t SMEM_BYTES = sizeof(float) * (3 * TN + WARPS * BS + BS + TB) +
+                              sizeof(int) * TB + TB * LDI;
 
 struct Geom {
   float rmin, rmax, w, sf, tol;
@@ -72,12 +91,14 @@ __device__ __forceinline__ int ac_bin(float c, float q, const Geom& g) {
   return zigzag_of_lin(lin);
 }
 
-// The decoder's coefficient at position k > 0 of a block: an escape reads
-// its stored value (EC: the coefficient; QT: the renormalized value, inverted
-// as the decoder inverts it), everything else its bin center.
+// The decoder's coefficient at position k of a block: DC reads the
+// coefficient, an AC escape its stored value (EC: the coefficient; QT: the
+// renormalized value, inverted as the decoder inverts it), everything else
+// its bin center.
 template <bool QT>
-__device__ __forceinline__ float hat_of(float c, int id, bool acm, float q,
-                                        const Geom& g) {
+__device__ __forceinline__ float hat_of(int k, float c, int id, bool acm,
+                                        float q, const Geom& g) {
+  if (k == 0) return c;
   if (!(acm && id == ESCAPE)) return center_of(id, g.w);
   if constexpr (QT)
     return qt_inverse(qt_renorm(c, q, g.eb, g.qtf, g.rmin, g.rmax), q, g.denom,
@@ -85,38 +106,70 @@ __device__ __forceinline__ float hat_of(float c, int id, bool acm, float q,
   return c;
 }
 
-// Max pointwise error of the block's reconstruction from its current ids.
-// hat mirrors the decoder (DC reads the coefficient, hat_of for the rest).
-// Also leaves hat[] for the repair's e_ij.
-template <bool QT>
-__device__ __forceinline__ float recon_err(const float* __restrict__ sB,
-                                           const float* __restrict__ cr,
-                                           const uint8_t* __restrict__ ir,
-                                           const float* __restrict__ sQ,
-                                           const float* __restrict__ xr,
-                                           long long gblk, long long n_pad,
-                                           long long n_valid, const Geom& g,
-                                           float (&hat)[BS]) {
+// Start loading tile t's samples into sRaw (block-major, as in x); zeros
+// past n_pad.
+__device__ __forceinline__ void load_tile_async(float* __restrict__ sRaw,
+                                                const float* __restrict__ x,
+                                                long long t, long long n_pad,
+                                                int tid) {
 #pragma unroll
-  for (int k = 0; k < BS; ++k) {
-    const float c = cr[k];
-    const int id = ir[k];
-    const bool acm = k > 0 && gblk + k < n_pad;
-    hat[k] = k == 0 ? c : hat_of<QT>(c, id, acm, QT ? sQ[k] : 0.f, g);
+  for (int i = 0; i < TN / 4 / THREADS; ++i) {
+    const int c = 4 * (tid + i * THREADS);
+    const long long gi = t * TN + c;
+    if (gi < n_pad)
+      cp_async16(sRaw + c, x + gi);
+    else
+      st4(sRaw + c, make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+  cp_async_commit();
+}
+
+// Max pointwise error of block b's reconstruction from its current ids, on
+// one warp: lane holds coefficients k0 = lane, k1 = lane + 32 (c0, c1, ids
+// id0, id1) and leaves their hat in hat0, hat1; it reconstructs positions
+// m = lane, lane + 32 as k-order chains times sf.
+template <bool QT>
+__device__ __forceinline__ float block_error(
+    const float* __restrict__ sBT, float* __restrict__ h,
+    const float* __restrict__ x, long long gblk, long long n_pad,
+    long long n_valid, const Geom& g, int lane, float c0, float c1, int id0,
+    int id1, float q0, float q1, float& hat0, float& hat1) {
+  const int k0 = lane, k1 = lane + 32;
+  hat0 = hat_of<QT>(k0, c0, id0, k0 > 0 && gblk + k0 < n_pad, q0, g);
+  hat1 = hat_of<QT>(k1, c1, id1, gblk + k1 < n_pad, q1, g);
+  __syncwarp();
+  h[k0] = hat0;
+  h[k1] = hat1;
+  __syncwarp();
+  const int m0 = lane, m1 = lane + 32;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < BS / 4; ++j) {
+    const float4 hv = ld4(h + 4 * j);
+    const float4 b0 = ld4(sBT + m0 * BS + rcol(m0, 4 * j));
+    const float4 b1 = ld4(sBT + m1 * BS + rcol(m1, 4 * j));
+    s0 = fmaf(hv.x, b0.x, s0);
+    s0 = fmaf(hv.y, b0.y, s0);
+    s0 = fmaf(hv.z, b0.z, s0);
+    s0 = fmaf(hv.w, b0.w, s0);
+    s1 = fmaf(hv.x, b1.x, s1);
+    s1 = fmaf(hv.y, b1.y, s1);
+    s1 = fmaf(hv.z, b1.z, s1);
+    s1 = fmaf(hv.w, b1.w, s1);
   }
   float e = 0.f;
-  for (int m = 0; m < BS; ++m) {
-    float s = 0.f;
+  const float xh0 = s0 * g.sf;
+  if (gblk + m0 < n_valid) e = fmaxf(e, fabsf(xh0 - x[gblk + m0]));
+  const float xh1 = s1 * g.sf;
+  if (gblk + m1 < n_valid) e = fmaxf(e, fabsf(xh1 - x[gblk + m1]));
 #pragma unroll
-    for (int k = 0; k < BS; ++k) s = fmaf(hat[k], sB[k * BS + m], s);
-    const float xh = s * g.sf;
-    if (gblk + m < n_valid) e = fmaxf(e, fabsf(xh - xr[m]));
-  }
+  for (int off = 16; off > 0; off >>= 1)
+    e = fmaxf(e, __shfl_xor_sync(FULL, e, off));
   return e;
 }
 
 template <bool QT>
-__global__ void __launch_bounds__(TILE_B)
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
     dct_quant_verify_kernel(const float* __restrict__ x,
                             const float* __restrict__ basis,
                             const float* __restrict__ sf_p,
@@ -126,101 +179,213 @@ __global__ void __launch_bounds__(TILE_B)
                             float rmin, float rmax, float w, int verify,
                             uint8_t* __restrict__ ids_out,
                             float* __restrict__ vals_out,
-                            int* __restrict__ ok_tiles) {
-  extern __shared__ float smem[];
-  float* sB = smem;                 // basis B[k][m]
-  float* sX = sB + BS * BS;         // samples, block-major rows
-  float* sC = sX + TILE_B * LD;     // coefficients
-  float* sQ = sC + TILE_B * LD;     // qtable (QT only)
-  uint8_t* sI = reinterpret_cast<uint8_t*>(sQ + (QT ? BS : 0));  // bin ids
+                            int* __restrict__ ok_tiles,
+                            unsigned long long* __restrict__ counters) {
+  extern __shared__ __align__(16) float smem[];
+  float* sBT = smem;          // basis, row m holds B[k][m] at rcol(m, k)
+  float* sRaw = sBT + TN;     // samples as loaded, block-major
+  float* sT = sRaw + TN;      // xs transposed; then coefficients, row b
+  float* sH = sT + TN;        // per-warp hat rows of the exact check
+  float* sQ = sH + WARPS * BS;                                  // qtable
+  float* sMx = sQ + BS;                                         // max|xs|
+  int* sList = reinterpret_cast<int*>(sMx + TB);                // flagged
+  uint8_t* sI = reinterpret_cast<uint8_t*>(sList + TB);         // ids
+  __shared__ int sCount, sRepaired, sOk;
+  // tol / sf of the L2 screen, kept here rather than in a register across
+  // the tile loop (ptxas spilled it there)
+  __shared__ float sTolSf;
 
-  const int tid = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * TILE_N;
-  Geom g{rmin, rmax, w, *sf_p, *tol_p, eb, qtf, __fmul_rn(eb, qtf)};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hi = tid >> 4, lo = tid & 15;
+  const long long tiles = (n_pad + TN - 1) / TN;
+  const Geom g{rmin, rmax, w, *sf_p, *tol_p, eb, qtf, __fmul_rn(eb, qtf)};
 
-  for (int i = tid; i < BS * BS; i += TILE_B) sB[i] = basis[i];
+  long long t = blockIdx.x;
+  load_tile_async(sRaw, x, t, n_pad, tid);
+  for (int i = tid; i < BS * BS; i += THREADS) {
+    const int k = i >> 6, m = i & 63;
+    sBT[m * BS + rcol(m, k)] = basis[i];
+  }
   if constexpr (QT) {
     if (tid < BS) sQ[tid] = qtable[tid];
   }
-  for (int i = tid; i < TILE_N; i += TILE_B) {
-    const long long gi = base + i;
-    sX[(i >> 6) * LD + (i & 63)] = gi < n_pad ? x[gi] : 0.f;
-  }
-  __syncthreads();
+  if (tid == 0) sTolSf = g.tol / g.sf;
 
-  const int b = tid;
-  const long long gblk = base + static_cast<long long>(b) * BS;
-  const float* xr = sX + b * LD;
-  float* cr = sC + b * LD;
-  uint8_t* ir = sI + b * LDI;
+  for (; t < tiles; t += gridDim.x) {
+    const long long base = t * TN;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; the last tile's readers are done
 
-  // xs = x / sf (a division, as the reference), the block's max |xs|, and
-  // the forward DCT-II
-  float xs[BS];
-  const float mx = scale_block(xr, g.sf, xs);
-  forward_dct(xs, sB, [&](int k, float c) { cr[k] = c; });
-  // bins; DC and what stays out of range escape
-  float l2 = 0.f;
-  for (int k = 0; k < BS; ++k) {
-    const float c = cr[k];
-    const float q = QT ? sQ[k] : 0.f;
-    const int id = k > 0 ? ac_bin<QT>(c, q, g) : ESCAPE;
-    ir[k] = static_cast<uint8_t>(id);
-    const bool acm = k > 0 && gblk + k < n_pad;
-    const float hat = k == 0 ? c : hat_of<QT>(c, id, acm, q, g);
-    const float d = hat - c;
-    l2 += d * d;
-  }
-
-  bool ok = true;
-  if (verify) {
-    // L2 screen: |IDCT(delta)_i| <= ||delta||_2 for the orthonormal basis,
-    // minus a transform-rounding budget of 32 eps * max|xs|
-    const float eps32 = 1.1920929e-07f;
-    const float thr = g.tol / g.sf - 32.0f * eps32 * mx;
-    if (l2 > thr * thr || thr <= 0.f) {
-      float hat[BS];
-      float blk =
-          recon_err<QT>(sB, cr, ir, sQ, xr, gblk, n_pad, n_valid, g, hat);
-      if (blk > g.tol) {
-        const float floors[2] = {g.w / 8.0f, g.w * 1e-3f};
-        for (int pass = 0; pass < 2; ++pass) {
-          blk = recon_err<QT>(sB, cr, ir, sQ, xr, gblk, n_pad, n_valid, g, hat);
-          if (blk > g.tol) {
+    // xs = x / sf (a division, as the reference) in place, one float4 of a
+    // block at a time (few values live across the divisions), and each
+    // block's max |xs| (16 lo-threads of a half-warp per block); then the
+    // thread's own 4 x 4 values into the transposed tile
 #pragma unroll
-            for (int k = 1; k < BS; ++k) {
-              // QT: an escape carries ~1.5e-6 * qtable[k] of error itself
-              const float floor =
-                  QT ? fmaxf(floors[pass], __fmul_rn(3e-6f, fabsf(sQ[k])))
-                     : floors[pass];
-              if (gblk + k < n_pad && fabsf(cr[k] - hat[k]) > floor)
-                ir[k] = ESCAPE;
-            }
-          }
-        }
-        blk = recon_err<QT>(sB, cr, ir, sQ, xr, gblk, n_pad, n_valid, g, hat);
-        ok = !(blk > g.tol);
+    for (int bi = 0; bi < 4; ++bi) {
+      float* p = sRaw + (4 * hi + bi) * BS + 4 * lo;
+      const float4 r = ld4(p);
+      const float4 s = make_float4(r.x / g.sf, r.y / g.sf, r.z / g.sf, r.w / g.sf);
+      st4(p, s);
+      float mx = fmaxf(fmaxf(fabsf(s.x), fabsf(s.y)), fmaxf(fabsf(s.z), fabsf(s.w)));
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      if (lo == 0) sMx[4 * hi + bi] = mx;
+    }
+    {
+      float v[4][4];
+#pragma unroll
+      for (int bi = 0; bi < 4; ++bi) {
+        const float4 s = ld4(sRaw + (4 * hi + bi) * BS + 4 * lo);
+        v[bi][0] = s.x;
+        v[bi][1] = s.y;
+        v[bi][2] = s.z;
+        v[bi][3] = s.w;
+      }
+      stage_transposed(sT, hi, lo, v);
+    }
+    if (tid == 0) {
+      sCount = 0;
+      sRepaired = 0;
+      sOk = 1;
+    }
+    __syncthreads();  // the tile is staged; sRaw is free
+    if (t + gridDim.x < tiles) load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
+
+    // the forward DCT of the tile into the coefficient tile, then the bins of
+    // the thread's own coefficients, one float4 at a time; DC escapes
+    {
+      float acc[4][4];
+      tile_product<true>(sT, sBT, hi, lo, acc);
+      __syncthreads();  // sT is read; it takes the coefficients
+#pragma unroll
+      for (int bi = 0; bi < 4; ++bi) {
+        const int b = 4 * hi + bi;
+        st4(sT + b * BS + rcol(b, 4 * lo),
+            make_float4(acc[bi][0], acc[bi][1], acc[bi][2], acc[bi][3]));
       }
     }
-  }
-  const int all_ok = __syncthreads_and(ok);
-  if (tid == 0) ok_tiles[blockIdx.x] = all_ok;
+#pragma unroll
+    for (int bi = 0; bi < 4; ++bi) {
+      const int b = 4 * hi + bi;
+      const float4 c4 = ld4(sT + b * BS + rcol(b, 4 * lo));
+      const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+      unsigned word = 0;
+#pragma unroll
+      for (int ki = 0; ki < 4; ++ki) {
+        const int k = 4 * lo + ki;
+        const int id = k == 0 ? ESCAPE : ac_bin<QT>(cv[ki], QT ? sQ[k] : 0.f, g);
+        word |= static_cast<unsigned>(id) << (8 * ki);
+      }
+      *reinterpret_cast<unsigned*>(sI + b * LDI + 4 * lo) = word;
+    }
+    __syncthreads();
 
-  // streams: ids zeroed at DC and padding; the coefficients, except QT's AC
-  // escapes, which store their renormalized values
-  for (int i = tid; i < TILE_N; i += TILE_B) {
-    const long long gi = base + i;
-    if (gi < n_pad) {
-      const int blk = i >> 6, k = i & 63;
-      const int id = sI[blk * LDI + k];
-      const float c = sC[blk * LD + k];
-      ids_out[gi] = k == 0 ? 0 : id;
-      if constexpr (QT)
-        vals_out[gi] = (k > 0 && id == ESCAPE)
-                           ? qt_renorm(c, sQ[k], g.eb, g.qtf, g.rmin, g.rmax)
-                           : c;
-      else
-        vals_out[gi] = c;
+    if (verify) {
+      // L2 screen, one thread per block: |IDCT(delta)_i| <= ||delta||_2 for
+      // the orthonormal basis, minus a transform-rounding budget of
+      // 32 eps * max|xs|; d*d summed in k order
+      if (tid < TB) {
+        const int b = tid;
+        const long long gblk = base + static_cast<long long>(b) * BS;
+        if (gblk < n_pad) {
+          float l2 = 0.f;
+#pragma unroll 4
+          for (int j = 0; j < BS / 4; ++j) {
+            const float4 c4 = ld4(sT + b * BS + rcol(b, 4 * j));
+            const unsigned word =
+                *reinterpret_cast<const unsigned*>(sI + b * LDI + 4 * j);
+            const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int k = 4 * j + i;
+              const float c = cv[i];
+              const int id = (word >> (8 * i)) & 0xff;
+              const bool acm = k > 0 && gblk + k < n_pad;
+              const float hat = hat_of<QT>(k, c, id, acm, QT ? sQ[k] : 0.f, g);
+              const float d = hat - c;
+              l2 += d * d;
+            }
+          }
+          const float eps32 = 1.1920929e-07f;
+          const float thr = sTolSf - 32.0f * eps32 * sMx[b];
+          if (l2 > thr * thr || thr <= 0.f) sList[atomicAdd(&sCount, 1)] = b;
+        }
+      }
+      __syncthreads();
+
+      // the exact check and the two repair passes, one warp per flagged block
+      const int nflag = sCount;
+      for (int f = warp; f < nflag; f += WARPS) {
+        const int b = sList[f];
+        const long long gblk = base + static_cast<long long>(b) * BS;
+        const int k0 = lane, k1 = lane + 32;
+        const float c0 = sT[b * BS + rcol(b, k0)], c1 = sT[b * BS + rcol(b, k1)];
+        int id0 = sI[b * LDI + k0], id1 = sI[b * LDI + k1];
+        const float q0 = QT ? sQ[k0] : 0.f, q1 = QT ? sQ[k1] : 0.f;
+        float* h = sH + warp * BS;
+        float hat0, hat1;
+        float blk = block_error<QT>(sBT, h, x, gblk, n_pad, n_valid, g, lane,
+                                    c0, c1, id0, id1, q0, q1, hat0, hat1);
+        if (blk > g.tol) {
+          if (lane == 0) atomicAdd(&sRepaired, 1);
+          // two passes with falling floors, w/8 then w*1e-3
+#pragma unroll
+          for (int pass = 0; pass < 2; ++pass) {
+            // pass 0 sees the ids the error above was taken from
+            if (pass > 0)
+              blk = block_error<QT>(sBT, h, x, gblk, n_pad, n_valid, g, lane,
+                                    c0, c1, id0, id1, q0, q1, hat0, hat1);
+            if (blk > g.tol) {
+              const float fl = pass == 0 ? g.w / 8.0f : g.w * 1e-3f;
+              // QT: an escape carries ~1.5e-6 * qtable[k] of error itself
+              const float f0 = QT ? fmaxf(fl, __fmul_rn(3e-6f, fabsf(q0))) : fl;
+              const float f1 = QT ? fmaxf(fl, __fmul_rn(3e-6f, fabsf(q1))) : fl;
+              if (k0 > 0 && gblk + k0 < n_pad && fabsf(c0 - hat0) > f0) id0 = ESCAPE;
+              if (gblk + k1 < n_pad && fabsf(c1 - hat1) > f1) id1 = ESCAPE;
+            }
+          }
+          blk = block_error<QT>(sBT, h, x, gblk, n_pad, n_valid, g, lane, c0,
+                                c1, id0, id1, q0, q1, hat0, hat1);
+          if (lane == 0 && blk > g.tol) sOk = 0;
+          sI[b * LDI + k0] = static_cast<uint8_t>(id0);
+          sI[b * LDI + k1] = static_cast<uint8_t>(id1);
+        }
+      }
+      __syncthreads();
+    }
+
+    // streams, 16-byte stores of the coefficient rows: ids zeroed at DC; the
+    // coefficients, except QT's AC escapes, which store their renormalized
+    // values; blocks past n_pad are not written
+#pragma unroll
+    for (int bi = 0; bi < 4; ++bi) {
+      const int b = 4 * hi + bi;
+      const long long gi = base + static_cast<long long>(b) * BS + 4 * lo;
+      if (gi < n_pad) {
+        unsigned word = *reinterpret_cast<const unsigned*>(sI + b * LDI + 4 * lo);
+        if (lo == 0) word &= ~0xffu;
+        float4 c = ld4(sT + b * BS + rcol(b, 4 * lo));
+        if constexpr (QT) {
+          float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+          for (int ki = 0; ki < 4; ++ki) {
+            const int k = 4 * lo + ki;
+            if (k > 0 && ((word >> (8 * ki)) & 0xff) == ESCAPE)
+              cv[ki] = qt_renorm(cv[ki], sQ[k], g.eb, g.qtf, g.rmin, g.rmax);
+          }
+          c = make_float4(cv[0], cv[1], cv[2], cv[3]);
+        }
+        *reinterpret_cast<unsigned*>(ids_out + gi) = word;
+        st4(vals_out + gi, c);
+      }
+    }
+    if (tid == 0) {
+      ok_tiles[t] = sOk;
+      if (counters != nullptr) {
+        atomicAdd(counters, static_cast<unsigned long long>(sCount));
+        atomicAdd(counters + 1, static_cast<unsigned long long>(sRepaired));
+      }
     }
   }
 }
@@ -230,16 +395,19 @@ int launch(const float* x, const float* basis, const float* sf,
            const float* tol, const float* qtable, float eb, float qtf,
            long long n_pad, long long n_valid, float rmin, float rmax, float w,
            int verify, uint8_t* ids, float* vals, int* ok_tiles,
-           void* stream) {
-  cudaFuncSetAttribute(dct_quant_verify_kernel<QT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(SMEM_BYTES<QT>));
-  const long long tiles = (n_pad + TILE_N - 1) / TILE_N;
+           unsigned long long* counters, void* stream) {
+  static int cache[MAX_DEVICES] = {};
+  const long long tiles = (n_pad + TN - 1) / TN;
+  if (tiles == 0) return 0;
+  const long long grid =
+      persistent_grid(dct_quant_verify_kernel<QT>, SMEM_BYTES, tiles, cache);
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   dct_quant_verify_kernel<QT>
-      <<<static_cast<unsigned>(tiles), TILE_B, SMEM_BYTES<QT>,
+      <<<static_cast<unsigned>(grid), THREADS, SMEM_BYTES,
          static_cast<cudaStream_t>(stream)>>>(x, basis, sf, tol, qtable, eb,
                                               qtf, n_pad, n_valid, rmin, rmax,
-                                              w, verify, ids, vals, ok_tiles);
+                                              w, verify, ids, vals, ok_tiles,
+                                              counters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -250,9 +418,12 @@ extern "C" int dctz_dct_quant_verify(const float* x, const float* basis,
                                      long long n_pad, long long n_valid,
                                      float rmin, float rmax, float w,
                                      int verify, uint8_t* ids, float* coef,
-                                     int* ok_tiles, void* stream) {
+                                     int* ok_tiles,
+                                     unsigned long long* counters,
+                                     void* stream) {
   return launch<false>(x, basis, sf, tol, nullptr, 0.f, 0.f, n_pad, n_valid,
-                       rmin, rmax, w, verify, ids, coef, ok_tiles, stream);
+                       rmin, rmax, w, verify, ids, coef, ok_tiles, counters,
+                       stream);
 }
 
 extern "C" int dctz_dct_quant_verify_qt(const float* x, const float* basis,
@@ -262,7 +433,18 @@ extern "C" int dctz_dct_quant_verify_qt(const float* x, const float* basis,
                                         long long n_valid, float rmin,
                                         float rmax, float w, int verify,
                                         uint8_t* ids, float* vals,
-                                        int* ok_tiles, void* stream) {
+                                        int* ok_tiles,
+                                        unsigned long long* counters,
+                                        void* stream) {
   return launch<true>(x, basis, sf, tol, qtable, eb, qtf, n_pad, n_valid,
-                      rmin, rmax, w, verify, ids, vals, ok_tiles, stream);
+                      rmin, rmax, w, verify, ids, vals, ok_tiles, counters,
+                      stream);
+}
+
+extern "C" int dctz_ctas_per_sm_dct_quant_verify() {
+  return dctz::tile::tile_ctas_per_sm(dct_quant_verify_kernel<false>, SMEM_BYTES);
+}
+
+extern "C" int dctz_ctas_per_sm_dct_quant_verify_qt() {
+  return dctz::tile::tile_ctas_per_sm(dct_quant_verify_kernel<true>, SMEM_BYTES);
 }

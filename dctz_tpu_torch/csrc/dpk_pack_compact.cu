@@ -91,3 +91,6 @@ extern "C" int dctz_dpk_pack_compact(const uint8_t* ids, const float* vals,
       ac_counts, dc);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Resident CTAs per SM at the launch configuration.
+extern "C" int dctz_ctas_per_sm_dpk_pack_compact() { return dctz::ctas_per_sm(dpk_pack_compact_kernel, TILE_B, 0); }

@@ -117,3 +117,6 @@ extern "C" int dctz_dpk_unpack_expand(const uint8_t* width,
       acv);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Resident CTAs per SM at the launch configuration.
+extern "C" int dctz_ctas_per_sm_dpk_unpack_expand() { return dctz::ctas_per_sm(dpk_unpack_expand_kernel, TILE_B, 0); }

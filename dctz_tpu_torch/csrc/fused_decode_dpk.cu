@@ -20,8 +20,9 @@
 // (the TPU kernel's rank-decomposed one-hot contractions). Each lane then
 // writes its coefficient straight into shared memory (kernel D's
 // dequantization, common.cuh:center_of and qt_inverse), and each thread
-// inverts its block with D's inverse DCT (common.cuh:inverse_dct). So at
-// b = 256 the output is C+D's bit for bit. QT inverts ((v - side) / denom) *
+// inverts its block with common.cuh:inverse_dct, the same fmaf chains as D's
+// tiled transform (dct_tile.cuh). So at b = 256 the output is C+D's bit for
+// bit. QT inverts ((v - side) / denom) *
 // q[k] with denom = f32(eb) * f32(qt_factor), the TPU kernel's (eb * qtf) in
 // float32, with IEEE intrinsics.
 //
@@ -185,3 +186,6 @@ extern "C" int dctz_fused_decode_dpk(const uint8_t* width, const uint8_t* packed
       b, cw, cape, capc, w, rmin, rmax, denom, qt, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Resident CTAs per SM at the launch configuration of the main path (tile 256).
+extern "C" int dctz_ctas_per_sm_fused_decode_dpk() { return dctz::ctas_per_sm(fused_decode_dpk_kernel, MAX_B, smem_bytes(MAX_B)); }

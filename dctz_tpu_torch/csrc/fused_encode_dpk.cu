@@ -122,3 +122,6 @@ extern "C" int dctz_fused_encode_dpk(const float* x, const float* basis,
       ac_counts, dc);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Resident CTAs per SM at the launch configuration.
+extern "C" int dctz_ctas_per_sm_fused_encode_dpk() { return dctz::ctas_per_sm(fused_encode_dpk_kernel, TILE_B, SMEM_BYTES); }

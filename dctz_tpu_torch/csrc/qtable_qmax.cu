@@ -5,11 +5,11 @@
 // the _kernel_qmax program behind qtable_qmax, line 229). Plain version:
 // ops/fused_encode.py:_qtable_qmax_plain.
 //
-// One CUDA block per 256-block DPK tile, one thread per DCT block, as in
-// kernel A: the tile's samples are staged coalesced through shared memory
-// (rows padded to 65 floats) next to the 64x64 basis, and each thread runs
-// the forward DCT that kernel A runs (common.cuh:forward_dct, the same fmaf
-// chain), so the maxima are taken over the very coefficients A bins. A
+// One CUDA block per 256-block DPK tile, one thread per DCT block: the
+// tile's samples are staged coalesced through shared memory (rows padded to
+// 65 floats) next to the 64x64 basis, and each thread runs
+// common.cuh:forward_dct, the same fmaf chains as kernel A's tiled transform
+// (dct_tile.cuh), so the maxima are taken over the very coefficients A bins. A
 // coefficient at k > 0 outside [rmin, rmax] folds |c| into a shared per-
 // position maximum, which one thread per position then folds into the (64,)
 // global result, both with atomicMax on the int bits of the non-negative
@@ -17,8 +17,8 @@
 // wrapper (ops/fused_encode.qtable_qmax).
 //
 // What bounds it: 64 FMAs per sample (4.3 GFLOP for 32Mi samples) against
-// 128 MB read; at one or two blocks per SM the FMA chains are latency-bound
-// like kernel A's forward pass.
+// 128 MB read; at one or two blocks per SM the per-thread FMA chains are
+// latency-bound.
 
 #include "common.cuh"
 
@@ -77,3 +77,6 @@ extern "C" int dctz_qtable_qmax(const float* x, const float* basis,
       x, basis, sf, n, rmin, rmax, qmax_bits);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Resident CTAs per SM at the launch configuration.
+extern "C" int dctz_ctas_per_sm_qtable_qmax() { return dctz::ctas_per_sm(qtable_qmax_kernel, TILE_B, SMEM_BYTES); }

@@ -48,13 +48,13 @@ SIGNATURES = {
     # x, basis, sf, n, rmin, rmax, qmax_bits, stream
     "dctz_qtable_qmax": [P, P, P, I64, F32, F32, P, P],
     # x, basis, sf, tol, n_pad, n_valid, rmin, rmax, w, verify,
-    # ids, coef, ok_tiles, stream
+    # ids, coef, ok_tiles, counters, stream
     "dctz_dct_quant_verify": [P, P, P, P, I64, I64, F32, F32, F32, I32,
-                              P, P, P, P],
+                              P, P, P, P, P],
     # x, basis, sf, tol, qtable, eb, qtf, n_pad, n_valid, rmin, rmax, w,
-    # verify, ids, vals, ok_tiles, stream
+    # verify, ids, vals, ok_tiles, counters, stream
     "dctz_dct_quant_verify_qt": [P, P, P, P, P, F32, F32, I64, I64, F32, F32,
-                                 F32, I32, P, P, P, P],
+                                 F32, I32, P, P, P, P, P],
     # ids, vals, nblk, n_valid, cw, cape, width, packed, exc, ac,
     # exc_counts, ac_counts, dc, stream
     "dctz_dpk_pack_compact": [P, P, I64, I64, I32, I32, P, P, P, P, P, P,
@@ -90,6 +90,14 @@ SIGNATURES = {
     "dctz_fused_decode_dpk": [P, P, P, P, P, P, P, P, I64, I64, I64, I32, I32,
                               I32, I32, F32, F32, F32, F32, I32, P, P],
 }
+#: kernels whose resident CTAs per SM at their launch configuration the
+#: library reports (dctz_ctas_per_sm_<name>, no arguments)
+OCCUPANCY = ("qtable_qmax", "dct_quant_verify", "dct_quant_verify_qt",
+             "dpk_pack_compact", "dpk_unpack_expand", "dequant_idct",
+             "dequant_idct_qt", "dct_quant", "dct_quant_qt", "chunk_compact",
+             "chunk_expand", "chunk_compact_unified", "chunk_compact_bytes",
+             "fused_encode_dpk", "fused_decode_dpk")
+SIGNATURES.update({f"dctz_ctas_per_sm_{k}": [] for k in OCCUPANCY})
 
 
 def nvcc() -> str:
@@ -147,6 +155,13 @@ def build(force: bool = False) -> pathlib.Path:
                            f"{res.stderr[-4000:]}")
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
+
+
+def ctas_per_sm(name: str) -> int:
+    """Resident CTAs per SM of kernel `name` on the current device
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its launch
+    configuration); -1 if the runtime refused the query."""
+    return getattr(lib(), f"dctz_ctas_per_sm_{name}")()
 
 
 def lib() -> ctypes.CDLL:

@@ -44,6 +44,10 @@ from . import repair
 BS = 64  # DCT block size
 TILE_B = 256  # blocks per DPK tile (idpack.B_DEFAULT)
 TILE_N = TILE_B * BS  # elements per tile
+#: elements per CUDA block tile of kernels A and D (csrc/dct_tile.cuh); A
+#: reports one verify flag per such tile
+CTA_N = 64 * BS
+EPS32 = 2.0**-23
 
 #: launches of each kernel by its wrapper (plain versions do not count)
 LAUNCHES = {
@@ -103,6 +107,13 @@ def _ceil_lanes(c: int) -> int:
     return -(-c // 128) * 128
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (kernels
+    A and D move 16 bytes a thread; only a view into another tensor can be
+    off)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 # ---------------------------------------------------------------------------
 # A. dct_quant_verify
 # ---------------------------------------------------------------------------
@@ -118,7 +129,27 @@ def _qtable32(qtable: torch.Tensor) -> torch.Tensor:
     return qtable.to(torch.float32).contiguous()
 
 
-def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable=None):
+def _screen_counts(x, coef, ids, sf, tol, n_valid, cfg, qtable):
+    """(blocks kernel A's L2 screen sends to the exact check, blocks whose
+    reconstruction misses tol before the repair), as A's counters count
+    them; sums and transforms in torch's order, so a block at the screen's
+    edge may count differently."""
+    n_pad = x.shape[0]
+    acm = qz.ac_mask(ids.shape[0], BS, n_pad, x.device)
+    dense = repair.stored_dense(coef, ids, acm, cfg, qtable)
+    hat = qz.decode_dense(ids, coef[:, 0], dense, n_pad, cfg, qtable)
+    l2 = ((hat - coef) ** 2).sum(1)
+    thr = tol / sf - 32 * EPS32 * (x / sf).reshape(-1, BS).abs().amax(1)
+    flagged = (l2 > thr * thr) | (thr <= 0)
+    err = ((transform.block_idct(hat) * sf).reshape(-1) - x).abs()
+    err = torch.where(torch.arange(n_pad, device=x.device) < n_valid, err,
+                      torch.zeros_like(err))
+    missed = err.reshape(-1, BS).amax(1) > tol
+    return int(flagged.sum()), int(missed.sum())
+
+
+def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable=None,
+                            counters=None):
     n_pad = x.shape[0]
     xs = x / sf  # divide: reference semantics
     coef = transform.block_dct(xs.reshape(-1, BS))
@@ -128,6 +159,10 @@ def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable=None):
         ids = qz.encode_ids_qt(coef, n_pad, cfg, qtable)
     ok = torch.ones((), dtype=torch.bool, device=x.device)
     if verify:
+        if counters is not None:
+            counters += torch.tensor(
+                _screen_counts(x, coef, ids, sf, tol, n_valid, cfg, qtable),
+                dtype=counters.dtype, device=counters.device)
         ids, ok = repair.verify_repair(
             x, coef, sf, ids, coef[:, 0], n_pad, n_valid, cfg, tol, qtable
         )
@@ -138,7 +173,8 @@ def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable=None):
 
 
 def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
-                     qtable: torch.Tensor | None = None):
+                     qtable: torch.Tensor | None = None,
+                     counters: torch.Tensor | None = None):
     """Kernel A. Replaces the transform and verify half of
     dctz_tpu/ops/dpk_fuse.py:_make_encode_x_kernel (lines 494-647).
 
@@ -147,28 +183,38 @@ def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
     (its slot 0 is not read), None for EC. Returns (ids u8 (n_pad/64, 64)
     zeroed at DC and padding, vals f32 (n_pad/64, 64), ok bool scalar
     tensor). vals holds the coefficients, except at QT's AC escapes, which
-    hold the renormalized values the container stores."""
+    hold the renormalized values the container stores. counters: None (the
+    codec's path), or an int64 (2,) tensor on x's device to which a
+    verifying call adds the blocks the L2 screen sent to the exact check and
+    the blocks whose reconstruction missed tol and were repaired."""
     cfg = _mode_cfg(cfg_eb, qtable)
     n_pad = x.shape[0]
-    args = (x, sf, tol) + (() if qtable is None else (qtable,))
+    args = [t for t in (x, sf, tol, qtable, counters) if t is not None]
+    if counters is not None:
+        _check(counters, torch.int64, "counters")
+        if counters.shape != (2,):
+            raise ValueError(f"counters must be (2,), got {tuple(counters.shape)}")
     if not _on_cuda(*args):
-        return _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable)
+        return _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable,
+                                       counters)
     _check(x, torch.float32, "x")
     if x.dim() != 1 or n_pad % 1024:
         raise ValueError(f"x must be flat with a length that is a multiple "
                          f"of 1024, got shape {tuple(x.shape)}")
+    x = _aligned16(x)
     w, rmin, rmax = qz._geometry(cfg)
     nblk = n_pad // BS
-    t = -(-n_pad // TILE_N)
     ids = torch.empty((nblk, BS), dtype=torch.uint8, device=x.device)
     vals = torch.empty((nblk, BS), dtype=torch.float32, device=x.device)
-    ok_tiles = torch.empty((t,), dtype=torch.int32, device=x.device)
+    ok_tiles = torch.empty((-(-n_pad // CTA_N),), dtype=torch.int32,
+                           device=x.device)
     sf32 = sf.reshape(1).to(torch.float32).contiguous()
     tol32 = tol.reshape(1).to(torch.float32).contiguous()
     basis = transform.dct2_basis(BS, x.device)
     head = (x.data_ptr(), basis.data_ptr(), sf32.data_ptr(), tol32.data_ptr())
     tail = (n_pad, n_valid, rmin, rmax, w, int(bool(verify)), ids.data_ptr(),
-            vals.data_ptr(), ok_tiles.data_ptr())
+            vals.data_ptr(), ok_tiles.data_ptr(),
+            None if counters is None else counters.data_ptr())
     if qtable is None:
         _launch("dct_quant_verify", *head, *tail)
     else:
@@ -341,6 +387,7 @@ def dequant_idct(ids, acv, dc, sf, cfg: CodecConfig, n_stream: int,
     if -(-n_stream // BS) != nblk:
         raise ValueError(f"n_stream {n_stream} does not fill {nblk} blocks")
     rem = n_stream % BS
+    ids, acv = _aligned16(ids), _aligned16(acv)
     out = torch.empty((nblk * BS,), dtype=torch.float32, device=ids.device)
     sf32 = sf.reshape(1).to(torch.float32).contiguous()
     basis = transform.dct2_basis(BS, ids.device)

@@ -595,3 +595,154 @@ def test_kernel_m_refuses_a_tile_beyond_one_block(dev):
             z(64, 128, dtype=torch.uint8), z(b), z(64, 128), torch.tensor(1.0, device=dev))
     with pytest.raises(ValueError, match="at most 256"):
         fd.fused_decode_dpk(*args, b * 64, b, 512, dz.CodecConfig())
+
+
+CTA_N = 64 * 64  # samples per CUDA block tile of kernels A and D
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("n_valid", [5 * 1024, 3 * CTA_N + 2048 - 11, 5 * TILE_N - 11])
+def test_kernel_a_at_tile_edges(dev, mode, n_valid):
+    """A and A-QT with verify on where the padded length is not a multiple of
+    A's 64-block tile (and, for comparison, where it is), on a narrow signal
+    that gives the repair work: the ids of at most 2 + nblk/100 blocks
+    differ from the plain version's (a block near the bound can be repaired
+    by one and not the other: their reconstructions differ in the last
+    ulps), the same verified flag, the decode of A's output (kernel D)
+    within the tolerance wherever A says so, coefficients (EC) within 32
+    ulp of max|x/sf| of the block; the screen counters flag at least the
+    blocks they repair, and about as many as the plain version's."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.config import CodecConfig
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+
+    xp = _padded_on(dev, _signal(n_valid, n_valid, narrow=True))
+    sf, _ = api._stats_device(xp, n_valid, 1)
+    q = fe.qtable_qmax(xp, sf, 1e-3) if mode == "qt" else None
+    tol = fe.tolerance(xp, n_valid, 1e-3)
+    ck = torch.zeros(2, dtype=torch.int64, device=dev)
+    cp_ = torch.zeros(2, dtype=torch.int64, device=dev)
+    fk.reset_launches()
+    ik, vk, okk = fk.dct_quant_verify(xp, sf, tol, n_valid, 1e-3, True, q, ck)
+    assert fk.LAUNCHES["dct_quant_verify_qt" if q is not None else "dct_quant_verify"] == 1
+    ip, vp, okp = fk._dct_quant_verify_plain(
+        xp, sf, tol, n_valid, CodecConfig(mode=mode, error_bound=1e-3), True, q, cp_)
+    assert int((ik != ip).any(1).sum()) <= 2 + ik.shape[0] // 100
+    assert bool(okk) == bool(okp)
+    ids_d = ik.clone()
+    ids_d[:, 0] = 255
+    esc = (ids_d == 255) & (torch.arange(64, device=dev) > 0)
+    cfg = CodecConfig(mode=mode, error_bound=1e-3)
+    rec = fk.dequant_idct(ids_d, torch.where(esc, vk, torch.zeros_like(vk)),
+                          vk[:, 0].contiguous(), sf, cfg, xp.numel(), q)
+    if bool(okk):
+        assert (rec - xp)[:n_valid].abs().max().item() <= tol.item()
+    if q is None:
+        budget = 32 * 2.0**-23 * (xp / sf).reshape(-1, 64).abs().amax(1, keepdim=True)
+        assert torch.all((vk - vp).abs() <= budget)
+    flagged, repaired = ck.tolist()
+    flagged_p, missed_p = cp_.tolist()
+    assert 0 < repaired <= flagged <= xp.numel() // 64
+    assert abs(flagged - flagged_p) <= 1 + 0.02 * flagged_p
+    assert abs(repaired - missed_p) <= 1 + 0.02 * missed_p
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("n", [5 * 1024, 3 * CTA_N + 2048 - 11])
+def test_kernel_a_equals_f_g(dev, mode, n):
+    """A (verify off) against F, and A-QT against G, which keep the
+    per-thread transform (common.cuh:forward_dct): the same ids at every AC
+    position, the same values at DC and at the AC escapes, bit for bit."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+
+    xp = _padded_on(dev, _qt_input(n, n + 5) if mode == "qt" else _signal(n, n + 5))
+    sf, _ = api._stats_device(xp, n, 1)
+    q = _qtable(dev, xp, sf) if mode == "qt" else None
+    ia, va, _ok = fk.dct_quant_verify(xp, sf, torch.ones((), device=dev), n, 1e-3, False, q)
+    ifg, dfg = fe.dct_quant(xp, sf, 1e-3, q)
+    esc = (ifg == 255) & (torch.arange(64, device=dev) > 0)
+    assert esc.any()
+    assert torch.equal(ia[:, 1:], ifg[:, 1:])
+    assert torch.equal(va[esc].view(torch.int32), dfg[esc].view(torch.int32))
+    assert torch.equal(va[:, 0].view(torch.int32), dfg[:, 0].view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [5 * 1024, 3 * CTA_N + 2048 - 11])
+def test_kernel_e_equals_a_at_tile_edges(dev, n):
+    """E's qtable is the clamped maximum over the escaping coefficients of
+    A-EC, bit for bit, where A's last tile is partial."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.config import CodecConfig
+    from dctz_tpu_torch.core import quantize as qz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    xp = _padded_on(dev, _qt_input(n, n + 9))
+    sf, _ = api._stats_device(xp, n, 1)
+    got = _qtable(dev, xp, sf)
+    _ids, coef, _ok = fk.dct_quant_verify(xp, sf, sf, n, 1e-3, False)
+    _w, rmin, rmax = qz._geometry(CodecConfig(error_bound=1e-3))
+    esc = ~((coef >= rmin) & (coef <= rmax)) & (torch.arange(64, device=dev) > 0)
+    from_a = torch.where(esc, coef.abs(), torch.zeros_like(coef)).amax(0)
+    assert torch.equal(got, torch.clamp_min(from_a, 1.0))
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("nblk,rem", [(1, 0), (1, 5), (63, 0), (65, 33), (130, 1), (191, 63)])
+def test_kernel_d_at_tile_edges(dev, mode, nblk, rem):
+    """D and D-QT where the block count is not a multiple of D's 64-block
+    tile, with and without a partial last block of rem samples (its
+    rem-point tail): within 32 ulp of sf * max|coef| of the block of the
+    plain version, on the n_stream samples."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.core import quantize as qz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    rng = np.random.default_rng(nblk * 64 + rem)
+    ids, acv = _ids(rng, nblk, 0.05)
+    it, at = torch.from_numpy(ids).to(dev), torch.from_numpy(acv * 3).to(dev)
+    dc = torch.from_numpy((rng.standard_normal(nblk) * 10).astype(np.float32)).to(dev)
+    q = (torch.from_numpy(np.abs(rng.standard_normal(64)).astype(np.float32) + 1.0).to(dev)
+         if mode == "qt" else None)
+    cfg = dz.CodecConfig(mode=mode, error_bound=1e-3)
+    n_stream = nblk * 64 - (64 - rem if rem else 0)
+    sf = torch.tensor(37.5, device=dev)
+    fk.reset_launches()
+    got = fk.dequant_idct(it, at, dc, sf, cfg, n_stream, q)[:n_stream]
+    assert fk.LAUNCHES["dequant_idct_qt" if q is not None else "dequant_idct"] == 1
+    ref = fk._dequant_idct_plain(it, at, dc, sf, cfg, n_stream, q)[:n_stream]
+    co = qz.decode_dense(it, dc, at, nblk * 64, cfg, q)
+    lim = (32 * 2.0**-23 * 37.5 * co.abs().amax(1)).repeat_interleave(64)[:n_stream]
+    assert torch.all((got - ref).abs() <= lim)
+
+
+def test_kernel_m_qt_equals_c_d_qt_at_tile_256(dev):
+    """M-QT decodes C + D-QT's bits at tile 256, on G's streams coded by B
+    at a block count that is not a multiple of 64 (nor of 256)."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+    from dctz_tpu_torch.ops.research import fused_decode as fd
+
+    n = 5 * TILE_N - 1024
+    xp = _padded_on(dev, _qt_input(n, 11))
+    sf, _ = api._stats_device(xp, n, 1)
+    q = _qtable(dev, xp, sf)
+    ids, dcac = fe.dct_quant(xp, sf, 1e-3, q)
+    cfg = dz.CodecConfig(mode="qt", error_bound=1e-3)
+    for cw in (512, 256, 128):
+        st = fk.encode_fused(ids, dcac, n, 256, cw, cw)
+        if int(st[3].max()) <= 128 and int(st[5].max()) <= 128:
+            break
+    else:
+        pytest.fail("every chunk width overflows 128")
+    w, pk, exc, ac, dc = (st[0], st[1], st[2][:, :128].contiguous(), st[4][:, :128].contiguous(),
+                          st[6])
+    fk.reset_launches()
+    got = fd.fused_decode_dpk(w, pk, exc, dc, ac, sf, n, 256, cw, cfg, q)
+    assert fk.LAUNCHES["fused_decode_dpk"] == 1
+    ref = fk.decode_fused(st[0], st[1], st[2], st[4], st[6], sf, cfg, cw, n, q)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
