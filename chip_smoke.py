@@ -30,14 +30,18 @@ Phases, each printed as one JSON line:
      source, in parallel), with ptxas' registers and spills per kernel; then
      one "occupancy" line per kernel: its resident CTAs per SM at its launch
      configuration (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the
-     kernels' library) beside those registers and spills. A, A-QT, D and
-     D-QT must not spill and must fit at least 2 CTAs per SM
+     kernels' library; for C the lesser of its two instantiations, the
+     staged one at its largest buffers) beside those registers and spills.
+     A, A-QT, B, C (both instantiations), D and D-QT must not spill and
+     must fit at least 2 CTAs per SM
   3. kernels against their plain PyTorch versions on the card, at the main
      paths' shapes. EC input (the bench array): B and C byte-equal, A within
      1e-5 of ids, D within 32 ulp of sf. QT input (the x30 array): E
      bit-equal to the clamped maximum over A-EC's own coefficients and
      within 4 ulp of its plain version, A-QT within 1e-5 of ids and its
-     stored values within the budget below, D-QT within 32 ulp of sf *
+     stored values within the budget below, C byte-equal on the rows of the
+     x30 QT container (whose overflowed exception rows take C's wide
+     instantiation), D-QT within 32 ulp of sf *
      max|coef| of the block; "screen" lines: the share of blocks A's and
      A-QT's L2 screen sends to the exact check and the share repaired, on
      the bench and x30 inputs (A's optional counters; the plain version's
@@ -48,7 +52,10 @@ Phases, each printed as one JSON line:
      v1_ec container hands it (and equal to masked_scatter of its AC stream).
      The last four on the bench array: L's integer streams byte-equal to
      its plain version's (AC and DC within 32 ulp of max|x/sf|) and all its
-     streams equal to F -> idpack.pack_ids -> H; M bit-equal to C + D on
+     streams equal to F -> idpack.pack_ids -> H; B on A (verify off) equal
+     to L (width, packed, exception rows and counts, DC by value; the AC
+     streams where no chunk row holds more than 128 exceptions), so that B's
+     word-wide stages agree with the per-byte ones L keeps; M bit-equal to C + D on
      L's streams, within D's budget of its plain version at tile 64 (else
      128 or 32, whichever holds every chunk row in 128 slots) and in QT (G's
      streams with the x30 input's qtable from E, on the x30 input unless a
@@ -68,7 +75,9 @@ Phases, each printed as one JSON line:
      direction of ec, ec_dtzs and v1_ec (device busy and idle share); one
      traced run of each direction of the bench-array DTZS paths (the
      stream's per-segment spans); each kernel's time beside its plain
-     version's (CUDA events), its bound and, for H, I, J and K, one PyTorch
+     version's (CUDA events), its bound (B's counts the ids, the DC values
+     and the escapes it keeps, not the whole coefficient array) and, for H,
+     I, J and K, one PyTorch
      call that computes the same function from or to the tight stream
      (library_ms); for A, A-QT, D and D-QT the kernel's own device time
      from torch.profiler beside the wrapper's CUDA-event time (which also
@@ -108,10 +117,13 @@ PEAK_BYTES = 3.35e12  # bytes/s of HBM3
 
 EC_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
               "dequant_idct")
-#: the kernels on the register-tiled transform (csrc/dct_tile.cuh): no spill,
-#: at least MIN_CTAS_PER_SM resident CTAs per SM
+#: the kernels on the register-tiled transform (csrc/dct_tile.cuh), whose
+#: own device time phase 5 reads from the profiler
 TILE_KERNELS = ("dct_quant_verify", "dct_quant_verify_qt", "dequant_idct",
                 "dequant_idct_qt")
+#: the redesigned kernels: no spill (C in both instantiations, which ptxas
+#: lists apart), at least MIN_CTAS_PER_SM resident CTAs per SM
+PERSISTENT_KERNELS = TILE_KERNELS + ("dpk_pack_compact", "dpk_unpack_expand")
 MIN_CTAS_PER_SM = 2
 QT_KERNELS = ("qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
               "dpk_unpack_expand", "dequant_idct_qt")
@@ -430,9 +442,10 @@ def main() -> int:
     ctas = {k: build.ctas_per_sm(k) for k in build.OCCUPANCY}
     for k in build.OCCUPANCY:
         emit("occupancy", kernel=k, ctas_per_sm=ctas[k], **ptxas[k])
-    for k in TILE_KERNELS:
+    for k in PERSISTENT_KERNELS + ("dpk_unpack_expand_wide",):
         require(ptxas[k].get("spill_stores") == 0 and ptxas[k].get("spill_loads") == 0,
                 f"{k}: ptxas reports spills {ptxas[k]}")
+    for k in PERSISTENT_KERNELS:
         require(ctas[k] >= MIN_CTAS_PER_SM, f"{k}: {ctas[k]} resident CTAs per SM")
     report["build"] = {"seconds": build.last_build_s, "ptxas": ptxas, "ctas_per_sm": ctas}
 
@@ -469,15 +482,22 @@ def main() -> int:
     kernels["dct_quant_verify"] = {"max_abs_err": err_a, "id_mismatch": mism}
 
     outs_k = fk.dpk_pack_compact(ids_k, coef_k, n_pad, cape_k, cw)
-    outs_p = fk._dpk_pack_compact_plain(ids_k, coef_k, n_pad, cape_k)
+    outs_p = fk._dpk_pack_compact_plain(ids_k, coef_k, n_pad, cape_k, cw)
     torch.cuda.synchronize()
     names = ["width", "packed", "exc", "exc_counts", "ac", "ac_counts", "dc"]
     for a, b, nm in zip(outs_k, outs_p, names):
         require(a.shape == b.shape and a.dtype == b.dtype, f"B: {nm} shape/dtype")
         require(torch.equal(a, b), f"B: {nm} differs from the plain version")
     err_b = max_abs_diff(zip(outs_k, outs_p))
+    # the escapes B keeps (those among a chunk row's first cape_k
+    # exceptions), whose values it reads: for its bound
+    _w, _pk, ids_ib, mask_ib = idpack._code_tiles(ids_k, n_pad, 256)
+    mask_ib = mask_ib.reshape(-1, cw)
+    kept_b = int((mask_ib & (ids_ib.reshape(-1, cw) == 255)
+                  & (torch.cumsum(mask_ib.to(torch.int32), 1) <= cape_k)).sum())
+    del ids_ib, mask_ib
     emit("kernel_check", kernel="dpk_pack_compact", byte_equal=True,
-         max_abs_err=err_b, overflow=bool((outs_k[3] > cape_k).any()))
+         max_abs_err=err_b, overflow=bool((outs_k[3] > cape_k).any()), kept_escapes=kept_b)
     kernels["dpk_pack_compact"] = {"max_abs_err": err_b}
 
     def decode_inputs(blob):
@@ -589,6 +609,14 @@ def main() -> int:
      _a) = decode_inputs(blob_q0)
     nblk_q = -(-nq_stream // 64)
     ids_qck, acv_qck = fk.dpk_unpack_expand(*dq_in, acq_d, nblk_q, nq_stream, cwq_d)
+    ids_qcp, acv_qcp = fk._dpk_unpack_expand_plain(*dq_in, acq_d, nblk_q, nq_stream, cwq_d)
+    torch.cuda.synchronize()
+    require(torch.equal(ids_qck, ids_qcp), "C: ids of the x30 QT rows differ from the plain version")
+    require(torch.equal(acv_qck.view(torch.int32), acv_qcp.view(torch.int32)),
+            "C: AC grid of the x30 QT rows differs from the plain version")
+    emit("kernel_check", kernel="dpk_unpack_expand", input="x30 qt", byte_equal=True,
+         exc_capacity=dq_in[2].shape[1], ac_capacity=acq_d.shape[-1], cw=cwq_d)
+    del ids_qcp, acv_qcp
     x_dqk = fk.dequant_idct(ids_qck, acv_qck, dcq_d, sfq_d, hq_cfg, nq_stream, q_d)
     x_dqp = fk._dequant_idct_plain(ids_qck, acv_qck, dcq_d, sfq_d, hq_cfg, nq_stream, q_d)
     co_q = qz.decode_dense(ids_qck, dcq_d, acv_qck, nblk_q * 64, hq_cfg, q_d)
@@ -702,6 +730,23 @@ def main() -> int:
          integer_streams_equal_to_plain=True, max_abs_err=err_l, limit=lim_l,
          exc_peak=int(l_out[3].max()), ac_peak=int(l_out[5].max()))
     kernels["fused_encode_dpk"] = {"max_abs_err": err_l}
+
+    # B on A (verify off, which equals F bit for bit above) against L, which
+    # keeps the per-byte stages of dpk_tile.cuh: width, packed, exception
+    # rows and counts, DC by value; the AC streams where no chunk row holds
+    # more than 128 exceptions (beyond that the two kernels' AC rules differ)
+    outs_bl = fk.dpk_pack_compact(ids_a0, coef_a0, n_pad, 128, cw)
+    torch.cuda.synchronize()
+    for i, nm in enumerate(names[:4]):
+        require(torch.equal(outs_bl[i], l_out[i]), f"B: {nm} differs from L's")
+    require(bool((outs_bl[6] == l_out[6]).all()), "B: dc differs from L's")
+    ac_vs_l = int(outs_bl[3].max()) <= 128
+    if ac_vs_l:
+        require(torch.equal(outs_bl[4], l_out[4]) and torch.equal(outs_bl[5], l_out[5]),
+                "B: AC streams differ from L's")
+    emit("kernel_check", kernel="dpk_pack_compact", equal_to_l=True,
+         ac_streams_compared=ac_vs_l, exc_peak=int(outs_bl[3].max()))
+    del outs_bl
 
     # M on L's streams: C + D's bits, and the round trip within the bound
     w_l, pk_l, exc_l, _ec, ac_l, _acn, dc_l = l_out
@@ -938,11 +983,13 @@ def main() -> int:
     # fp32 FMAs of the transforms (2 FLOP each): E's, A's, F's and G's
     # forward DCT and D's inverse, 64 per sample (A's verify reconstructs
     # depend on the screen and are not counted, so A's bound is a least
-    # time); H-K do no arithmetic to speak of, and read a value only where
-    # it is kept (H and K: the first capc masked values of a row; I: one
-    # row slot per masked position; J: the id bytes of the first 128
-    # exceptions of a row and the AC values it keeps), so their bytes count
-    # those values of this run's data, not the whole value arrays
+    # time); B and H-K do no arithmetic to speak of, and read a value only
+    # where it is kept (B: the DC of each block and the escapes among the
+    # first cape_k exceptions of a row; H and K: the first capc masked
+    # values of a row; I: one row slot per masked position; J: the id bytes
+    # of the first 128 exceptions of a row and the AC values it keeps), so
+    # their bytes count those values of this run's data, not the whole
+    # value arrays
     dct_flops = 2.0 * 64 * n_pad
     out_lib = torch.zeros_like(acv_i)
     library = {
@@ -966,8 +1013,8 @@ def main() -> int:
             nbytes(xq, qt_e, ids_qk, vals_qk), dct_flops),
         "dpk_pack_compact": (
             lambda: fk.dpk_pack_compact(ids_k, coef_k, n_pad, cape_k, cw),
-            lambda: fk._dpk_pack_compact_plain(ids_k, coef_k, n_pad, cape_k),
-            nbytes(ids_k, coef_k, *outs_k), 0.0),
+            lambda: fk._dpk_pack_compact_plain(ids_k, coef_k, n_pad, cape_k, cw),
+            nbytes(ids_k, *outs_k) + 4 * nblk_pad + 4 * kept_b, 0.0),
         "dpk_unpack_expand": (
             lambda: fk.dpk_unpack_expand(*d_in, ac_d, nblk, n_stream, cw_d),
             lambda: fk._dpk_unpack_expand_plain(*d_in, ac_d, nblk, n_stream, cw_d),

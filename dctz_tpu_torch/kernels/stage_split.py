@@ -1,0 +1,244 @@
+"""Where kernels B and C spend their time: each timed whole and with one
+stage cut out at a time.
+
+    python -m dctz_tpu_torch.kernels.stage_split [--csrc DIR] [--out FILE]
+
+DIR is a csrc/ directory: this checkout's (the default), or an older tree's
+unpacked from `git archive`. Each variant copies DIR, applies the text edits
+of one cut to B's or C's source, builds that source alone into a library of
+its own (one nvcc per variant, all at once) and times it with CUDA events,
+in rounds over all variants, on the inputs the main path gives it: 32Mi
+samples of the bench array, EC at eb 1e-3, cw 512. B takes the ids and
+values of kernel A's plain version at exception capacity 128; C takes B's
+plain streams cut to the decode's capacity tiers. The cuts that apply are
+those of the first set in CUTS whose every edit finds its text; a cut
+variant computes wrong results on purpose, and only its time is read.
+Prints one JSON line per kernel and variant. Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+
+from . import build
+
+N = 1 << 25
+CW = 512
+CAPE = 128
+LAUNCHES = 20
+ROUNDS = 3
+
+B_SRC, C_SRC = "dpk_pack_compact.cu", "dpk_unpack_expand.cu"
+
+#: cut sets: name -> {variant: (source, [(old text, new text), ...])}.
+#: "byte_stages": B on the per-byte stages of dpk_tile.cuh, C with its
+#: block-major nibble copy; "word_stages": the word-wide kernels.
+CUTS = {
+    "byte_stages": {
+        "B load_only": (B_SRC, [(
+            "  __syncthreads();\n\n  select_widths(sN, sW);",
+            "  __syncthreads();\n"
+            "  if (sId[tid] == 1 && sN[tid] == 2) width_out[tile * BS] = 3;\n"
+            "  return;\n  select_widths(sN, sW);")]),
+        "B no_widths": (B_SRC, [(
+            "  select_widths(sN, sW);\n", "  if (tid < BS) sW[tid] = 2;\n")]),
+        "B no_pack": (B_SRC, [(
+            "  pack_rows(sN, sW, packed_out + tile * BS * 128);\n", "")]),
+        "B no_compact": (B_SRC, [(
+            "  compact_chunks<true>(sId, sW, tile, cw, cape, cape, exc_out, ac_out, exc_cnt,\n"
+            "                       ac_cnt, [&](int blk, int pos) {\n"
+            "                         return vals[(blk0 + blk) * BS + pos];\n"
+            "                       });\n", "")]),
+        "B no_dc": (B_SRC, [(
+            "dc_out[gblk] = gblk < nblk ? vals[gblk * BS] : 0.f;",
+            "dc_out[gblk] = 0.f;")]),
+        "C load_only": (C_SRC, [(
+            "  if (tid < BS) sW[tid] = width[tile * BS + tid];\n  __syncthreads();\n",
+            "  if (tid < BS) sW[tid] = width[tile * BS + tid];\n  __syncthreads();\n"
+            "  if (sP[tid] == 7 && sW[tid & 63] == 9) ids_out[blk0 * BS] = 1;\n"
+            "  return;\n")]),
+        "C load_unpack_only": (C_SRC, [(
+            "    sN[k * BS + p] = static_cast<uint8_t>(nib);\n  }\n  __syncthreads();\n",
+            "    sN[k * BS + p] = static_cast<uint8_t>(nib);\n  }\n  __syncthreads();\n"
+            "  if (sN[tid] == 7 && sN[tid + TILE_B] == 9) ids_out[blk0 * BS] = 1;\n"
+            "  return;\n")]),
+        "C unpack_no_conflict": (C_SRC, [(
+            "sN[k * BS + p] = static_cast<uint8_t>(nib);",
+            "sN[idx] = static_cast<uint8_t>(nib);")]),
+        "C walk_no_loads": (C_SRC, [
+            ("exc_rows[row * cape + rank]", "static_cast<uint8_t>(254 + (rank & 1))"),
+            ("ac_rows[row * capc + arank]", "static_cast<float>(arank)")]),
+        "C no_acv_store": (C_SRC, [(
+            "acv_out[gi] = av;", "if (av == 1234.5f) acv_out[gi] = av;")]),
+    },
+    "word_stages": {
+        "B no_pack": (B_SRC, [(
+            "      pack_quarter(a.packed_out + (t * BS + p) * 128, s.wd[p], i, v);\n",
+            "")]),
+        "B no_walk": (B_SRC, [(
+            "for (int u = wid; u < wk.units; u += walk::WARPS) {\n"
+            "        int ecarry = 0, kcarry",
+            "for (int u = wid; u < 0; u += walk::WARPS) {\n"
+            "        int ecarry = 0, kcarry")]),
+        "B no_kept_values": (B_SRC, [(
+            "kv[k] = keep[k] ? *reinterpret_cast", "kv[k] = false ? *reinterpret_cast")]),
+        "B no_zero_fill": (B_SRC, [
+            ("              zero_bytes(exc_t + r * a.cape, min(ecount, a.cape), "
+             "a.cape, wk, vec_e);\n", ""),
+            ("              zero_floats(arow, kbase[k] + walk::byte_of(ktot, k), a.cape, "
+             "wk, vec_a);\n", "")]),
+        "B no_dc": (B_SRC, [(
+            "a.dc_out[blk0 + tid] = s.dc[b][tid];", "a.dc_out[blk0 + tid] = 0.f;")]),
+        "C walk_no_loads": (C_SRC, [
+            ("rank < lim_e ? erow[rank] : 0u", "static_cast<unsigned>(254 + (rank & 1))"),
+            ("rank < lim_a ? arow[rank] : 0.f", "static_cast<float>(rank)")]),
+        "C no_acv_store": (C_SRC, [(
+            "          *reinterpret_cast<float4*>(acv_t + o) = "
+            "make_float4(0.f, 0.f, 0.f, 0.f);\n", "")]),
+        "C no_walk": (C_SRC, [(
+            "for (int u = wid; u < wk.units; u += walk::WARPS) {\n"
+            "      int ecarry = 0, acarry",
+            "for (int u = wid; u < 0; u += walk::WARPS) {\n"
+            "      int ecarry = 0, acarry")]),
+    },
+}
+
+
+def _cut_set(csrc: pathlib.Path) -> tuple[str, dict]:
+    for name, cuts in CUTS.items():
+        if all(old in (csrc / src).read_text()
+               for src, edits in cuts.values() for old, _new in edits):
+            return name, cuts
+    raise SystemExit(f"no cut set of CUTS applies to {csrc}")
+
+
+def _build(csrc: pathlib.Path, cuts: dict, root: pathlib.Path) -> dict:
+    """One library per variant (each kernel whole, and each cut), built by
+    parallel nvcc processes: {variant: (kernel, path)}."""
+    variants = {"B whole": (B_SRC, []), "C whole": (C_SRC, []), **cuts}
+    libs, procs = {}, []
+    for i, (name, (src, edits)) in enumerate(variants.items()):
+        d = root / f"v{i}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(csrc, d)
+        text = (d / src).read_text()
+        for old, new in edits:
+            text = text.replace(old, new, 1)
+        (d / src).write_text(text)
+        lib = d / "lib.so"
+        procs.append((name, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib), str(d / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        libs[name] = (src, lib)
+    for name, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
+    return libs
+
+
+def _inputs(torch):
+    """Kernel B's and C's arguments at the main path's shapes, from the
+    plain versions on the card."""
+    from ..config import CodecConfig
+    from ..ops import dpk_fuse as fk
+    from ..ops import fused_encode
+    from ..utils.bench_data import climate_formula_np
+    from .. import api
+
+    dev = torch.device("cuda")
+    cfg = CodecConfig(error_bound=1e-3, container="v2", ids_codec="device", verify=True)
+    x = torch.from_numpy(climate_formula_np(N)).to(dev)
+    sf, _ = api._stats_device(x, N, cfg.sf_adj)
+    tol = fused_encode.tolerance(x, N, cfg.error_bound)
+    ids, vals, _ok = fk._dct_quant_verify_plain(x, sf, tol, N, cfg, True)
+    nblk = N // 64
+    width, packed, exc, exc_n, ac, ac_n, _dc = fk._dpk_pack_compact_plain(ids, vals, N, CAPE)
+    tier = lambda peak: next(c for c in (32, 64, 128, CW) if c >= min(peak, CW))  # noqa: E731
+    cape, capc = tier(int(exc_n.max())), tier(int(ac_n.max()))
+    exc_t, ac_t = exc[:, :cape].contiguous(), ac[:, :capc].contiguous()
+    t = -(-nblk // 256)  # tiles of 256 blocks
+    cpt = 16384 // CW
+    outs_b = [torch.empty(s, dtype=d, device=dev) for s, d in (
+        ((t, 64), torch.uint8), ((t * 64, 128), torch.uint8), ((t * cpt, CAPE), torch.uint8),
+        ((t * cpt, CAPE), torch.float32), ((t * cpt,), torch.int32),
+        ((t * cpt,), torch.int32), ((t * 256,), torch.float32))]
+    b_args = (ids.data_ptr(), vals.data_ptr(), nblk, N, CW, CAPE,
+              *(o.data_ptr() for o in outs_b))
+    ids_c = torch.empty((nblk, 64), dtype=torch.uint8, device=dev)
+    acv_c = torch.empty((nblk, 64), dtype=torch.float32, device=dev)
+    c_args = (width.data_ptr(), packed.data_ptr(), exc_t.data_ptr(), ac_t.data_ptr(),
+              nblk, exc_t.shape[0], N, CW, cape, capc, ids_c.data_ptr(), acv_c.data_ptr())
+    keep = (ids, vals, width, packed, exc_t, ac_t, outs_b, ids_c, acv_c)
+    return {B_SRC: ("dctz_dpk_pack_compact", b_args),
+            C_SRC: ("dctz_dpk_unpack_expand", c_args)}, {"cape": cape, "capc": capc}, keep
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--csrc", default=str(build.CSRC))
+    ap.add_argument("--out", default="build/stage_split.json")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("stage_split: CUDA is not available", file=sys.stderr)
+        return 2
+    csrc = pathlib.Path(args.csrc).resolve()
+    set_name, cuts = _cut_set(csrc)
+    libs = _build(csrc, cuts, build.BUILD_DIR / "stage_split")
+    calls, caps, _keep = _inputs(torch)
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = {}
+    for name, (src, path) in libs.items():
+        sym, call_args = calls[src]
+        fn = getattr(ctypes.CDLL(str(path)), sym)
+        fn.argtypes = build.SIGNATURES[sym]
+        fn.restype = ctypes.c_int
+        fns[name] = (fn, call_args)
+
+    def run(name):
+        fn, call_args = fns[name]
+        rc = fn(*call_args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: launch failed with error {rc}")
+
+    times: dict = {name: [] for name in fns}
+    for name in fns:
+        run(name)
+    torch.cuda.synchronize()
+    for _ in range(ROUNDS):
+        for name in fns:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(LAUNCHES):
+                run(name)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / LAUNCHES)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    rows = []
+    for name, ts in times.items():
+        row = {"variant": name, "ms_mean": sum(ts) / len(ts), "ms_min": min(ts),
+               "runs": ts, "cut_set": set_name, "csrc": str(csrc), "card": card,
+               "launches_per_run": LAUNCHES, **caps}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    out = pathlib.Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rows, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

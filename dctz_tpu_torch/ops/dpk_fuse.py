@@ -109,8 +109,8 @@ def _ceil_lanes(c: int) -> int:
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """t, or a copy of it where its data does not start on 16 bytes (kernels
-    A and D move 16 bytes a thread; only a view into another tensor can be
-    off)."""
+    A, B, C and D move 16 bytes a thread; only a view into another tensor
+    can be off)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -229,9 +229,10 @@ def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
 # ---------------------------------------------------------------------------
 
 
-def _dpk_pack_compact_plain(ids2d, vals2d, n_valid: int, cape_k: int):
+def _dpk_pack_compact_plain(ids2d, vals2d, n_valid: int, cape_k: int,
+                            cw: int | None = None):
     return idpack._pack_ids_with_ac_plain(ids2d, vals2d, n_valid, TILE_B,
-                                          cape_k)[:7]
+                                          cape_k, cw)[:7]
 
 
 def dpk_pack_compact(ids2d, vals2d, n_valid: int, cape_k: int, cw: int):
@@ -244,7 +245,7 @@ def dpk_pack_compact(ids2d, vals2d, n_valid: int, cape_k: int, cw: int):
     f32, ac_counts (nc,) i32, dc (nblk,) f32) with nc = nblk*64/cw."""
     nblk, bs = ids2d.shape
     if not _on_cuda(ids2d, vals2d):
-        return _dpk_pack_compact_plain(ids2d, vals2d, n_valid, cape_k)
+        return _dpk_pack_compact_plain(ids2d, vals2d, n_valid, cape_k, cw)
     _check(ids2d, torch.uint8, "ids")
     _check(vals2d, torch.float32, "vals")
     if (bs != BS or vals2d.shape != ids2d.shape or cw % BS or TILE_N % cw
@@ -262,6 +263,7 @@ def dpk_pack_compact(ids2d, vals2d, n_valid: int, cape_k: int, cw: int):
     exc_counts = torch.empty((t * cpt,), dtype=torch.int32, device=dev)
     ac_counts = torch.empty((t * cpt,), dtype=torch.int32, device=dev)
     dc = torch.empty((t * TILE_B,), dtype=torch.float32, device=dev)
+    ids2d, vals2d = _aligned16(ids2d), _aligned16(vals2d)
     _launch(
         "dpk_pack_compact", ids2d.data_ptr(), vals2d.data_ptr(), nblk, n_valid,
         cw, cape_k, width.data_ptr(), packed.data_ptr(), exc.data_ptr(),
@@ -336,6 +338,7 @@ def dpk_unpack_expand(width, packed, exc_rows, ac_rows, nblk: int,
     dev = width.device
     ids = torch.empty((nblk, BS), dtype=torch.uint8, device=dev)
     acv = torch.empty((nblk, BS), dtype=torch.float32, device=dev)
+    width, exc_rows, ac_rows = map(_aligned16, (width, exc_rows, ac_rows))
     _launch(
         "dpk_unpack_expand", width.data_ptr(), packed.data_ptr(),
         exc_rows.data_ptr(), ac_rows.data_ptr(), nblk, nc, n_stream, cw,

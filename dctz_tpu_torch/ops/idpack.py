@@ -138,9 +138,10 @@ def _pack_ids_plain(ids2d: torch.Tensor, n_valid: int, b: int, cape: int):
     return _pack_ids(ids2d, n_valid, b, cape, cp.compact_rows)
 
 
-def _pack_ids_with_ac(ids2d, dcac2d, n_valid: int, b: int, cape: int, compact):
+def _pack_ids_with_ac(ids2d, dcac2d, n_valid: int, b: int, cape: int, compact,
+                      cw: int | None = None):
     nblk, bs = ids2d.shape
-    cw = qz.chunk_width(nblk * bs, bs)
+    cw = cw or qz.chunk_width(nblk * bs, bs)
     cape = min(cape, cw)
     width, packed, ids_i, exc_mask = _code_tiles(ids2d, n_valid, b)
     mask2 = exc_mask.reshape(-1, cw)
@@ -155,15 +156,17 @@ def _pack_ids_with_ac(ids2d, dcac2d, n_valid: int, b: int, cape: int, compact):
 
 
 def _pack_ids_with_ac_plain(ids2d: torch.Tensor, dcac2d: torch.Tensor,
-                            n_valid: int, b: int, cape: int):
+                            n_valid: int, b: int, cape: int,
+                            cw: int | None = None):
     """pack_ids_with_ac in torch ops alone, on any device (kernel B's
     twin): the exception bytes, and the AC values among the first `cape`
-    exceptions (the sort arm of dctz_tpu's pack_ids_with_ac)."""
+    exceptions (the sort arm of dctz_tpu's pack_ids_with_ac). cw: the chunk
+    width, that of the length (qz.chunk_width) unless given."""
     from . import shuffle
 
     return _pack_ids_with_ac(
         ids2d, dcac2d, n_valid, b, cape,
-        lambda m, i, v, c: shuffle._compact_unified_plain(m, i, v, c, c, c))
+        lambda m, i, v, c: shuffle._compact_unified_plain(m, i, v, c, c, c), cw)
 
 
 def pack_ids_with_ac(ids2d: torch.Tensor, dcac2d: torch.Tensor, n_valid: int,

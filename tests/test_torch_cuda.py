@@ -68,51 +68,156 @@ def test_kernel_a(dev, verify, n_valid):
     assert torch.all((ck - cp_).abs() <= 32 * 2.0**-23 * xs.abs().amax(1, keepdim=True))
 
 
-@pytest.mark.parametrize("nblk,esc_p,cape", [(256, 0.02, 128), (4096 + 128, 0.02, 128),
-                                             (512, 0.35, 128), (512, 0.35, 512)])
-def test_kernel_b_byte_equal(dev, nblk, esc_p, cape):
+def _grid(nblk, esc_p, kind, seed):
+    """An id grid and its values: "ids" (_ids), "zero" (every id 0 but the
+    DC column, so every width is 0), "w3" (positions 1-24 uniform in 0..6,
+    which makes their width 3, the rest as "ids"), "tiles" (tile 0 as
+    "ids", tile 1 all zero, the rest "w3")."""
+    rng = np.random.default_rng(seed)
+    ids, vals = _ids(rng, nblk, esc_p)
+    w3 = ids.copy()
+    w3[:, 1:25] = rng.integers(0, 7, size=(nblk, 24))
+    if kind == "zero":
+        ids[:, 1:] = 0
+    elif kind == "w3":
+        ids = w3
+    elif kind == "tiles":
+        ids = np.concatenate([ids[:256], np.zeros_like(ids[256:512]), w3[512:]])
+        ids[:, 0] = 255
+    return ids, vals
+
+
+#: (nblk, esc_p, cape, cw, kind, n_valid short of nblk * 64): cw 64-512,
+#: partial last tiles with n_valid inside a block, rows that overflow
+#: cape = 128 and the cape = cw retry, all-zero tiles and width-3 rows
+B_CASES = [(256, 0.02, 128, 512, "ids", 7), (4096 + 128, 0.02, 128, 512, "ids", 7),
+           (512, 0.35, 128, 512, "ids", 7), (512, 0.35, 512, 512, "ids", 7),
+           (296, 0.02, 64, 64, "ids", 7), (296, 0.05, 128, 128, "w3", 77),
+           (296, 0.35, 256, 256, "ids", 7), (296, 0.35, 128, 256, "ids", 130),
+           (296, 0.0, 128, 512, "zero", 7), (768 + 40, 0.03, 128, 512, "tiles", 3)]
+
+
+@pytest.mark.parametrize("nblk,esc_p,cape,cw,kind,short", B_CASES)
+def test_kernel_b_byte_equal(dev, nblk, esc_p, cape, cw, kind, short):
     from dctz_tpu_torch.ops import dpk_fuse as fk
 
-    ids, vals = _ids(np.random.default_rng(nblk), nblk, esc_p)
+    ids, vals = _grid(nblk, esc_p, kind, nblk)
     it, vt = torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
-    got = fk.dpk_pack_compact(it, vt, nblk * 64 - 7, cape, 512)
-    ref = fk._dpk_pack_compact_plain(it, vt, nblk * 64 - 7, cape)
+    fk.reset_launches()
+    got = fk.dpk_pack_compact(it, vt, nblk * 64 - short, cape, cw)
+    assert fk.LAUNCHES["dpk_pack_compact"] == 1
+    ref = _pack_plain_at(it, vt, nblk * 64 - short, cape, cw)
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and torch.equal(g, r)
+    if kind == "w3":  # the full tiles
+        assert bool((got[0][: nblk // 256, 1:25] == 3).all())
+    if kind in ("zero", "tiles"):
+        assert bool((got[0][1 if kind == "tiles" else 0] == 0).all())
+    if esc_p == 0.35 and cw == 512:
+        assert int(got[3].max()) > 128
 
 
-@pytest.mark.parametrize("n", [5 * TILE_N - 11, 7777, 3 * TILE_N, "golden_v2_ec_f32_dpk_legacyzstd"])
+def _pack_plain_at(ids, vals, n_valid, cape, cw):
+    """Kernel B's plain version at chunk width cw."""
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    return fk._dpk_pack_compact_plain(ids, vals, n_valid, cape, cw)
+
+
+#: synthetic decode inputs (nblk, cw, esc_p, kind, cape, capc): every decode
+#: tier at cw 512 (32, 64 and 128 staged in shared memory; 256 and cw read
+#: from device memory), the staged and wide instantiations at cw 64-256,
+#: all-zero and width-3 tiles; n_stream ends inside the last block
+C_CASES = [(296, 512, 0.02, "ids", 32, 32), (296, 512, 0.02, "tiles", 64, 32),
+           (296, 512, 0.35, "ids", 128, 64), (296, 512, 0.35, "ids", 256, 128),
+           (296, 512, 0.35, "ids", 512, 512), (296, 256, 0.05, "w3", 64, 64),
+           (296, 128, 0.02, "ids", 32, 32), (296, 128, 0.05, "ids", 128, 32),
+           (296, 64, 0.02, "ids", 32, 32), (296, 64, 0.05, "ids", 64, 64),
+           (296, 512, 0.0, "zero", 128, 32)]
+
+
+def _synthetic_decode(dev, nblk, cw, esc_p, kind, cape, capc):
+    """B's plain streams of a _grid at full capacity, rows cut to (cape,
+    capc): (width, packed, exc, dc, ac, n_stream)."""
+    ids, vals = _grid(nblk, esc_p, kind, nblk + cw)
+    it, vt = torch.from_numpy(ids), torch.from_numpy(vals)
+    w, pk, exc, _ec, ac, _acn, dc = _pack_plain_at(it, vt, nblk * 64, cw, cw)
+    return ([a.contiguous().to(dev) for a in (w, pk, exc[:, :cape], dc, ac[:, :capc])],
+            nblk * 64 - 9)
+
+
+@pytest.mark.parametrize("n", [5 * TILE_N - 11, 7777, 3 * TILE_N, "golden_v2_ec_f32_dpk_legacyzstd",
+                               *C_CASES])
 def test_kernels_c_d_match_plain(dev, n):
-    """Decode of port containers and of a committed JAX-package container
+    """Decode of port containers, of a committed JAX-package container
     whose chunk width is 128 and whose last block is partial (its zlib-only
-    variant: the card's host may lack the zstandard package)."""
+    variant: the card's host may lack the zstandard package), and of
+    synthetic streams at every decode tier and chunk width (C_CASES)."""
     import dctz_tpu_torch as dz
     from dctz_tpu_torch import api
     from dctz_tpu_torch.core import container as ct
     from dctz_tpu_torch.ops import dpk_fuse as fk
 
     cfg = dz.CodecConfig(container="v2", ids_codec="device", verify=True, segment_elems=0)
-    if isinstance(n, str):
-        import pathlib
-
-        blob = (pathlib.Path(__file__).parent / "golden" / f"{n}.z").read_bytes()
+    if isinstance(n, tuple):
+        (w, pk, exc, dc_d, ac_d), n_stream = _synthetic_decode(dev, *n)
+        d_in, cw, hcfg, sf_v = [w, pk, exc], n[1], dz.CodecConfig(error_bound=1e-3), 3.0
+        synthetic = True
     else:
-        blob = dz.compress(_signal(n, n), config=cfg, device="cpu")
-    header, streams, _q, _cb = ct.parse_v2(blob)
-    (width, rows, exc, dc, ac), (n_stream, _tb, cw, hcfg) = api._dpk_decode_prep(header, streams)
-    d_in = [torch.from_numpy(np.array(a)).to(dev) for a in (width, rows, exc)]
-    dc_d = api._combine_planes(torch.from_numpy(np.array(dc)).to(dev))
-    ac_d = api._combine_planes(torch.from_numpy(np.array(ac)).to(dev)).contiguous()
+        if isinstance(n, str):
+            import pathlib
+
+            blob = (pathlib.Path(__file__).parent / "golden" / f"{n}.z").read_bytes()
+        else:
+            blob = dz.compress(_signal(n, n), config=cfg, device="cpu")
+        header, streams, _q, _cb = ct.parse_v2(blob)
+        (width, rows, exc, dc, ac), (n_stream, _tb, cw, hcfg) = api._dpk_decode_prep(header, streams)
+        d_in = [torch.from_numpy(np.array(a)).to(dev) for a in (width, rows, exc)]
+        dc_d = api._combine_planes(torch.from_numpy(np.array(dc)).to(dev))
+        ac_d = api._combine_planes(torch.from_numpy(np.array(ac)).to(dev)).contiguous()
+        sf_v, synthetic = header.scaling_factor, False
     nblk = -(-n_stream // 64)
+    fk.reset_launches()
     ik, ak = fk.dpk_unpack_expand(*d_in, ac_d, nblk, n_stream, cw)
+    assert fk.LAUNCHES["dpk_unpack_expand"] == 1
     ip, ap = fk._dpk_unpack_expand_plain(*d_in, ac_d, nblk, n_stream, cw)
     assert torch.equal(ik, ip) and torch.equal(ak.view(torch.int32), ap.view(torch.int32))
-    sf = torch.tensor(header.scaling_factor, dtype=torch.float32, device=dev)
+    sf = torch.tensor(sf_v, dtype=torch.float32, device=dev)
     fk.reset_launches()
     xk = fk.dequant_idct(ik, ak, dc_d, sf, hcfg, n_stream)[:n_stream]
     assert fk.LAUNCHES["dequant_idct"] == 1
     xp = fk._dequant_idct_plain(ik, ak, dc_d, sf, hcfg, n_stream)[:n_stream]
-    assert (xk - xp).abs().max().item() <= 32 * 2.0**-23 * header.scaling_factor
+    if not synthetic:
+        assert (xk - xp).abs().max().item() <= 32 * 2.0**-23 * sf_v
+    else:  # 32 ulp of sf times the block's largest coefficient (at least 1)
+        from dctz_tpu_torch.core import quantize as qz
+
+        co = qz.decode_dense(ik, dc_d, ak, nblk * 64, hcfg)
+        lim = (32 * 2.0**-23 * sf_v * co.abs().amax(1).clamp_min(1.0)).repeat_interleave(64)
+        assert torch.all((xk - xp).abs() <= lim[:n_stream])
+
+
+def test_kernel_b_equals_l(dev):
+    """On the bench array, B on kernel A's output (verify off; A equals F
+    bit for bit) gives L's width, packed, exception rows, exception counts
+    and DC, and its AC streams too where no chunk row holds more than 128
+    exceptions. L keeps the per-byte stages of dpk_tile.cuh."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+    from dctz_tpu_torch.ops.research import fused_encode_dpk as fed
+
+    n = 5 * TILE_N - 1024
+    x = torch.from_numpy(_bench(n)).to(dev)
+    sf, _ = api._stats_device(x, n, 1)
+    ids, vals, _ok = fk.dct_quant_verify(x, sf, fe.tolerance(x, n, 1e-3), n, 1e-3, False)
+    got = fk.dpk_pack_compact(ids, vals, n, 128, 512)
+    ref = fed.fused_encode_dpk(x, sf, 1e-3)
+    for i in (0, 1, 2, 3):
+        assert torch.equal(got[i], ref[i]), i
+    assert bool((got[6] == ref[6]).all())
+    if int(got[3].max()) <= 128:
+        assert torch.equal(got[4], ref[4]) and torch.equal(got[5], ref[5])
 
 
 def test_partial_last_block_decodes_in_kernel(dev):

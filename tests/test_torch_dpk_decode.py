@@ -29,14 +29,21 @@ def _streams(nblk, seed, esc_p=0.02):
     return [np.array(o) for o in out], cw
 
 
-@pytest.mark.parametrize("nblk,esc_p", [(256, 0.02), (1024 + 128, 0.05)])
-def test_unpack_expand_byte_equal(oracle, nblk, esc_p):
+#: (nblk, esc_p, tier): the rows at their full capacity (tier None, 128) or
+#: cut to a decode tier; nblk 258 and 260 give chunk widths 128 and 256
+UNPACK_CASES = [(256, 0.02, None), (1024 + 128, 0.05, None), (258, 0.05, 32),
+                (260, 0.02, 64), (260, 0.05, None), (256, 0.05, 32)]
+
+
+@pytest.mark.parametrize("nblk,esc_p,tier", UNPACK_CASES)
+def test_unpack_expand_byte_equal(oracle, nblk, esc_p, tier):
     from dctz_tpu.core import constants as C
     from dctz_tpu.ops import compaction as jc
     from dctz_tpu.ops import idpack as ji
     from dctz_tpu_torch.ops import dpk_fuse as td
 
     (width, packed, exc, _ec, ac, _acc, _dc, _ovf), cw = _streams(nblk, nblk, esc_p)
+    exc, ac = _cut(exc, ac, tier)
     unpack = jax.jit(ji.unpack_ids, static_argnums=(3, 4, 5, 6))
     ref_ids = np.asarray(unpack(jnp.asarray(width), jnp.asarray(packed),
                                 jnp.asarray(exc), nblk, 64, 256, cw))
@@ -47,6 +54,14 @@ def test_unpack_expand_byte_equal(oracle, nblk, esc_p):
                                     nblk, nblk * 64, cw)
     assert ids.numpy().tobytes() == ref_ids.tobytes()
     assert acv.numpy().tobytes() == ref_acv.tobytes()
+
+
+def _cut(exc, ac, tier):
+    """Exception and AC rows cut to a decode capacity tier (None: as they
+    are): past the tier, exceptions read 0 and escapes no value."""
+    if tier is None:
+        return exc, ac
+    return np.ascontiguousarray(exc[:, :tier]), np.ascontiguousarray(ac[:, :tier])
 
 
 def _decode_inputs(blob):
@@ -62,15 +77,23 @@ def _decode_inputs(blob):
             np.float32(header.scaling_factor), n_stream, cw, cfg)
 
 
-@pytest.mark.parametrize("n", [2 * TILE_N, 5 * TILE_N - 11])
+@pytest.mark.parametrize("n", [2 * TILE_N, 5 * TILE_N - 11, (258, 32), (260, 64)])
 def test_decode_fused_matches(oracle, n):
+    """Containers of the JAX package, and synthetic streams at chunk widths
+    128 and 256 with their rows cut to the decode tiers 32 and 64."""
     import dctz_tpu
     from dctz_tpu.ops import dpk_fuse as jd
     from dctz_tpu_torch.config import CodecConfig
     from dctz_tpu_torch.ops import dpk_fuse as td
 
-    blob = dctz_tpu.compress(signal(n, 5), config=slice_cfg(dctz_tpu))
-    width, rows, exc, dc, ac, sf, n_stream, cw, cfg = _decode_inputs(blob)
+    if isinstance(n, tuple):
+        nblk, tier = n
+        (width, rows, exc, _ec, ac, _acc, dc, _ovf), cw = _streams(nblk, nblk, 0.05)
+        exc, ac = _cut(exc, ac, tier)
+        sf, n_stream, cfg = np.float32(3.0), nblk * 64, dctz_tpu.CodecConfig(error_bound=1e-3)
+    else:
+        blob = dctz_tpu.compress(signal(n, 5), config=slice_cfg(dctz_tpu))
+        width, rows, exc, dc, ac, sf, n_stream, cw, cfg = _decode_inputs(blob)
     ref = np.asarray(jd.decode_fused(
         *(jnp.asarray(a) for a in (width, rows, exc, ac, dc)), jnp.float32(sf),
         cfg, cw, None,
@@ -80,4 +103,14 @@ def test_decode_fused_matches(oracle, n):
         torch.tensor(sf), CodecConfig(error_bound=cfg.error_bound), cw, n_stream,
     ).numpy()
     assert got.shape == ref.shape
-    assert np.abs(got - ref).max() <= 32 * EPS32 * sf
+    if isinstance(n, tuple):  # 32 ulp of sf times the block's largest coefficient
+        from dctz_tpu_torch.core import quantize as qz
+
+        ids, acv = td.dpk_unpack_expand(*(torch.from_numpy(np.array(a)) for a in
+                                          (width, rows, exc, ac)), nblk, n_stream, cw)
+        co = qz.decode_dense(ids, torch.from_numpy(np.array(dc)), acv, n_stream,
+                             CodecConfig(error_bound=1e-3)).abs().amax(1).clamp_min(1.0)
+        lim = np.repeat(32 * EPS32 * sf * co.numpy(), 64)
+        assert np.all(np.abs(got - ref) <= lim)
+    else:
+        assert np.abs(got - ref).max() <= 32 * EPS32 * sf

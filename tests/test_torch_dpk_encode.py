@@ -25,13 +25,16 @@ def _both_encode_fused(ids, vals, nv, cape, cw):
     return [np.asarray(r) for r in ref], [g.numpy() for g in got]
 
 
-@pytest.mark.parametrize("nblk", [256, 4096, 4096 + 128])
-def test_pack_compact_byte_equal(oracle, nblk):
+@pytest.mark.parametrize("nblk,cw", [(256, None), (4096, None), (4096 + 128, None),
+                                     (256 + 40, 128), (512 + 8, 256)])
+def test_pack_compact_byte_equal(oracle, nblk, cw):
+    """At the chunk width of the length (512) and at 128 and 256, which the
+    JAX package's shorter containers use and the encoder takes as given."""
     from dctz_tpu.core.quantize import chunk_width
 
     rng = np.random.default_rng(nblk)
     ids, vals = id_stream(rng, nblk)
-    cw = chunk_width(nblk * 64, 64)
+    cw = cw or chunk_width(nblk * 64, 64)
     ref, got = _both_encode_fused(ids, vals, nblk * 64 - 7, 128, cw)
     for r, g, name in zip(ref, got, NAMES):
         assert r.dtype == g.dtype and r.shape == g.shape, name
