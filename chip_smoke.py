@@ -32,8 +32,8 @@ Phases, each printed as one JSON line:
      configuration (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the
      kernels' library; for C the lesser of its two instantiations, the
      staged one at its largest buffers) beside those registers and spills.
-     A, A-QT, B, C (both instantiations), D and D-QT must not spill and
-     must fit at least 2 CTAs per SM
+     A, A-QT, B, C (both instantiations), D, D-QT, E, F and G must not
+     spill and must fit at least 2 CTAs per SM
   3. kernels against their plain PyTorch versions on the card, at the main
      paths' shapes. EC input (the bench array): B and C byte-equal, A within
      1e-5 of ids, D within 32 ulp of sf. QT input (the x30 array): E
@@ -52,7 +52,9 @@ Phases, each printed as one JSON line:
      v1_ec container hands it (and equal to masked_scatter of its AC stream).
      The last four on the bench array: L's integer streams byte-equal to
      its plain version's (AC and DC within 32 ulp of max|x/sf|) and all its
-     streams equal to F -> idpack.pack_ids -> H; B on A (verify off) equal
+     streams equal to F -> idpack.pack_ids -> H (the check of the tiled
+     forward transform of A, E, F and G, csrc/dct_tile.cuh, against L's
+     per-thread one, common.cuh:forward_dct); B on A (verify off) equal
      to L (width, packed, exception rows and counts, DC by value; the AC
      streams where no chunk row holds more than 128 exceptions), so that B's
      word-wide stages agree with the per-byte ones L keeps; M bit-equal to C + D on
@@ -79,7 +81,7 @@ Phases, each printed as one JSON line:
      and the escapes it keeps, not the whole coefficient array) and, for H,
      I, J and K, one PyTorch
      call that computes the same function from or to the tight stream
-     (library_ms); for A, A-QT, D and D-QT the kernel's own device time
+     (library_ms); for A, A-QT, D, D-QT, E, F and G the kernel's own device time
      from torch.profiler beside the wrapper's CUDA-event time (which also
      holds the wrapper's small launches); then, for the record, L beside A
      (verify off) + B and beside F + pack_ids + H, M beside C + D, and a
@@ -120,7 +122,7 @@ EC_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
 #: the kernels on the register-tiled transform (csrc/dct_tile.cuh), whose
 #: own device time phase 5 reads from the profiler
 TILE_KERNELS = ("dct_quant_verify", "dct_quant_verify_qt", "dequant_idct",
-                "dequant_idct_qt")
+                "dequant_idct_qt", "qtable_qmax", "dct_quant", "dct_quant_qt")
 #: the redesigned kernels: no spill (C in both instantiations, which ptxas
 #: lists apart), at least MIN_CTAS_PER_SM resident CTAs per SM
 PERSISTENT_KERNELS = TILE_KERNELS + ("dpk_pack_compact", "dpk_unpack_expand")
@@ -727,6 +729,8 @@ def main() -> int:
                 f"L: {nm} differs from the plain version")
     err_l = max_abs_diff(zip(l_out, l_plain))
     emit("kernel_check", kernel="fused_encode_dpk", equal_to_f_pack_ids_h=True,
+         checks="the tiled forward transform (csrc/dct_tile.cuh: A, E, F, G; here "
+                "through F) against the per-thread one (common.cuh:forward_dct: L)",
          integer_streams_equal_to_plain=True, max_abs_err=err_l, limit=lim_l,
          exc_peak=int(l_out[3].max()), ac_peak=int(l_out[5].max()))
     kernels["fused_encode_dpk"] = {"max_abs_err": err_l}
@@ -1094,13 +1098,14 @@ def main() -> int:
              ptxas=ptxas.get(name))
     report["kernels"] = rows_out
 
-    # A's and D's own device time (torch.profiler) beside the wrapper's
-    # CUDA-event time of the table above
+    # the tiled kernels' own device time (torch.profiler) beside the
+    # wrapper's CUDA-event time of the table above
     event_ms = {r["name"]: r["ms"] for r in rows_out}
     report["kernel_device_time"] = {}
     for name in TILE_KERNELS:
-        symbol = name.removesuffix("_qt") + ("_kernel<true>" if name.endswith("_qt")
-                                             else "_kernel<false>")
+        symbol = ("qtable_qmax_kernel" if name == "qtable_qmax"
+                  else name.removesuffix("_qt") + ("_kernel<true>" if name.endswith("_qt")
+                                                   else "_kernel<false>"))
         dev_ms = profiled_kernel_ms(timed[name][0], symbol, REPS)
         emit("kernel_device_time", card=card, kernel=name, event_ms=event_ms[name], **dev_ms)
         report["kernel_device_time"][name] = {"event_ms": event_ms[name], **dev_ms}

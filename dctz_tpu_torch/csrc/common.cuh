@@ -27,7 +27,7 @@ __device__ __forceinline__ float center_of(int id, float w) {
 }
 
 // Zigzag bin id of an in-range value v: (v - rmin) / w truncated, clamped to
-// the bins (kernels F, G and L).
+// the bins (kernel L; the tiled kernels bin through dct_tile.cuh:ac_bin).
 __device__ __forceinline__ int bin_of(float v, float rmin, float w) {
   int lin = __float2int_rz((v - rmin) / w);
   lin = min(max(lin, 0), NBINS - 1);
@@ -47,9 +47,9 @@ __device__ __forceinline__ float scale_block(const float* __restrict__ xr,
 }
 
 // Forward DCT-II of one block, coef[k] = sum_m xs[m] * B[k][m] as an fmaf
-// chain in index order, handed to emit(k, coef[k]). Kernels E, F, G and L run
-// it; kernel A's tiled transform (dct_tile.cuh) computes the same chains, so
-// E's maxima are taken over the very coefficients A bins.
+// chain in index order, handed to emit(k, coef[k]). Kernel L runs it; the
+// tiled transform of kernels A, E, F and G (dct_tile.cuh) computes the same
+// chains, so L = F -> pack_ids -> H holds that header against this one.
 template <class Emit>
 __device__ __forceinline__ void forward_dct(const float (&xs)[BS],
                                             const float* __restrict__ sB,

@@ -20,37 +20,115 @@
 // that is stored). The renormalization is written with IEEE intrinsics so
 // nvcc cannot contract it into an FMA (common.cuh:qt_renorm says why).
 //
-// One CUDA block per 128 DCT blocks (8192 samples), one thread per DCT block.
-// The samples are staged coalesced through shared memory (rows padded to 65
-// floats) next to the 64x64 basis (16 KB, read as a broadcast). Each thread
-// runs the scale and forward DCT of common.cuh (scale_block, forward_dct), as
-// kernel E does; kernel A's tiled transform computes the same divisions and
-// fmaf chains, so F's coefficients are bit-identical to A's. Each thread
-// writes them over its own row; the block then bins them and stores ids and
-// dcac coalesced. 49.5 KB of shared memory lets several blocks share an SM.
+// What bounds it on the H100: 4 bytes in and 5 out per sample (302 MB at
+// 32Mi samples, 0.090 ms at 3.35 TB/s) against 64 fmaf per sample (4.3
+// GFLOP, 0.064 ms at 67 TFLOP/s): bytes, with the operations close behind.
+// So the design is kernel A's front end without the verify (dct_tile.cuh):
+// - A CTA of 256 threads takes a tile of 64 DCT blocks: the register-tiled
+//   product, 16 independent chains per thread. 48.25 KB of shared memory and
+//   __launch_bounds__(256, 4) (at most 64 registers) let four CTAs share an
+//   SM.
+// - The CTAs are persistent and load the next tile with cp.async into the
+//   raw buffer while they transform this one (load_tile_async); xs = x / sf
+//   is an IEEE division staged into the transposed tile (stage_scaled).
+// - The epilogue bins each thread's 4 x 4 coefficients straight from its
+//   accumulators (A's ac_bin, G's renormalization) and stores 16 bytes at a
+//   time: a float4 of dcac per block and position group, and, after the 4
+//   lanes of a position quad trade their id words by shuffles, one uint4 of
+//   16 ids per lane. Blocks past n_pad are not written (the last tile is
+//   partial when n_pad is not a multiple of 4096).
 //
-// What bounds it: 4 bytes in and 5 out per sample (302 MB at 32Mi samples,
-// 0.090 ms at 3.35 TB/s) against 64 FMAs per sample (4.3 GFLOP, 0.064 ms at
-// 67 TFLOP/s): bytes, in principle. The per-thread FMA chains of the forward
-// DCT, as in E, are expected to keep it latency-bound instead (achieved
-// occupancy not measured). No TF32: plain fp32 FMAs in index order, and x/sf
-// and (v - rmin)/w are IEEE divisions (the build never uses --use_fast_math).
+// Bit-exactness: the coefficients are those of kernel A (the same staging,
+// basis layout and fmaf chains of dct_tile.cuh), so F equals A with verify
+// off at every AC id and at the DC and the escapes, and G equals A-QT;
+// kernel L's per-thread transform (common.cuh:forward_dct) is the
+// independent check of that header (L = F -> pack_ids -> H). No TF32 and no
+// --use_fast_math: x/sf and (v - rmin)/w are IEEE divisions.
 
-#include "common.cuh"
+#include "dct_tile.cuh"
 
 namespace {
 
 using namespace dctz;
+using namespace dctz::tile;
 
-constexpr int BPB = 128;         // DCT blocks per CUDA block
-constexpr int TILE = BPB * BS;   // samples per CUDA block
-constexpr int LD = 65;           // padded float row of the sample tile
-// shared memory: basis, samples (overwritten by the coefficients), qtable
+constexpr int MIN_CTAS = 4;  // resident CTAs per SM that __launch_bounds__ asks
+// shared memory: transposed basis, raw samples, the transposed sample tile,
+// the qtable (G)
+constexpr size_t SMEM_BYTES = sizeof(float) * (3 * TN + BS);
+
+// Id of coefficient c at position k of a block, and its dcac value in v: DC
+// escapes and keeps c; an AC coefficient in range takes its bin and 0; one
+// out of range escapes with c (F) or, G, is renormalized through q and takes
+// the bin of that if it lands in range, else escapes with it.
 template <bool QT>
-constexpr size_t SMEM_BYTES = sizeof(float) * (BS * BS + BPB * LD + (QT ? BS : 0));
+__device__ __forceinline__ int bin_and_value(int k, float c, float q,
+                                             const Geom& g, float& v) {
+  if (k == 0) {
+    v = c;
+    return ESCAPE;
+  }
+  int id = ac_bin<false>(c, 0.f, g);
+  v = id == ESCAPE ? c : 0.f;
+  if constexpr (QT) {
+    if (id == ESCAPE) {
+      const float side = c > g.rmax ? g.rmax : g.rmin;
+      const float norm =
+          __fadd_rn(__fmul_rn(__fmul_rn(__fdiv_rn(c, q), g.eb), g.qtf), side);
+      id = ac_bin<false>(norm, 0.f, g);
+      v = id == ESCAPE ? norm : 0.f;
+    }
+  }
+  return id;
+}
+
+// w[s] when s is a runtime index (selects, not a local-memory array).
+__device__ __forceinline__ unsigned pick(const unsigned (&w)[4], int s) {
+  return s == 0 ? w[0] : s == 1 ? w[1] : s == 2 ? w[2] : w[3];
+}
+
+// The epilogue of tile `base`: the bins and values of blocks 4*hi + bi at
+// positions 4*lo .. 4*lo+3, dcac as a float4 each, the ids as a word each;
+// then lanes 4j .. 4j+3, which hold positions 16j .. 16j+15 of the same 4
+// blocks, trade their words so that lane 4j + r holds those 16 ids of block
+// 4*hi + r (word s from lane 4j + s, which sent its word for block r), and
+// store them as one uint4. Blocks past n_pad are not written.
+template <bool QT>
+__device__ __forceinline__ void store_tile(const float (&acc)[4][4],
+                                           long long base, int hi, int lo,
+                                           long long n_pad,
+                                           const float* __restrict__ sQ,
+                                           const Geom& g,
+                                           uint8_t* __restrict__ ids_out,
+                                           float* __restrict__ dcac_out) {
+  unsigned wd[4];
+#pragma unroll
+  for (int bi = 0; bi < 4; ++bi) {
+    float v[4];
+    unsigned word = 0;
+#pragma unroll
+    for (int ci = 0; ci < 4; ++ci) {
+      const int k = 4 * lo + ci;
+      const int id = bin_and_value<QT>(k, acc[bi][ci], QT ? sQ[k] : 0.f, g, v[ci]);
+      word |= static_cast<unsigned>(id) << (8 * ci);
+    }
+    wd[bi] = word;
+    const long long gi = base + (4 * hi + bi) * BS + 4 * lo;
+    if (gi < n_pad) st4(dcac_out + gi, make_float4(v[0], v[1], v[2], v[3]));
+  }
+  const int r = lo & 3;
+  unsigned got[4];
+  got[0] = pick(wd, r);
+#pragma unroll
+  for (int s = 1; s < 4; ++s) got[s] = __shfl_xor_sync(FULL, pick(wd, r ^ s), s);
+  const long long gi = base + (4 * hi + r) * BS + 16 * (lo >> 2);
+  if (gi < n_pad)
+    *reinterpret_cast<uint4*>(ids_out + gi) =
+        make_uint4(pick(got, r), pick(got, r ^ 1), pick(got, r ^ 2), pick(got, r ^ 3));
+}
 
 template <bool QT>
-__global__ void __launch_bounds__(BPB)
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
     dct_quant_kernel(const float* __restrict__ x,
                      const float* __restrict__ basis,
                      const float* __restrict__ sf_p,
@@ -58,56 +136,34 @@ __global__ void __launch_bounds__(BPB)
                      long long n_pad, float rmin, float rmax, float w,
                      uint8_t* __restrict__ ids_out,
                      float* __restrict__ dcac_out) {
-  extern __shared__ float smem[];
-  float* sB = smem;               // basis B[k][m]
-  float* sX = sB + BS * BS;       // samples, then coefficients, block-major
-  float* sQ = sX + BPB * LD;      // qtable (QT only)
+  extern __shared__ __align__(16) float smem[];
+  float* sBT = smem;       // basis, row m holds B[k][m] at rcol(m, k)
+  float* sRaw = sBT + TN;  // samples as loaded, block-major
+  float* sT = sRaw + TN;   // xs transposed
+  float* sQ = sT + TN;     // qtable (G)
 
-  const int tid = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * TILE;
-  const float sf = *sf_p;
+  const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
+  const long long tiles = (n_pad + TN - 1) / TN;
+  const Geom g{rmin, rmax, w, *sf_p, 0.f, eb, qtf, 0.f};
 
-  for (int i = tid; i < BS * BS; i += BPB) sB[i] = basis[i];
+  long long t = blockIdx.x;
+  load_tile_async(sRaw, x, t, n_pad, tid);
+  load_basis_transposed(sBT, basis, tid);
   if constexpr (QT) {
     if (tid < BS) sQ[tid] = qtable[tid];
   }
-  for (int i = tid; i < TILE; i += BPB) {
-    const long long gi = base + i;
-    sX[(i >> 6) * LD + (i & 63)] = gi < n_pad ? x[gi] : 0.f;
-  }
-  __syncthreads();
 
-  float* row = sX + tid * LD;
-  float xs[BS];
-  scale_block(row, sf, xs);
-  forward_dct(xs, sB, [&](int k, float c) { row[k] = c; });
-  __syncthreads();
+  for (; t < tiles; t += gridDim.x) {
+    const long long base = t * TN;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; the last tile's readers are done
+    stage_scaled<false>(sRaw, sT, g.sf, hi, lo, nullptr);
+    __syncthreads();  // the tile is staged; sRaw is free
+    if (t + gridDim.x < tiles) load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
 
-  for (int i = tid; i < TILE; i += BPB) {
-    const long long gi = base + i;
-    if (gi >= n_pad) break;
-    const int k = i & 63;
-    const float c = sX[(i >> 6) * LD + k];
-    int id = ESCAPE;
-    float v = c;  // DC
-    if (k > 0) {
-      v = 0.f;
-      if (c >= rmin && c <= rmax) {
-        id = bin_of(c, rmin, w);
-      } else if (QT) {
-        const float side = c > rmax ? rmax : rmin;
-        const float norm = __fadd_rn(
-            __fmul_rn(__fmul_rn(__fdiv_rn(c, sQ[k]), eb), qtf), side);
-        if (norm >= rmin && norm <= rmax)
-          id = bin_of(norm, rmin, w);
-        else
-          v = norm;
-      } else {
-        v = c;
-      }
-    }
-    ids_out[gi] = static_cast<uint8_t>(id);
-    dcac_out[gi] = v;
+    float acc[4][4];
+    tile_product<true>(sT, sBT, hi, lo, acc);
+    store_tile<QT>(acc, base, hi, lo, n_pad, sQ, g, ids_out, dcac_out);
   }
 }
 
@@ -116,11 +172,13 @@ int launch(const float* x, const float* basis, const float* sf,
            const float* qtable, float eb, float qtf, long long n_pad,
            float rmin, float rmax, float w, uint8_t* ids, float* dcac,
            void* stream) {
-  cudaFuncSetAttribute(dct_quant_kernel<QT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(SMEM_BYTES<QT>));
-  const long long grid = (n_pad + TILE - 1) / TILE;
-  dct_quant_kernel<QT><<<static_cast<unsigned>(grid), BPB, SMEM_BYTES<QT>,
+  static int cache[MAX_DEVICES] = {};
+  const long long tiles = (n_pad + TN - 1) / TN;
+  if (tiles == 0) return 0;
+  const long long grid =
+      persistent_grid(dct_quant_kernel<QT>, SMEM_BYTES, tiles, cache);
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  dct_quant_kernel<QT><<<static_cast<unsigned>(grid), THREADS, SMEM_BYTES,
                          static_cast<cudaStream_t>(stream)>>>(
       x, basis, sf, qtable, eb, qtf, n_pad, rmin, rmax, w, ids, dcac);
   return static_cast<int>(cudaGetLastError());
@@ -128,6 +186,7 @@ int launch(const float* x, const float* basis, const float* sf,
 
 }  // namespace
 
+// x: n_pad (a multiple of 1024) floats on 16 bytes.
 extern "C" int dctz_dct_quant(const float* x, const float* basis,
                               const float* sf, long long n_pad, float rmin,
                               float rmax, float w, uint8_t* ids, float* dcac,
@@ -146,5 +205,9 @@ extern "C" int dctz_dct_quant_qt(const float* x, const float* basis,
 }
 
 // Resident CTAs per SM at the launch configuration.
-extern "C" int dctz_ctas_per_sm_dct_quant() { return dctz::ctas_per_sm(dct_quant_kernel<false>, BPB, SMEM_BYTES<false>); }
-extern "C" int dctz_ctas_per_sm_dct_quant_qt() { return dctz::ctas_per_sm(dct_quant_kernel<true>, BPB, SMEM_BYTES<true>); }
+extern "C" int dctz_ctas_per_sm_dct_quant() {
+  return dctz::tile::tile_ctas_per_sm(dct_quant_kernel<false>, SMEM_BYTES);
+}
+extern "C" int dctz_ctas_per_sm_dct_quant_qt() {
+  return dctz::tile::tile_ctas_per_sm(dct_quant_kernel<true>, SMEM_BYTES);
+}

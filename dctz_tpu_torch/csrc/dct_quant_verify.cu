@@ -43,7 +43,7 @@
 // Bit-exactness: every coefficient is fmaf(xs[m], B[k][m], c) from 0.f over
 // m = 0..63 in order with xs[m] = x[m] / sf an IEEE division, and every
 // reconstructed sample the k-order chain times sf, as common.cuh's
-// forward_dct / inverse_dct (kernels E, F, L and M) compute them. No TF32 and
+// forward_dct / inverse_dct (kernels L and M) compute them. No TF32 and
 // no --use_fast_math; (v - rmin) / w and the QT renormalization are IEEE.
 //
 // The L2 screen gates the exact check per DCT block (the TPU kernel gates per
@@ -67,30 +67,6 @@ constexpr int LDI = 68;      // padded byte row of the id tile
 constexpr size_t SMEM_BYTES = sizeof(float) * (3 * TN + WARPS * BS + BS + TB) +
                               sizeof(int) * TB + TB * LDI;
 
-struct Geom {
-  float rmin, rmax, w, sf, tol;
-  float eb, qtf, denom;  // QT only
-};
-
-// Bin id of AC coefficient c (DC is handled by the caller). EC: its bin if in
-// range, else ESCAPE. QT: an out-of-range c is renormalized through q and
-// binned if that lands in range (dpk_fuse.py:536-542).
-template <bool QT>
-__device__ __forceinline__ int ac_bin(float c, float q, const Geom& g) {
-  float v = c;
-  bool in = c >= g.rmin && c <= g.rmax;
-  if constexpr (QT) {
-    if (!in) {
-      v = qt_renorm(c, q, g.eb, g.qtf, g.rmin, g.rmax);
-      in = v >= g.rmin && v <= g.rmax;
-    }
-  }
-  if (!in) return ESCAPE;
-  int lin = __float2int_rz((v - g.rmin) / g.w);
-  lin = min(max(lin, 0), NBINS - 1);
-  return zigzag_of_lin(lin);
-}
-
 // The decoder's coefficient at position k of a block: DC reads the
 // coefficient, an AC escape its stored value (EC: the coefficient; QT: the
 // renormalized value, inverted as the decoder inverts it), everything else
@@ -104,24 +80,6 @@ __device__ __forceinline__ float hat_of(int k, float c, int id, bool acm,
     return qt_inverse(qt_renorm(c, q, g.eb, g.qtf, g.rmin, g.rmax), q, g.denom,
                       g.rmin, g.rmax);
   return c;
-}
-
-// Start loading tile t's samples into sRaw (block-major, as in x); zeros
-// past n_pad.
-__device__ __forceinline__ void load_tile_async(float* __restrict__ sRaw,
-                                                const float* __restrict__ x,
-                                                long long t, long long n_pad,
-                                                int tid) {
-#pragma unroll
-  for (int i = 0; i < TN / 4 / THREADS; ++i) {
-    const int c = 4 * (tid + i * THREADS);
-    const long long gi = t * TN + c;
-    if (gi < n_pad)
-      cp_async16(sRaw + c, x + gi);
-    else
-      st4(sRaw + c, make_float4(0.f, 0.f, 0.f, 0.f));
-  }
-  cp_async_commit();
 }
 
 // Max pointwise error of block b's reconstruction from its current ids, on
@@ -202,10 +160,7 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 
   long long t = blockIdx.x;
   load_tile_async(sRaw, x, t, n_pad, tid);
-  for (int i = tid; i < BS * BS; i += THREADS) {
-    const int k = i >> 6, m = i & 63;
-    sBT[m * BS + rcol(m, k)] = basis[i];
-  }
+  load_basis_transposed(sBT, basis, tid);
   if constexpr (QT) {
     if (tid < BS) sQ[tid] = qtable[tid];
   }
@@ -216,34 +171,8 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     cp_async_wait_all();
     __syncthreads();  // tile t landed; the last tile's readers are done
 
-    // xs = x / sf (a division, as the reference) in place, one float4 of a
-    // block at a time (few values live across the divisions), and each
-    // block's max |xs| (16 lo-threads of a half-warp per block); then the
-    // thread's own 4 x 4 values into the transposed tile
-#pragma unroll
-    for (int bi = 0; bi < 4; ++bi) {
-      float* p = sRaw + (4 * hi + bi) * BS + 4 * lo;
-      const float4 r = ld4(p);
-      const float4 s = make_float4(r.x / g.sf, r.y / g.sf, r.z / g.sf, r.w / g.sf);
-      st4(p, s);
-      float mx = fmaxf(fmaxf(fabsf(s.x), fabsf(s.y)), fmaxf(fabsf(s.z), fabsf(s.w)));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-      if (lo == 0) sMx[4 * hi + bi] = mx;
-    }
-    {
-      float v[4][4];
-#pragma unroll
-      for (int bi = 0; bi < 4; ++bi) {
-        const float4 s = ld4(sRaw + (4 * hi + bi) * BS + 4 * lo);
-        v[bi][0] = s.x;
-        v[bi][1] = s.y;
-        v[bi][2] = s.z;
-        v[bi][3] = s.w;
-      }
-      stage_transposed(sT, hi, lo, v);
-    }
+    // xs = x / sf into the transposed tile, and each block's max |xs|
+    stage_scaled<true>(sRaw, sT, g.sf, hi, lo, sMx);
     if (tid == 0) {
       sCount = 0;
       sRepaired = 0;

@@ -11,9 +11,12 @@
 //
 // One CUDA block per DPK tile (256 DCT blocks, 16384 samples), one thread per
 // DCT block. The samples are staged coalesced into shared memory (rows padded
-// to 65 floats) next to the 64x64 basis; each thread runs the scale and
-// forward DCT of kernels A, E and F (common.cuh:scale_block, forward_dct), so
-// the coefficients are bit-identical to F's, and writes them over its row.
+// to 65 floats) next to the 64x64 basis; each thread runs the per-thread
+// scale and forward DCT of common.cuh (scale_block, forward_dct), the same
+// divisions and fmaf chains as the tiled transform of kernels A, E, F and G
+// (dct_tile.cuh), so the coefficients are bit-identical to F's: L = F ->
+// pack_ids -> H is the check of that header against an independent
+// transform. Each thread writes its coefficients over its row.
 // The block then bins them as F does into the two id copies of kernel B and
 // runs B's stages on them (dpk_tile.cuh): B's bytes, except that AC escapes
 // are ranked among their chunk row's escapes alone (the rule of

@@ -1,19 +1,22 @@
-"""Where kernels B and C spend their time: each timed whole and with one
-stage cut out at a time.
+"""Where kernels B, C, E and F spend their time: each timed whole and with
+one stage cut out at a time.
 
     python -m dctz_tpu_torch.kernels.stage_split [--csrc DIR] [--out FILE]
 
 DIR is a csrc/ directory: this checkout's (the default), or an older tree's
 unpacked from `git archive`. Each variant copies DIR, applies the text edits
-of one cut to B's or C's source, builds that source alone into a library of
-its own (one nvcc per variant, all at once) and times it with CUDA events,
-in rounds over all variants, on the inputs the main path gives it: 32Mi
-samples of the bench array, EC at eb 1e-3, cw 512. B takes the ids and
+of one cut to one kernel's source, builds that source alone into a library
+of its own (one nvcc per variant, all at once) and times it with CUDA
+events, in rounds over all variants, on the inputs the main path gives it:
+32Mi samples of the bench array, EC at eb 1e-3, cw 512. B takes the ids and
 values of kernel A's plain version at exception capacity 128; C takes B's
-plain streams cut to the decode's capacity tiers. The cuts that apply are
-those of the first set in CUTS whose every edit finds its text; a cut
-variant computes wrong results on purpose, and only its time is read.
-Prints one JSON line per kernel and variant. Needs a CUDA card and nvcc.
+plain streams cut to the decode's capacity tiers; E takes the bench array
+with every 977th sample x30 (the QT input of chip_smoke.py), F the bench
+array. The kernels come in groups (B and C; E and F), each with its cut
+sets, oldest first; a group's cuts are those of its first set whose every
+edit finds its text. A cut variant computes wrong results on purpose, and
+only its time is read. Prints one JSON line per kernel and variant. Needs a
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -35,11 +38,12 @@ LAUNCHES = 20
 ROUNDS = 3
 
 B_SRC, C_SRC = "dpk_pack_compact.cu", "dpk_unpack_expand.cu"
+E_SRC, F_SRC = "qtable_qmax.cu", "dct_quant.cu"
 
-#: cut sets: name -> {variant: (source, [(old text, new text), ...])}.
-#: "byte_stages": B on the per-byte stages of dpk_tile.cuh, C with its
-#: block-major nibble copy; "word_stages": the word-wide kernels.
-CUTS = {
+#: B and C's cut sets: name -> {variant: (source, [(old text, new text),
+#: ...])}. "byte_stages": B on the per-byte stages of dpk_tile.cuh, C with
+#: its block-major nibble copy; "word_stages": the word-wide kernels.
+BC_CUTS = {
     "byte_stages": {
         "B load_only": (B_SRC, [(
             "  __syncthreads();\n\n  select_widths(sN, sW);",
@@ -109,19 +113,86 @@ CUTS = {
     },
 }
 
+#: E and F's cut sets. "per_thread": one thread per DCT block on
+#: common.cuh:forward_dct (E's fold in shared atomics, F's coefficients
+#: through a shared row); "tiled": the register-tiled kernels of
+#: dct_tile.cuh. transform_only: no epilogue (E's fold, F's bins and
+#: stores), the accumulators kept alive by a store that never runs;
+#: no_transform: the epilogue on the staged samples in place of the
+#: product; no_store: everything but the stores (E: the CTA's fold into
+#: device memory).
+_ACC_SUM = ("{\n      float s = 0.f;\n#pragma unroll\n"
+            "      for (int i = 0; i < 16; ++i) s += acc[i >> 2][i & 3];\n")
+_STAGED = ("#pragma unroll\n    for (int i = 0; i < 16; ++i) "
+           "acc[i >> 2][i & 3] = sT[tid + THREADS * i];\n")
+E_NO_STORE = (E_SRC, [(
+    "  if (tid < BS && sM[tid] != 0) atomicMax(&qmax_bits[tid], sM[tid]);",
+    "  if (tid < BS && sM[tid] == 0x12345678) qmax_bits[tid] = 1;")])
+EF_CUTS = {
+    "per_thread": {
+        "E transform_only": (E_SRC, [(
+            "    if (k > 0 && !(c >= rmin && c <= rmax))\n"
+            "      atomicMax(&sM[k], __float_as_int(fabsf(c)));",
+            "    if (c == 1234.5f) sM[k] = 1;")]),
+        "E no_store": E_NO_STORE,
+        "F transform_only": (F_SRC, [(
+            "    if (gi >= n_pad) break;",
+            "    if (gi >= 0) {\n      if (sX[tid * LD] == 1234.5f) dcac_out[base] = 1.f;\n"
+            "      break;\n    }")]),
+        "F no_store": (F_SRC, [(
+            "    ids_out[gi] = static_cast<uint8_t>(id);\n    dcac_out[gi] = v;",
+            "    if (id == 7 && v == 1234.5f) dcac_out[gi] = v;")]),
+    },
+    "tiled": {
+        "E transform_only": (E_SRC, [(
+            "    fold_escapes(acc, lo, rmin, rmax, mb);",
+            "    " + _ACC_SUM + "      mb[0] ^= __float_as_int(s);\n    }")]),
+        "E no_transform": (E_SRC, [(
+            "    tile_product<true>(sT, sBT, hi, lo, acc);\n",
+            _STAGED)]),
+        "E no_store": E_NO_STORE,
+        "F transform_only": (F_SRC, [(
+            "    store_tile<QT>(acc, base, hi, lo, n_pad, sQ, g, ids_out, dcac_out);",
+            "    " + _ACC_SUM + "      if (s == 1234.5f) dcac_out[base] = s;\n    }")]),
+        "F no_transform": (F_SRC, [(
+            "    tile_product<true>(sT, sBT, hi, lo, acc);\n",
+            _STAGED)]),
+        "F no_store": (F_SRC, [
+            ("if (gi < n_pad) st4(dcac_out + gi,",
+             "if (v[0] + v[1] + v[2] + v[3] == 1234.5f) st4(dcac_out + gi,"),
+            ("  if (gi < n_pad)\n    *reinterpret_cast<uint4*>(ids_out + gi)",
+             "  if ((got[0] ^ got[1] ^ got[2] ^ got[3]) == 0x12345678u)\n"
+             "    *reinterpret_cast<uint4*>(ids_out + gi)")]),
+    },
+}
+#: the kernel groups: group -> (the sources timed whole, the cut sets)
+GROUPS = {"B, C": ((B_SRC, C_SRC), BC_CUTS), "E, F": ((E_SRC, F_SRC), EF_CUTS)}
 
-def _cut_set(csrc: pathlib.Path) -> tuple[str, dict]:
-    for name, cuts in CUTS.items():
-        if all(old in (csrc / src).read_text()
-               for src, edits in cuts.values() for old, _new in edits):
-            return name, cuts
-    raise SystemExit(f"no cut set of CUTS applies to {csrc}")
 
 
-def _build(csrc: pathlib.Path, cuts: dict, root: pathlib.Path) -> dict:
+def cut_sets(csrc: pathlib.Path) -> dict:
+    """{group: (name, cuts)}: each group's first cut set whose every edit
+    finds its text in the sources under csrc."""
+    out = {}
+    for group, (_srcs, sets) in GROUPS.items():
+        for name, cuts in sets.items():
+            if all(old in (csrc / src).read_text()
+                   for src, edits in cuts.values() for old, _new in edits):
+                out[group] = (name, cuts)
+                break
+        else:
+            raise SystemExit(f"no cut set of group {group} applies to {csrc}")
+    return out
+
+
+def _build(csrc: pathlib.Path, sets: dict, root: pathlib.Path) -> dict:
     """One library per variant (each kernel whole, and each cut), built by
-    parallel nvcc processes: {variant: (kernel, path)}."""
-    variants = {"B whole": (B_SRC, []), "C whole": (C_SRC, []), **cuts}
+    parallel nvcc processes: {variant: (source, path)}."""
+    variants = {}
+    for group, (name, cuts) in sets.items():
+        srcs = GROUPS[group][0]
+        variants.update({f"{k} whole": (src, []) for k, src in zip(group.split(", "), srcs)})
+        variants.update(cuts)
     libs, procs = {}, []
     for i, (name, (src, edits)) in enumerate(variants.items()):
         d = root / f"v{i}"
@@ -144,9 +215,11 @@ def _build(csrc: pathlib.Path, cuts: dict, root: pathlib.Path) -> dict:
 
 
 def _inputs(torch):
-    """Kernel B's and C's arguments at the main path's shapes, from the
-    plain versions on the card."""
+    """Kernel B's, C's, E's and F's arguments at the main path's shapes
+    (B and C from the plain versions on the card)."""
     from ..config import CodecConfig
+    from ..core import quantize as qz
+    from ..core import transform
     from ..ops import dpk_fuse as fk
     from ..ops import fused_encode
     from ..utils.bench_data import climate_formula_np
@@ -175,9 +248,25 @@ def _inputs(torch):
     acv_c = torch.empty((nblk, 64), dtype=torch.float32, device=dev)
     c_args = (width.data_ptr(), packed.data_ptr(), exc_t.data_ptr(), ac_t.data_ptr(),
               nblk, exc_t.shape[0], N, CW, cape, capc, ids_c.data_ptr(), acv_c.data_ptr())
-    keep = (ids, vals, width, packed, exc_t, ac_t, outs_b, ids_c, acv_c)
+    basis = transform.dct2_basis(64, dev)
+    xq = x.clone()
+    xq[::977] *= 30.0
+    sf_q, _ = api._stats_device(xq, N, cfg.sf_adj)
+    sf1, sf_q1 = sf.reshape(1).contiguous(), sf_q.reshape(1).contiguous()
+    w, rmin, rmax = qz._geometry(cfg)
+    bits = torch.zeros((64,), dtype=torch.int32, device=dev)
+    e_args = (xq.data_ptr(), basis.data_ptr(), sf_q1.data_ptr(), N, rmin, rmax,
+              bits.data_ptr())
+    ids_f = torch.empty((nblk, 64), dtype=torch.uint8, device=dev)
+    dcac_f = torch.empty((nblk, 64), dtype=torch.float32, device=dev)
+    f_args = (x.data_ptr(), basis.data_ptr(), sf1.data_ptr(), N, rmin, rmax, w,
+              ids_f.data_ptr(), dcac_f.data_ptr())
+    keep = (ids, vals, width, packed, exc_t, ac_t, outs_b, ids_c, acv_c, basis, xq,
+            sf1, sf_q1, bits, ids_f, dcac_f)
     return {B_SRC: ("dctz_dpk_pack_compact", b_args),
-            C_SRC: ("dctz_dpk_unpack_expand", c_args)}, {"cape": cape, "capc": capc}, keep
+            C_SRC: ("dctz_dpk_unpack_expand", c_args),
+            E_SRC: ("dctz_qtable_qmax", e_args),
+            F_SRC: ("dctz_dct_quant", f_args)}, {"cape": cape, "capc": capc}, keep
 
 
 def main() -> int:
@@ -192,8 +281,9 @@ def main() -> int:
         print("stage_split: CUDA is not available", file=sys.stderr)
         return 2
     csrc = pathlib.Path(args.csrc).resolve()
-    set_name, cuts = _cut_set(csrc)
-    libs = _build(csrc, cuts, build.BUILD_DIR / "stage_split")
+    sets = cut_sets(csrc)
+    set_of = {k: name for group, (name, _c) in sets.items() for k in group.split(", ")}
+    libs = _build(csrc, sets, build.BUILD_DIR / "stage_split")
     calls, caps, _keep = _inputs(torch)
     stream = torch.cuda.current_stream().cuda_stream
     fns = {}
@@ -230,7 +320,7 @@ def main() -> int:
     rows = []
     for name, ts in times.items():
         row = {"variant": name, "ms_mean": sum(ts) / len(ts), "ms_min": min(ts),
-               "runs": ts, "cut_set": set_name, "csrc": str(csrc), "card": card,
+               "runs": ts, "cut_set": set_of[name[0]], "csrc": str(csrc), "card": card,
                "launches_per_run": LAUNCHES, **caps}
         rows.append(row)
         print(json.dumps(row), flush=True)

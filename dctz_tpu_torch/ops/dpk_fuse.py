@@ -44,8 +44,8 @@ from . import repair
 BS = 64  # DCT block size
 TILE_B = 256  # blocks per DPK tile (idpack.B_DEFAULT)
 TILE_N = TILE_B * BS  # elements per tile
-#: elements per CUDA block tile of kernels A and D (csrc/dct_tile.cuh); A
-#: reports one verify flag per such tile
+#: elements per CUDA block tile of kernels A, D, E, F and G
+#: (csrc/dct_tile.cuh); A reports one verify flag per such tile
 CTA_N = 64 * BS
 EPS32 = 2.0**-23
 
@@ -109,8 +109,8 @@ def _ceil_lanes(c: int) -> int:
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """t, or a copy of it where its data does not start on 16 bytes (kernels
-    A, B, C and D move 16 bytes a thread; only a view into another tensor
-    can be off)."""
+    A-G move 16 bytes a thread; only a view into another tensor can be
+    off)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

@@ -75,6 +75,7 @@ def qtable_qmax(x: torch.Tensor, sf: torch.Tensor,
         if x.dim() != 1 or n_pad % 1024:
             raise ValueError(f"x must be flat with a length that is a "
                              f"multiple of 1024, got shape {tuple(x.shape)}")
+        x = dpk_fuse._aligned16(x)
         _, rmin, rmax = qz._geometry(cfg)
         bits = torch.zeros((BS,), dtype=torch.int32, device=x.device)
         sf32 = sf.reshape(1).to(torch.float32).contiguous()
@@ -133,6 +134,7 @@ def dct_quant(x: torch.Tensor, sf: torch.Tensor, error_bound: float,
     if x.dim() != 1 or n_pad % 1024:
         raise ValueError(f"x must be flat with a length that is a multiple "
                          f"of 1024, got shape {tuple(x.shape)}")
+    x = dpk_fuse._aligned16(x)
     w, rmin, rmax = qz._geometry(cfg)
     ids = torch.empty((n_pad // BS, BS), dtype=torch.uint8, device=x.device)
     dcac = torch.empty((n_pad // BS, BS), dtype=torch.float32, device=x.device)

@@ -271,21 +271,58 @@ def _padded_on(dev, x):
     return torch.nn.functional.pad(torch.from_numpy(x).to(dev), (0, (-n) % 1024))
 
 
-@pytest.mark.parametrize("n", [3 * 1024, 5 * TILE_N - 11])
-def test_kernel_e_matches_plain(dev, n):
+CTA_N = 64 * 64  # samples per CUDA block tile of kernels A, D, E, F and G
+#: lengths whose 1024-padding leaves the last 64-block tile partial
+TILE_EDGES = [5 * 1024, 5 * 1024 - 11, 3 * CTA_N + 2048 - 11]
+ONE_K = 37  # the position where every block of the "one_position" input escapes
+
+
+def _one_position(n, seed):
+    """_signal plus, in every block, the basis row of position ONE_K at a
+    random amplitude: most blocks escape at that one position, so E's
+    running maxima there meet in its shuffle, warp and CTA folds."""
+    from dctz_tpu_torch.core import transform
+
+    rng = np.random.default_rng(seed)
+    nb = -(-n // 64)
+    amp = (rng.random(nb) * 20.0 + 1.0).astype(np.float32)
+    row = transform.dct2_basis(64, "cpu").numpy()[ONE_K]
+    return (_signal(n, seed) + (amp[:, None] * row[None, :]).reshape(-1)[:n]).astype(np.float32)
+
+
+def _off16(xp):
+    """xp's values in a view that starts 4 bytes past a 16-byte boundary (a
+    view at a multiple of 4 elements, such as x[1024:], is aligned); the
+    wrappers copy it (dpk_fuse._aligned16) before the kernels' 16-byte
+    loads."""
+    base = torch.empty(xp.numel() + 1, dtype=xp.dtype, device=xp.device)
+    base[1:] = xp
+    view = base[1:]
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("n,kind", [(3 * 1024, "x30"), (5 * TILE_N - 11, "x30")]
+                         + [(n, "x30") for n in TILE_EDGES]
+                         + [(40 * CTA_N + 1024, "one_position"),
+                            (5 * TILE_N - 11, "misaligned")])
+def test_kernel_e_matches_plain(dev, n, kind):
     """E's maxima are taken over the coefficients kernel A computes: bit-equal
     to the clamped max over A-EC's own output, within 4 ulp of the plain
-    version (a torch matmul)."""
+    version (a torch matmul). On the x30 input, where every escape position
+    folds across many blocks ("one_position"), and on a misaligned view."""
     from dctz_tpu_torch import api
     from dctz_tpu_torch.config import CodecConfig
     from dctz_tpu_torch.ops import dpk_fuse as fk
     from dctz_tpu_torch.ops import fused_encode as fe
 
-    xp = _padded_on(dev, _qt_input(n, n))
+    xp = _padded_on(dev, _one_position(n, n) if kind == "one_position" else _qt_input(n, n))
     sf, _ = api._stats_device(xp, n, 1)
     fk.reset_launches()
-    got = fe.qtable_qmax(xp, sf, 1e-3)
+    got = fe.qtable_qmax(_off16(xp) if kind == "misaligned" else xp, sf, 1e-3)
     assert fk.LAUNCHES["qtable_qmax"] == 1
+    if kind == "one_position":
+        assert torch.argmax(got).item() == ONE_K and got[ONE_K].item() > 1.0
     plain = fe._qtable_qmax_plain(xp, sf, CodecConfig(mode="qt", error_bound=1e-3))
     plain = torch.clamp_min(plain, 1.0)
     ulps = (got - plain).abs() / torch.maximum(got, plain) * 2.0**23
@@ -429,13 +466,16 @@ V1_KERNELS = {"dct_quant", "chunk_compact", "chunk_expand", "dequant_idct"}
 
 
 @pytest.mark.parametrize("mode", ["ec", "qt"])
-@pytest.mark.parametrize("n", [3 * TILE_N, 5 * TILE_N - 11])
-def test_kernels_f_g_match_plain(dev, mode, n):
+@pytest.mark.parametrize("n,kind", [(3 * TILE_N, "aligned"), (5 * TILE_N - 11, "aligned")]
+                         + [(n, "aligned") for n in TILE_EDGES]
+                         + [(5 * TILE_N - 11, "misaligned")])
+def test_kernels_f_g_match_plain(dev, mode, n, kind):
     """F and G against their plain version (a torch matmul) on the same
     inputs: ids within 1e-4, DC and stored values within the coefficient
     budget (QT: times eb*qt_factor/q[k], plus 4 ulp); and F against A with
     verify off: the same ids at every AC position and the same values at
-    the DC and the escapes (one forward-DCT function)."""
+    the DC and the escapes (one forward-DCT function). Also on a
+    misaligned view of the input."""
     from dctz_tpu_torch import api
     from dctz_tpu_torch.config import CodecConfig
     from dctz_tpu_torch.ops import dpk_fuse as fk
@@ -446,7 +486,7 @@ def test_kernels_f_g_match_plain(dev, mode, n):
     sf, _ = api._stats_device(xp, n, 1)
     q = _qtable(dev, xp, sf) if mode == "qt" else None
     fk.reset_launches()
-    ik, dk = fe.dct_quant(xp, sf, 1e-3, q)
+    ik, dk = fe.dct_quant(_off16(xp) if kind == "misaligned" else xp, sf, 1e-3, q)
     assert fk.LAUNCHES["dct_quant_qt" if q is not None else "dct_quant"] == 1
     ip, dp = fe._dct_quant_plain(xp, sf, CodecConfig(mode=mode, error_bound=1e-3), q)
     assert (ik != ip).float().mean().item() <= 1e-4
@@ -702,9 +742,6 @@ def test_kernel_m_refuses_a_tile_beyond_one_block(dev):
         fd.fused_decode_dpk(*args, b * 64, b, 512, dz.CodecConfig())
 
 
-CTA_N = 64 * 64  # samples per CUDA block tile of kernels A and D
-
-
 @pytest.mark.parametrize("mode", ["ec", "qt"])
 @pytest.mark.parametrize("n_valid", [5 * 1024, 3 * CTA_N + 2048 - 11, 5 * TILE_N - 11])
 def test_kernel_a_at_tile_edges(dev, mode, n_valid):
@@ -754,11 +791,15 @@ def test_kernel_a_at_tile_edges(dev, mode, n_valid):
 
 
 @pytest.mark.parametrize("mode", ["ec", "qt"])
-@pytest.mark.parametrize("n", [5 * 1024, 3 * CTA_N + 2048 - 11])
-def test_kernel_a_equals_f_g(dev, mode, n):
-    """A (verify off) against F, and A-QT against G, which keep the
-    per-thread transform (common.cuh:forward_dct): the same ids at every AC
-    position, the same values at DC and at the AC escapes, bit for bit."""
+@pytest.mark.parametrize("n,kind", [(n, "aligned") for n in TILE_EDGES]
+                         + [(5 * TILE_N - 11, "misaligned")])
+def test_kernel_a_equals_f_g(dev, mode, n, kind):
+    """A (verify off) against F, and A-QT against G: the same staging and
+    register-tiled transform (csrc/dct_tile.cuh) behind different
+    epilogues, so the same ids at every AC position and the same values at
+    DC and at the AC escapes, bit for bit (kernel L's per-thread transform,
+    test_kernel_l_byte_equal, is the independent check of the header). Also
+    with F/G given a misaligned view of the input."""
     from dctz_tpu_torch import api
     from dctz_tpu_torch.ops import dpk_fuse as fk
     from dctz_tpu_torch.ops import fused_encode as fe
@@ -767,7 +808,7 @@ def test_kernel_a_equals_f_g(dev, mode, n):
     sf, _ = api._stats_device(xp, n, 1)
     q = _qtable(dev, xp, sf) if mode == "qt" else None
     ia, va, _ok = fk.dct_quant_verify(xp, sf, torch.ones((), device=dev), n, 1e-3, False, q)
-    ifg, dfg = fe.dct_quant(xp, sf, 1e-3, q)
+    ifg, dfg = fe.dct_quant(_off16(xp) if kind == "misaligned" else xp, sf, 1e-3, q)
     esc = (ifg == 255) & (torch.arange(64, device=dev) > 0)
     assert esc.any()
     assert torch.equal(ia[:, 1:], ifg[:, 1:])
@@ -775,7 +816,7 @@ def test_kernel_a_equals_f_g(dev, mode, n):
     assert torch.equal(va[:, 0].view(torch.int32), dfg[:, 0].view(torch.int32))
 
 
-@pytest.mark.parametrize("n", [5 * 1024, 3 * CTA_N + 2048 - 11])
+@pytest.mark.parametrize("n", TILE_EDGES)
 def test_kernel_e_equals_a_at_tile_edges(dev, n):
     """E's qtable is the clamped maximum over the escaping coefficients of
     A-EC, bit for bit, where A's last tile is partial."""

@@ -1,8 +1,9 @@
-"""Kernels A and D work on CUDA block tiles of 64 DCT blocks
+"""Kernels A, D, E, F and G work on CUDA block tiles of 64 DCT blocks
 (csrc/dct_tile.cuh): lengths that are a multiple of 1024 but not of the
 tile, A's optional screen counters and the 16-byte alignment of the kernels'
 inputs, on the plain versions here; the same edges on the card are in
-tests/test_torch_cuda.py."""
+tests/test_torch_cuda.py. Also: the cuts of the stage-timing tool
+(kernels/stage_split.py) still find their text in the sources."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from test_torch_oracle import EB, EPS32, oracle, signal  # noqa: F401
+from test_torch_qt import qt_signal
 
 torch.set_num_threads(2)
 
@@ -92,6 +94,84 @@ def test_screen_counters(oracle, mode, n_valid):
         ref = jd.encode_x_fused(jnp.asarray(x), jnp.float32(sf), jnp.float32(tol),
                                 n_valid, EB, 128, chunk_width(x.size, 64), True)
         assert bool(ref[8]) == bool(ok)
+
+
+def _padded(x):
+    return np.concatenate([x, np.zeros((-x.size) % 1024, np.float32)])
+
+
+def _ulps(a, b):
+    return np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))
+
+
+@pytest.mark.parametrize("n_valid", RAGGED)
+def test_qtable_qmax_at_ragged_lengths(oracle, n_valid):
+    """Kernel E's twin against dctz_tpu's qtable_qmax (interpret mode) where
+    the padded length is not a multiple of E's 64-block tile: within 4 ulp."""
+    from dctz_tpu.ops import fused_encode as jf
+    from dctz_tpu_torch.ops import fused_encode as tf
+
+    x = _padded(qt_signal(n_valid, n_valid))
+    assert x.size % CTA_N
+    sf = np.float32(100.0)
+    ref = np.asarray(jf.qtable_qmax(jnp.asarray(x), jnp.float32(sf), EB))
+    got = tf.qtable_qmax(torch.from_numpy(x), torch.tensor(sf), EB).numpy()
+    assert got.dtype == np.float32 and got.shape == (64,)
+    assert (ref[1:] > 1.0).sum() > 10  # the table is not all clamped
+    assert _ulps(got, ref).max() <= 4
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("n_valid", RAGGED)
+def test_fused_encode_at_ragged_lengths(oracle, mode, n_valid):
+    """Kernels F and G's twin against dctz_tpu's fused_encode_ec /
+    fused_encode_qt (interpret mode) where the padded length is not a
+    multiple of their 64-block tile: ids within 1e-4; DC and stored values
+    within 32 ulp of the block's max|x/sf| (a stored QT escape: that times
+    eb*qt_factor/q[k], plus 4 ulp); the qtable within 4 ulp."""
+    from dctz_tpu.ops import fused_encode as jf
+    from dctz_tpu_torch.ops import fused_encode as tf
+
+    x = _padded(qt_signal(n_valid, n_valid + 3) if mode == "qt" else signal(n_valid, n_valid + 3))
+    assert x.size % CTA_N
+    sf = np.float32(100.0)
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    if mode == "qt":
+        ids_r, dcac_r, q_r = (np.asarray(a) for a in jf.fused_encode_qt(xj, jnp.float32(sf), EB))
+        ids_g, dcac_g, q_g = (a.numpy() for a in tf.fused_encode_qt(xt, torch.tensor(sf), EB))
+        assert _ulps(q_g, q_r).max() <= 4
+    else:
+        ids_r, dcac_r = (np.asarray(a) for a in jf.fused_encode_ec(xj, jnp.float32(sf), EB))
+        ids_g, dcac_g = (a.numpy() for a in tf.fused_encode_ec(xt, torch.tensor(sf), EB))
+    assert ids_g.dtype == np.uint8 and ids_g.shape == ids_r.shape == (x.size // 64, 64)
+    assert np.mean(ids_g != ids_r) <= 1e-4
+    esc = (ids_g == 255) & (ids_r == 255) & (np.arange(64) > 0)
+    assert esc.sum() > 0
+    budget = 32 * EPS32 * np.abs(x.reshape(-1, 64) / sf).max(axis=1)[:, None]
+    lim = np.broadcast_to(budget, dcac_r.shape)
+    if mode == "qt":
+        lim = np.where(esc, budget * np.float32(EB * 10.0) / q_g
+                       + 4 * np.spacing(np.abs(dcac_r)), budget)
+    assert np.all((np.abs(dcac_g - dcac_r) <= lim)[ids_g == ids_r])
+
+
+@pytest.mark.parametrize("group", ["B, C", "E, F"])
+def test_stage_split_cuts_find_their_text(group):
+    """The stage-timing tool takes, for each kernel group, the first cut set
+    whose every edit finds its text: in this checkout that is the newest
+    set, and each of its edits finds its text exactly once, so a later edit
+    of a kernel cannot leave the tool timing an uncut kernel."""
+    from dctz_tpu_torch.kernels import build
+    from dctz_tpu_torch.kernels import stage_split as ss
+
+    srcs, sets = ss.GROUPS[group]
+    name, cuts = ss.cut_sets(build.CSRC)[group]
+    assert name == list(sets)[-1]
+    assert {src for src, _edits in cuts.values()} == set(srcs)
+    for variant, (src, edits) in cuts.items():
+        text = (build.CSRC / src).read_text()
+        for old, _new in edits:
+            assert text.count(old) == 1, (variant, old)
 
 
 def test_counters_are_checked():
