@@ -32,8 +32,9 @@ Phases, each printed as one JSON line:
      configuration (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the
      kernels' library; for C the lesser of its two instantiations, the
      staged one at its largest buffers) beside those registers and spills.
-     A, A-QT, B, C (both instantiations), D, D-QT, E, F and G must not
-     spill and must fit at least 2 CTAs per SM
+     A, A-QT, B, C (both instantiations), D, D-QT, E, F, G, L and M (both
+     instantiations) must not spill and must fit at least 2 CTAs per SM;
+     the card-only references L_ref and M_ref get occupancy lines too
   3. kernels against their plain PyTorch versions on the card, at the main
      paths' shapes. EC input (the bench array): B and C byte-equal, A within
      1e-5 of ids, D within 32 ulp of sf. QT input (the x30 array): E
@@ -51,19 +52,26 @@ Phases, each printed as one JSON line:
      escapes at capacity 128, I byte-equal on the rows the decode of the
      v1_ec container hands it (and equal to masked_scatter of its AC stream).
      The last four on the bench array: L's integer streams byte-equal to
-     its plain version's (AC and DC within 32 ulp of max|x/sf|) and all its
-     streams equal to F -> idpack.pack_ids -> H (the check of the tiled
-     forward transform of A, E, F and G, csrc/dct_tile.cuh, against L's
-     per-thread one, common.cuh:forward_dct); B on A (verify off) equal
-     to L (width, packed, exception rows and counts, DC by value; the AC
-     streams where no chunk row holds more than 128 exceptions), so that B's
-     word-wide stages agree with the per-byte ones L keeps; M bit-equal to C + D on
-     L's streams, within D's budget of its plain version at tile 64 (else
-     128 or 32, whichever holds every chunk row in 128 slots) and in QT (G's
+     its plain version's (AC and DC within 32 ulp of max|x/sf|), all its
+     streams equal to F -> idpack.pack_ids -> H, and the card-only
+     reference L_ref (ops/research/_ref.py, csrc/fused_encode_dpk_ref.cu:
+     the per-thread common.cuh:forward_dct and the per-byte stages of
+     dpk_tile.cuh) equal to that chain (the check of the tiled forward
+     transform of A, E, F, G and L, csrc/dct_tile.cuh) and to L on all
+     seven streams, bit for bit; B on A (verify off) equal to L_ref (width,
+     packed, exception rows and counts, DC by value; the AC streams where
+     no chunk row holds more than 128 exceptions), so that B's word-wide
+     stages agree with the per-byte ones; M bit-equal to C + D on L's
+     streams, within D's budget of its plain version at tile 64 (else 128
+     or 32, whichever holds every chunk row in 128 slots) and in QT (G's
      streams with the x30 input's qtable from E, on the x30 input unless a
      chunk row there holds more than 128 exceptions, then on the bench
-     array), and bit-equal to C + D-QT; J (pack_ids_with_ac at tile 64)
-     and K byte-equal
+     array), and bit-equal to C + D-QT; M_ref (csrc/fused_decode_dpk_ref.cu,
+     the per-thread common.cuh:inverse_dct) bit-equal to C + D and C +
+     D-QT, and M bit-equal to M_ref at tiles 256 and 64, EC and QT, with
+     the instantiation of M each took (fused_decode.walk_of, checked
+     against the library's); J (pack_ids_with_ac at tile 64) and K
+     byte-equal
   4. end to end, per path: compress and decompress through the public API on
      the card with the launch counters reset just before and read just after
      (every kernel of the path > 0), the container family expected, the
@@ -81,10 +89,11 @@ Phases, each printed as one JSON line:
      and the escapes it keeps, not the whole coefficient array) and, for H,
      I, J and K, one PyTorch
      call that computes the same function from or to the tight stream
-     (library_ms); for A, A-QT, D, D-QT, E, F and G the kernel's own device time
+     (library_ms); for A, A-QT, D, D-QT, E, F, G, L and M the kernel's own device time
      from torch.profiler beside the wrapper's CUDA-event time (which also
      holds the wrapper's small launches); then, for the record, L beside A
-     (verify off) + B and beside F + pack_ids + H, M beside C + D, and a
+     (verify off) + B and beside F + pack_ids + H, M (tiles 256 and 64)
+     beside C + D, L_ref and M_ref (onepass_vs_launches), and a
      transform-only yardstick, torch.matmul(blocks, basis.T) and
      torch.matmul(coef, basis) in full fp32 (transform_matmul_ms): not the
      same function as A or D, and never called by the port
@@ -119,13 +128,23 @@ PEAK_BYTES = 3.35e12  # bytes/s of HBM3
 
 EC_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
               "dequant_idct")
-#: the kernels on the register-tiled transform (csrc/dct_tile.cuh), whose
-#: own device time phase 5 reads from the profiler
+#: the kernels on the register-tiled transform (csrc/dct_tile.cuh) that
+#: take one tile of 64 blocks per step (L and M take it too, in sub-tiles)
 TILE_KERNELS = ("dct_quant_verify", "dct_quant_verify_qt", "dequant_idct",
                 "dequant_idct_qt", "qtable_qmax", "dct_quant", "dct_quant_qt")
-#: the redesigned kernels: no spill (C in both instantiations, which ptxas
-#: lists apart), at least MIN_CTAS_PER_SM resident CTAs per SM
-PERSISTENT_KERNELS = TILE_KERNELS + ("dpk_pack_compact", "dpk_unpack_expand")
+#: the redesigned kernels: no spill (C and M in both instantiations, which
+#: ptxas lists apart), at least MIN_CTAS_PER_SM resident CTAs per SM
+PERSISTENT_KERNELS = TILE_KERNELS + ("dpk_pack_compact", "dpk_unpack_expand",
+                                     "fused_encode_dpk", "fused_decode_dpk")
+#: the second instantiations of C and M, which must not spill either
+SECOND_INSTANTIATIONS = ("dpk_unpack_expand_wide", "fused_decode_dpk_lanes")
+#: kernels whose own device time phase 5 reads from the profiler, and the
+#: symbol it finds them by
+DEVICE_TIME = {k: ("qtable_qmax_kernel" if k == "qtable_qmax"
+                   else k.removesuffix("_qt") + ("_kernel<true>" if k.endswith("_qt")
+                                                 else "_kernel<false>"))
+               for k in TILE_KERNELS} | {"fused_encode_dpk": "fused_encode_dpk_kernel",
+                                         "fused_decode_dpk": "fused_decode_dpk_kernel"}
 MIN_CTAS_PER_SM = 2
 QT_KERNELS = ("qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
               "dpk_unpack_expand", "dequant_idct_qt")
@@ -419,7 +438,7 @@ def main() -> int:
     from dctz_tpu_torch.ops import fused_encode
     from dctz_tpu_torch.ops import idpack
     from dctz_tpu_torch.ops import shuffle
-    from dctz_tpu_torch.ops.research import fused_decode, fused_encode_dpk
+    from dctz_tpu_torch.ops.research import _ref, fused_decode, fused_encode_dpk
     from dctz_tpu_torch.utils.bench_data import climate_formula_np
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -441,10 +460,10 @@ def main() -> int:
     emit("build", seconds=round(build.last_build_s, 3), library=str(build.LIB_PATH),
          ptxas=ptxas)
     require(set(SOURCES) <= set(ptxas), f"ptxas reports no kernel of {set(SOURCES) - set(ptxas)}")
-    ctas = {k: build.ctas_per_sm(k) for k in build.OCCUPANCY}
-    for k in build.OCCUPANCY:
+    ctas = {k: build.ctas_per_sm(k) for k in build.OCCUPANCY + build.REFERENCES}
+    for k in build.OCCUPANCY + build.REFERENCES:
         emit("occupancy", kernel=k, ctas_per_sm=ctas[k], **ptxas[k])
-    for k in PERSISTENT_KERNELS + ("dpk_unpack_expand_wide",):
+    for k in PERSISTENT_KERNELS + SECOND_INSTANTIATIONS:
         require(ptxas[k].get("spill_stores") == 0 and ptxas[k].get("spill_loads") == 0,
                 f"{k}: ptxas reports spills {ptxas[k]}")
     for k in PERSISTENT_KERNELS:
@@ -728,29 +747,46 @@ def main() -> int:
                 else (a - b).abs().max().item() <= lim_l,
                 f"L: {nm} differs from the plain version")
     err_l = max_abs_diff(zip(l_out, l_plain))
+    # the card-only reference L_ref (csrc/fused_encode_dpk_ref.cu): equal to
+    # the same chain, and L equal to it on all seven streams, bit for bit
+    l_ref = _ref.fused_encode_dpk_ref(xp, sf, cfg.error_bound)
+    torch.cuda.synchronize()
+    for a, r, c, nm in zip(l_out, l_ref, chain, names):
+        require(torch.equal(r, c) if nm != "dc" else bool((r == c).all()),
+                f"L_ref: {nm} differs from F -> pack_ids -> H")
+        require(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                            r.view(torch.int32) if r.dtype == torch.float32 else r),
+                f"L: {nm} differs from L_ref")
     emit("kernel_check", kernel="fused_encode_dpk", equal_to_f_pack_ids_h=True,
-         checks="the tiled forward transform (csrc/dct_tile.cuh: A, E, F, G; here "
-                "through F) against the per-thread one (common.cuh:forward_dct: L)",
+         equal_to_ref=True,
+         checks={"L_ref = F -> pack_ids -> H": "the tiled forward transform "
+                 "(csrc/dct_tile.cuh: A, E, F, G, L; here through F) against the "
+                 "per-thread one (common.cuh:forward_dct: L_ref)",
+                 "L = L_ref": "L on dct_tile.cuh and dpk_stages.cuh against the "
+                 "per-thread transform and the per-byte stages of dpk_tile.cuh"},
          integer_streams_equal_to_plain=True, max_abs_err=err_l, limit=lim_l,
          exc_peak=int(l_out[3].max()), ac_peak=int(l_out[5].max()))
     kernels["fused_encode_dpk"] = {"max_abs_err": err_l}
 
-    # B on A (verify off, which equals F bit for bit above) against L, which
-    # keeps the per-byte stages of dpk_tile.cuh: width, packed, exception
-    # rows and counts, DC by value; the AC streams where no chunk row holds
-    # more than 128 exceptions (beyond that the two kernels' AC rules differ)
+    # B on A (verify off, which equals F bit for bit above) against L_ref,
+    # which keeps the per-byte stages of dpk_tile.cuh (L shares B's):
+    # width, packed, exception rows and counts, DC by value; the AC streams
+    # where no chunk row holds more than 128 exceptions (beyond that the two
+    # kernels' AC rules differ)
     outs_bl = fk.dpk_pack_compact(ids_a0, coef_a0, n_pad, 128, cw)
     torch.cuda.synchronize()
     for i, nm in enumerate(names[:4]):
-        require(torch.equal(outs_bl[i], l_out[i]), f"B: {nm} differs from L's")
-    require(bool((outs_bl[6] == l_out[6]).all()), "B: dc differs from L's")
+        require(torch.equal(outs_bl[i], l_ref[i]), f"B: {nm} differs from L_ref's")
+    require(bool((outs_bl[6] == l_ref[6]).all()), "B: dc differs from L_ref's")
     ac_vs_l = int(outs_bl[3].max()) <= 128
     if ac_vs_l:
-        require(torch.equal(outs_bl[4], l_out[4]) and torch.equal(outs_bl[5], l_out[5]),
-                "B: AC streams differ from L's")
-    emit("kernel_check", kernel="dpk_pack_compact", equal_to_l=True,
+        require(torch.equal(outs_bl[4], l_ref[4]) and torch.equal(outs_bl[5], l_ref[5]),
+                "B: AC streams differ from L_ref's")
+    emit("kernel_check", kernel="dpk_pack_compact", equal_to_l_ref=True,
+         checks="B's word-wide stages (csrc/dpk_stages.cuh) against the per-byte "
+                "ones of dpk_tile.cuh (L_ref)",
          ac_streams_compared=ac_vs_l, exc_peak=int(outs_bl[3].max()))
-    del outs_bl
+    del outs_bl, l_ref
 
     # M on L's streams: C + D's bits, and the round trip within the bound
     w_l, pk_l, exc_l, _ec, ac_l, _acn, dc_l = l_out
@@ -765,6 +801,16 @@ def main() -> int:
     require(torch.equal(x_m.view(torch.int32), x_cd.view(torch.int32)),
             "M: differs from C + D at tile 256")
     require(rt_err <= tol_bench, f"L -> M round trip: {rt_err} > {tol_bench}")
+    # the card-only reference M_ref (csrc/fused_decode_dpk_ref.cu): C + D's
+    # bits (the check of the tiled inverse transform against the per-thread
+    # one), and M bit-equal to it
+    bits = lambda v: v.view(torch.int32)  # noqa: E731
+    x_mr = _ref.fused_decode_dpk_ref(w_l, pk_l, exc_l, dc_l, ac_l, sf, n_pad, 256, 512, cfg)
+    torch.cuda.synchronize()
+    require(torch.equal(bits(x_mr), bits(x_cd)), "M_ref: differs from C + D at tile 256")
+    require(torch.equal(bits(x_m), bits(x_mr)), "M: differs from M_ref at tile 256")
+    walks = {"256 ec": fused_decode.walk_of(256, 512)}
+    del x_mr
 
     def m_budget(arrays, sf_m, b, cw_m, cfg_m, q_m):
         co = fused_decode._coefficients_plain(*arrays, b, cw_m, cfg_m, q_m)
@@ -789,6 +835,11 @@ def main() -> int:
         (x_mb - x_mbp).abs().max().item())
     require(over_mb == 0, f"M at tile {b_m}: {over_mb} samples beyond D's budget")
     require((x_mb - xp).abs().max().item() <= tol_bench, f"M at tile {b_m}: bound")
+    x_mbr = _ref.fused_decode_dpk_ref(*arr_j, sf, n_pad, b_m, cw, cfg)
+    torch.cuda.synchronize()
+    require(torch.equal(bits(x_mb), bits(x_mbr)), f"M: differs from M_ref at tile {b_m}")
+    walks[f"{b_m} ec"] = fused_decode.walk_of(b_m, cw)
+    del x_mbr
 
     # M in QT on the x30 input: G's ids and stored values with E's qtable
     # (entries above 1), coded by kernel B at tile 256 and full capacity, at
@@ -819,13 +870,41 @@ def main() -> int:
     over_mq = int(((x_mq - x_mqp).abs() > lim_mq).sum())
     over_cdq = int(((x_mq - x_cdq).abs() > lim_mq).sum())
     err_m = max(err_m, (x_mq - x_mqp).abs().max().item())
+    x_mqr = _ref.fused_decode_dpk_ref(*arr_q, sf_q, n_pad, 256, cw_q, cfg_qt, qt_e)
+    torch.cuda.synchronize()
+    require(torch.equal(bits(x_mqr), bits(x_cdq)), "M_ref-QT: differs from C + D-QT")
+    require(torch.equal(bits(x_mq), bits(x_mqr)), "M-QT: differs from M_ref")
+    walks["256 qt"] = fused_decode.walk_of(256, cw_q)
+    # M-QT at the other tile: the same G streams coded at tile b_m (J) and
+    # chunk width cw (rows past 128 exceptions read their overflow as 0, in
+    # both kernels alike)
+    st_q64 = idpack.pack_ids_with_ac(ids_g2, dcac_g2, n_pad, b_m, 128)
+    arr_q64 = (st_q64[0], st_q64[1], st_q64[2], st_q64[6], st_q64[4])
+    x_mq64 = fused_decode.fused_decode_dpk(*arr_q64, sf_q, n_pad, b_m, cw, cfg_qt, qt_e)
+    x_mq64r = _ref.fused_decode_dpk_ref(*arr_q64, sf_q, n_pad, b_m, cw, cfg_qt, qt_e)
+    torch.cuda.synchronize()
+    require(torch.equal(bits(x_mq64), bits(x_mq64r)), f"M-QT: differs from M_ref at tile {b_m}")
+    walks[f"{b_m} qt"] = fused_decode.walk_of(b_m, cw)
+    geom = {"256 ec": (256, 512), f"{b_m} ec": (b_m, cw), "256 qt": (256, cw_q),
+            f"{b_m} qt": (b_m, cw)}
+    lib_walks = {k: "words" if build.lib().dctz_fused_decode_dpk_word_walk(*geom[k])
+                 else "lanes" for k in walks}
+    require(lib_walks == walks, f"M: the library's instantiations {lib_walks} differ "
+                                f"from walk_of's {walks}")
+    del x_mqr, x_mq64, x_mq64r, st_q64, arr_q64
     emit("kernel_check", kernel="fused_decode_dpk", bit_equal_to_c_d=True,
          round_trip_max_err=rt_err, bound=tol_bench, tile=b_m,
          tile_exc_peak=int(st_j[3].max()), qt_input="x30", qt_chunk_width=cw_q,
          qt_peaks=qt_peaks, qt_capacities=[arr_q[2].shape[1], arr_q[4].shape[1]],
          qt_entries_above_1=int((qt_e[1:] > 1.0).sum()),
          qt_bit_equal_to_c_d=bool(torch.equal(x_mq.view(torch.int32), x_cdq.view(torch.int32))),
-         over_budget=over_mq, over_budget_vs_c_d=over_cdq, max_abs_err=err_m)
+         over_budget=over_mq, over_budget_vs_c_d=over_cdq, max_abs_err=err_m,
+         equal_to_ref=True, ref_equal_to_c_d=True, instantiations=walks,
+         checks={"M_ref = C + D, C + D-QT": "the tiled inverse transform "
+                 "(csrc/dct_tile.cuh: D, D-QT, M) against the per-thread one "
+                 "(common.cuh:inverse_dct: M_ref)",
+                 "M = M_ref": "M's word walk and tiled transform against the per-byte "
+                 "unpacking, ballot walk and per-thread transform"})
     require(over_mq == 0 and over_cdq == 0, "M-QT: beyond D's budget")
     require(torch.equal(x_mq.view(torch.int32), x_cdq.view(torch.int32)),
             "M-QT: differs from C + D-QT")
@@ -1102,10 +1181,7 @@ def main() -> int:
     # wrapper's CUDA-event time of the table above
     event_ms = {r["name"]: r["ms"] for r in rows_out}
     report["kernel_device_time"] = {}
-    for name in TILE_KERNELS:
-        symbol = ("qtable_qmax_kernel" if name == "qtable_qmax"
-                  else name.removesuffix("_qt") + ("_kernel<true>" if name.endswith("_qt")
-                                                   else "_kernel<false>"))
+    for name, symbol in DEVICE_TIME.items():
         dev_ms = profiled_kernel_ms(timed[name][0], symbol, REPS)
         emit("kernel_device_time", card=card, kernel=name, event_ms=event_ms[name], **dev_ms)
         report["kernel_device_time"][name] = {"event_ms": event_ms[name], **dev_ms}
@@ -1126,7 +1202,13 @@ def main() -> int:
         "F + pack_ids (H) + H": f_pack_h,
         "M fused_decode_dpk": lambda: fused_decode.fused_decode_dpk(
             w_l, pk_l, exc_l, dc_l, ac_l, sf, n_pad, 256, 512, cfg),
+        f"M fused_decode_dpk at tile {b_m}": lambda: fused_decode.fused_decode_dpk(
+            *arr_j, sf, n_pad, b_m, cw, cfg),
         "C + D": lambda: fk.decode_fused(w_l, pk_l, exc_l, ac_l, dc_l, sf, cfg, 512, n_pad),
+        "L_ref (card-only reference)": lambda: _ref.fused_encode_dpk_ref(
+            xp, sf, cfg.error_bound),
+        "M_ref (card-only reference)": lambda: _ref.fused_decode_dpk_ref(
+            w_l, pk_l, exc_l, dc_l, ac_l, sf, n_pad, 256, 512, cfg),
     }
     order = list(pairs) + list(reversed(pairs))
     runs: dict = {k: [] for k in pairs}

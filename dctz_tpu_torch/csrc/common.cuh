@@ -27,7 +27,7 @@ __device__ __forceinline__ float center_of(int id, float w) {
 }
 
 // Zigzag bin id of an in-range value v: (v - rmin) / w truncated, clamped to
-// the bins (kernel L; the tiled kernels bin through dct_tile.cuh:ac_bin).
+// the bins (kernel L_ref; the tiled kernels bin through dct_tile.cuh:ac_bin).
 __device__ __forceinline__ int bin_of(float v, float rmin, float w) {
   int lin = __float2int_rz((v - rmin) / w);
   lin = min(max(lin, 0), NBINS - 1);
@@ -47,7 +47,7 @@ __device__ __forceinline__ float scale_block(const float* __restrict__ xr,
 }
 
 // Forward DCT-II of one block, coef[k] = sum_m xs[m] * B[k][m] as an fmaf
-// chain in index order, handed to emit(k, coef[k]). Kernel L runs it; the
+// chain in index order, handed to emit(k, coef[k]). Kernel L_ref runs it; the
 // tiled transform of kernels A, E, F and G (dct_tile.cuh) computes the same
 // chains, so L = F -> pack_ids -> H holds that header against this one.
 template <class Emit>
@@ -64,7 +64,7 @@ __device__ __forceinline__ void forward_dct(const float (&xs)[BS],
 
 // Inverse DCT of one block held in registers, written over its shared-memory
 // row: cr[m] = (sum_k c[k] * B[k][m]) * sf, an fmaf chain in index order.
-// Kernel M runs it; kernel D's tiled transform (dct_tile.cuh) computes the
+// Kernel M_ref runs it; kernel D's tiled transform (dct_tile.cuh) computes the
 // same chains, so M at tile 256 decodes C+D's bits.
 __device__ __forceinline__ void inverse_dct(const float (&c)[BS],
                                             const float* __restrict__ sB,

@@ -41,8 +41,8 @@
 // Bit-exactness: the coefficients are those of kernel A (the same staging,
 // basis layout and fmaf chains of dct_tile.cuh), so F equals A with verify
 // off at every AC id and at the DC and the escapes, and G equals A-QT;
-// kernel L's per-thread transform (common.cuh:forward_dct) is the
-// independent check of that header (L = F -> pack_ids -> H). No TF32 and no
+// kernel L_ref's per-thread transform (common.cuh:forward_dct) is the
+// independent check of that header (L_ref = F -> pack_ids -> H). No TF32 and no
 // --use_fast_math: x/sf and (v - rmin)/w are IEEE divisions.
 
 #include "dct_tile.cuh"

@@ -43,7 +43,7 @@
 // Bit-exactness: every coefficient is fmaf(xs[m], B[k][m], c) from 0.f over
 // m = 0..63 in order with xs[m] = x[m] / sf an IEEE division, and every
 // reconstructed sample the k-order chain times sf, as common.cuh's
-// forward_dct / inverse_dct (kernels L and M) compute them. No TF32 and
+// forward_dct / inverse_dct (kernels L_ref and M_ref) compute them. No TF32 and
 // no --use_fast_math; (v - rmin) / w and the QT renormalization are IEEE.
 //
 // The L2 screen gates the exact check per DCT block (the TPU kernel gates per

@@ -12,8 +12,9 @@
 // The arithmetic is that of common.cuh:forward_dct / inverse_dct: every
 // output is one fmaf chain from 0.f over r = 0..63 in index order. Only the
 // mapping of chains to threads differs, so the results are bit-equal to the
-// per-thread helpers that kernels L and M keep: L = F -> pack_ids -> H and
-// M = C + D are the checks of this header against an independent transform.
+// per-thread helpers that the card-only references L_ref and M_ref keep
+// (fused_encode_dpk_ref.cu, fused_decode_dpk_ref.cu): L_ref = F -> pack_ids
+// -> H and M_ref = C + D are the checks of this header against an independent transform.
 //
 // The forward kernels share their front end: persistent CTAs that load the
 // next tile's samples with cp.async (load_tile_async) while they transform

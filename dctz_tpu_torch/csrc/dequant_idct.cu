@@ -28,7 +28,7 @@
 //   and __launch_bounds__(256, 4) (at most 64 registers) let four CTAs
 //   share an SM.
 // Every sample is fmaf(c[k], B[k][m], s) from 0.f over k = 0..63 in order,
-// times sf, as common.cuh:inverse_dct computes it (kernel M at tile 256
+// times sf, as common.cuh:inverse_dct computes it (kernel M_ref at tile 256
 // decodes the same bits). No TF32 and no tensor cores.
 //
 // A container that stores its true length (the JAX package's XLA chain

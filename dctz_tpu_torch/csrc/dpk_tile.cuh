@@ -1,10 +1,10 @@
-// The DPK tile stages of kernel L (fused_encode_dpk.cu): width selection,
-// bit packing and the chunk-row compaction of exception bytes and AC
-// escapes, on a tile of 256 DCT blocks whose ids a CUDA block of 256 threads
-// holds in shared memory, a byte per element. Kernel B (dpk_pack_compact.cu)
-// ran these stages until it moved to word-wide stages of its own; L keeps
-// them, so that it stays an implementation independent of B's, which
-// chip_smoke.py holds B to.
+// The per-byte DPK tile stages of kernel L_ref (fused_encode_dpk_ref.cu, the
+// card-only reference): width selection, bit packing and the chunk-row
+// compaction of exception bytes and AC escapes, on a tile of 256 DCT blocks
+// whose ids a CUDA block of 256 threads holds in shared memory, a byte per
+// element. Kernels B and L run the word-wide stages of dpk_stages.cuh
+// instead; L_ref keeps these, so that it stays an implementation independent
+// of theirs, which chip_smoke.py holds B and L to.
 //
 // The ids sit there twice: block-major (sId, TILE_N bytes, masked: 0 at the
 // DC column and at padding) for the chunk rows, and as a tile-major copy of

@@ -27,7 +27,7 @@
 //
 // Bit-exactness: the coefficients are those of kernel A (the same staging,
 // basis layout and fmaf chains of dct_tile.cuh), so the maxima are taken
-// over the very coefficients A bins; kernel L's per-thread transform
+// over the very coefficients A bins; kernel L_ref's per-thread transform
 // (common.cuh:forward_dct) is the independent check of that header. Zero
 // padding past n_pad (load_tile_async fills zeros) bins in range and adds
 // nothing. The clamp to >= 1.0 is glue in the wrapper

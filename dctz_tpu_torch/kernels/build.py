@@ -89,7 +89,14 @@ SIGNATURES = {
     # ncc, b, cw, cape, capc, w, rmin, rmax, denom, qt, out, stream
     "dctz_fused_decode_dpk": [P, P, P, P, P, P, P, P, I64, I64, I64, I32, I32,
                               I32, I32, F32, F32, F32, F32, I32, P, P],
+    # b, cw: 1 where M takes its word walk, 0 where its lane walk
+    "dctz_fused_decode_dpk_word_walk": [I32, I32],
 }
+#: the card-only references of L and M (csrc/*_ref.cu): the same arguments
+#: as the kernels they check; only ops/research/_ref.py calls them
+REFERENCES = ("fused_encode_dpk_ref", "fused_decode_dpk_ref")
+SIGNATURES.update({f"dctz_{k}": SIGNATURES[f"dctz_{k.removesuffix('_ref')}"]
+                   for k in REFERENCES})
 #: kernels whose resident CTAs per SM at their launch configuration the
 #: library reports (dctz_ctas_per_sm_<name>, no arguments)
 OCCUPANCY = ("qtable_qmax", "dct_quant_verify", "dct_quant_verify_qt",
@@ -97,7 +104,7 @@ OCCUPANCY = ("qtable_qmax", "dct_quant_verify", "dct_quant_verify_qt",
              "dequant_idct_qt", "dct_quant", "dct_quant_qt", "chunk_compact",
              "chunk_expand", "chunk_compact_unified", "chunk_compact_bytes",
              "fused_encode_dpk", "fused_decode_dpk")
-SIGNATURES.update({f"dctz_ctas_per_sm_{k}": [] for k in OCCUPANCY})
+SIGNATURES.update({f"dctz_ctas_per_sm_{k}": [] for k in OCCUPANCY + REFERENCES})
 
 
 def nvcc() -> str:

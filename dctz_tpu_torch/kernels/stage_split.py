@@ -1,5 +1,5 @@
-"""Where kernels B, C, E and F spend their time: each timed whole and with
-one stage cut out at a time.
+"""Where kernels B, C, E, F, L and M spend their time: each timed whole and
+with one stage cut out at a time.
 
     python -m dctz_tpu_torch.kernels.stage_split [--csrc DIR] [--out FILE]
 
@@ -11,9 +11,10 @@ events, in rounds over all variants, on the inputs the main path gives it:
 32Mi samples of the bench array, EC at eb 1e-3, cw 512. B takes the ids and
 values of kernel A's plain version at exception capacity 128; C takes B's
 plain streams cut to the decode's capacity tiers; E takes the bench array
-with every 977th sample x30 (the QT input of chip_smoke.py), F the bench
-array. The kernels come in groups (B and C; E and F), each with its cut
-sets, oldest first; a group's cuts are those of its first set whose every
+with every 977th sample x30 (the QT input of chip_smoke.py), F and L the bench
+array, M the streams B's plain version codes from it (tile 256). The
+kernels come in groups (B and C; E and F; L and M), each with its cut sets,
+oldest first; a group's cuts are those of its first set whose every
 edit finds its text. A cut variant computes wrong results on purpose, and
 only its time is read. Prints one JSON line per kernel and variant. Needs a
 CUDA card and nvcc.
@@ -39,6 +40,7 @@ ROUNDS = 3
 
 B_SRC, C_SRC = "dpk_pack_compact.cu", "dpk_unpack_expand.cu"
 E_SRC, F_SRC = "qtable_qmax.cu", "dct_quant.cu"
+L_SRC, M_SRC = "fused_encode_dpk.cu", "fused_decode_dpk.cu"
 
 #: B and C's cut sets: name -> {variant: (source, [(old text, new text),
 #: ...])}. "byte_stages": B on the per-byte stages of dpk_tile.cuh, C with
@@ -112,6 +114,19 @@ BC_CUTS = {
             "      int ecarry = 0, acarry")]),
     },
 }
+#: "shared_stages": B on the stages of dpk_stages.cuh, which L shares (C as
+#: in "word_stages"); no_ac_walk: the walk of the exception bytes alone, as
+#: L runs it
+BC_CUTS["shared_stages"] = {
+    "B no_pack": (B_SRC, [(
+        "    stages::pack_tile(s.st, tid, a.packed_out + t * BS * 128);\n", "")]),
+    "B no_walk": (B_SRC, [(
+        "    stages::walk_exceptions<true>(raw,",
+        "    if (a.cw < 0) stages::walk_exceptions<true>(raw,")]),
+    "B no_ac_walk": (B_SRC, [(
+        "stages::walk_exceptions<true>(raw,", "stages::walk_exceptions<false>(raw,")]),
+    "B no_dc": BC_CUTS["word_stages"]["B no_dc"],
+} | {k: v for k, v in BC_CUTS["word_stages"].items() if k.startswith("C ")}
 
 #: E and F's cut sets. "per_thread": one thread per DCT block on
 #: common.cuh:forward_dct (E's fold in shared atomics, F's coefficients
@@ -165,8 +180,60 @@ EF_CUTS = {
              "    *reinterpret_cast<uint4*>(ids_out + gi)")]),
     },
 }
+#: L and M's cut sets. "per_thread": one thread per DCT block on
+#: common.cuh's transforms (the kernels the card-only references keep),
+#: their transforms cut; "tiled": the kernels on dct_tile.cuh,
+#: dpk_stages.cuh and dpk_walk.cuh. L: transform_only (staging and product;
+#: no epilogue, escape walk or tile stages), no_transform, no_stages (no
+#: widths, packing or exception walk), no_store (the sub-tile loop's DC and
+#: AC-row stores). M: transform_only (the packed rows staged and the
+#: product, no walk), no_transform, no_store, walk_only (the walk alone:
+#: neither product nor store).
+_M_STAGED = ("#pragma unroll\n      for (int i = 0; i < 16; ++i) "
+             "acc[i >> 2][i & 3] = s.ct[tid + THREADS * i];\n")
+M_NO_PRODUCT = ("      tile_product<false>(s.ct, s.basis, hi, lo, acc);\n", _M_STAGED)
+M_NO_STORE = ("        if (bl < nb && gblk < a.nblk)\n          st4(a.out",
+              "        if (bl < nb && gblk < a.nblk && acc[bi][0] == 1234.5f)\n"
+              "          st4(a.out")
+L_NO_STAGES = ("    // B's word-wide stages on the tile's ids\n",
+               "    // B's word-wide stages on the tile's ids\n    continue;\n")
+LM_CUTS = {
+    "per_thread": {
+        "L no_transform": (L_SRC, [(
+            "    forward_dct(xs, sB, [&](int k, float c) { row[k] = c; });",
+            "    for (int k = 0; k < BS; ++k) row[k] = xs[k];")]),
+        "M no_transform": (M_SRC, [(
+            "    inverse_dct(c, sB, sf, cr);",
+            "    for (int m = 0; m < BS; ++m) cr[m] = c[m] * sf;")]),
+    },
+    "tiled": {
+        "L transform_only": (L_SRC, [
+            ("      store_subtile(acc, j, hi, lo, g, s, dc_out + t * TILE_B);",
+             "      " + _ACC_SUM.replace("\n      ", "\n        ")
+             + "        if (s == 1234.5f) dc_out[t * TILE_B] = s;\n      }"),
+            ("      walk_escapes(s, wk, j, wid, full, valid, ac_out + t * NC * CAP, "
+             "ac_cnt + t * NC);\n", ""),
+            L_NO_STAGES]),
+        "L no_transform": (L_SRC, [(
+            "      tile_product<true>(s.t, s.bt, hi, lo, acc);\n",
+            "#pragma unroll\n      for (int i = 0; i < 16; ++i) "
+            "acc[i >> 2][i & 3] = s.t[tid + THREADS * i];\n")]),
+        "L no_stages": (L_SRC, [L_NO_STAGES]),
+        "L no_store": (L_SRC, [
+            ("    if (lo == 0) dc_tile[TB * j + b] = acc[bi][0];",
+             "    if (lo == 0 && acc[bi][0] == 1234.5f) dc_tile[TB * j + b] = acc[bi][0];"),
+            ("      arow[rank] = q == 0 ? kv[k].x", "      if (rank < 0) arow[rank] = q == 0 ? kv[k].x"),
+            ("  stages::zero_floats(arow, min(run, CAP), CAP, wk, true);\n", "")]),
+        "M transform_only": (M_SRC, [(
+            "        walk_words(s, a, wk, t, u0, nb, wid, ecarry, acarry);\n", "        ;\n")]),
+        "M no_transform": (M_SRC, [M_NO_PRODUCT]),
+        "M no_store": (M_SRC, [M_NO_STORE]),
+        "M walk_only": (M_SRC, [M_NO_PRODUCT, M_NO_STORE]),
+    },
+}
 #: the kernel groups: group -> (the sources timed whole, the cut sets)
-GROUPS = {"B, C": ((B_SRC, C_SRC), BC_CUTS), "E, F": ((E_SRC, F_SRC), EF_CUTS)}
+GROUPS = {"B, C": ((B_SRC, C_SRC), BC_CUTS), "E, F": ((E_SRC, F_SRC), EF_CUTS),
+          "L, M": ((L_SRC, M_SRC), LM_CUTS)}
 
 
 
@@ -215,8 +282,8 @@ def _build(csrc: pathlib.Path, sets: dict, root: pathlib.Path) -> dict:
 
 
 def _inputs(torch):
-    """Kernel B's, C's, E's and F's arguments at the main path's shapes
-    (B and C from the plain versions on the card)."""
+    """Kernel B's, C's, E's, F's, L's and M's arguments at the main path's
+    shapes (B, C and M from the plain versions on the card)."""
     from ..config import CodecConfig
     from ..core import quantize as qz
     from ..core import transform
@@ -232,7 +299,7 @@ def _inputs(torch):
     tol = fused_encode.tolerance(x, N, cfg.error_bound)
     ids, vals, _ok = fk._dct_quant_verify_plain(x, sf, tol, N, cfg, True)
     nblk = N // 64
-    width, packed, exc, exc_n, ac, ac_n, _dc = fk._dpk_pack_compact_plain(ids, vals, N, CAPE)
+    width, packed, exc, exc_n, ac, ac_n, dc_b = fk._dpk_pack_compact_plain(ids, vals, N, CAPE)
     tier = lambda peak: next(c for c in (32, 64, 128, CW) if c >= min(peak, CW))  # noqa: E731
     cape, capc = tier(int(exc_n.max())), tier(int(ac_n.max()))
     exc_t, ac_t = exc[:, :cape].contiguous(), ac[:, :capc].contiguous()
@@ -261,12 +328,22 @@ def _inputs(torch):
     dcac_f = torch.empty((nblk, 64), dtype=torch.float32, device=dev)
     f_args = (x.data_ptr(), basis.data_ptr(), sf1.data_ptr(), N, rmin, rmax, w,
               ids_f.data_ptr(), dcac_f.data_ptr())
-    keep = (ids, vals, width, packed, exc_t, ac_t, outs_b, ids_c, acv_c, basis, xq,
-            sf1, sf_q1, bits, ids_f, dcac_f)
+    outs_l = [torch.empty_like(o) for o in outs_b]
+    l_args = (x.data_ptr(), basis.data_ptr(), sf1.data_ptr(), N, rmin, rmax, w,
+              *(o.data_ptr() for o in outs_l))
+    out_m = torch.empty((N,), dtype=torch.float32, device=dev)
+    m_args = (width.data_ptr(), packed.data_ptr(), exc_t.data_ptr(), ac_t.data_ptr(),
+              dc_b.data_ptr(), basis.data_ptr(), sf1.data_ptr(), None, nblk,
+              exc_t.shape[0], ac_t.shape[0], 256, CW, cape, capc, w, rmin, rmax, 1.0, 0,
+              out_m.data_ptr())
+    keep = (ids, vals, width, packed, exc_t, ac_t, dc_b, outs_b, ids_c, acv_c, basis, xq,
+            sf1, sf_q1, bits, ids_f, dcac_f, outs_l, out_m)
     return {B_SRC: ("dctz_dpk_pack_compact", b_args),
             C_SRC: ("dctz_dpk_unpack_expand", c_args),
             E_SRC: ("dctz_qtable_qmax", e_args),
-            F_SRC: ("dctz_dct_quant", f_args)}, {"cape": cape, "capc": capc}, keep
+            F_SRC: ("dctz_dct_quant", f_args),
+            L_SRC: ("dctz_fused_encode_dpk", l_args),
+            M_SRC: ("dctz_fused_decode_dpk", m_args)}, {"cape": cape, "capc": capc}, keep
 
 
 def main() -> int:

@@ -3,12 +3,15 @@ dctz_tpu/ops/research/fused_decode.py).
 
 DPK streams to samples in one launch (csrc/fused_decode_dpk.cu): unpack at
 tile b, exception and AC expansion, dequantization (EC, or QT through the
-container's qtable), inverse DCT and unscale, with the tile in shared
-memory. At b = 256 in EC it decodes the bits of kernels C + D
-(ops/dpk_fuse.decode_fused). Nothing in api calls it.
+container's qtable), inverse DCT and unscale, 64 blocks at a time in shared
+memory. At b = 256 it decodes the bits of kernels C + D (EC) and C + D-QT
+(QT) (ops/dpk_fuse.decode_fused). walk_of says which of its two
+instantiations a geometry takes. Nothing in api calls it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -21,7 +24,7 @@ from .. import compaction as cp
 from .. import dpk_fuse, idpack
 
 BS = 64  # DCT block size (container invariant)
-MAX_B = 256  # kernel M: one thread per block of the tile, one CUDA block per tile
+MAX_B = 256  # kernel M: blocks per tile, at most
 _LO = 16  # capacities are multiples of the JAX kernel's 16-wide rank digit
 
 def _is_f32(dtype) -> bool:
@@ -46,6 +49,14 @@ def eligible(work_dtype, bs: int, b: int, cw: int, cape: int, capc: int) -> bool
         and cape % _LO == 0
         and capc % _LO == 0
     )
+
+
+def walk_of(b: int, cw: int) -> str:
+    """Which instantiation of kernel M decodes tile b at chunk width cw:
+    "words", the 512-sample warp steps of csrc/dpk_walk.cuh (b a multiple of
+    8, cw a power of two), else "lanes", one warp per chunk row ranking 32
+    samples a step (csrc/fused_decode_dpk.cu:word_walk)."""
+    return "words" if b % 8 == 0 and cw >= BS and cw & (cw - 1) == 0 else "lanes"
 
 
 def _pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
@@ -89,6 +100,15 @@ def fused_decode_dpk(width, packed, exc_rows, dc, ac_rows, sf, n_stream: int,
     cfg.mode == "qt" and a qtable is given. Returns flat float32
     (n_stream,). Raises ValueError for a geometry that eligible() refuses
     and, on the card, for a tile of more than MAX_B blocks."""
+    return _decode(width, packed, exc_rows, dc, ac_rows, sf, n_stream, b, cw, cfg,
+                   qtable, functools.partial(dpk_fuse._launch, "fused_decode_dpk"))
+
+
+def _decode(width, packed, exc_rows, dc, ac_rows, sf, n_stream, b, cw, cfg, qtable,
+            launch):
+    """fused_decode_dpk with `launch(*args)` as the card's kernel: kernel
+    M's C entry point, or its card-only reference's (ops/research/_ref.py),
+    bound to its name. CPU tensors take the plain version."""
     if n_stream % BS:
         raise ValueError(f"n_stream {n_stream} is not a multiple of {BS}")
     cape, capc = exc_rows.shape[1], ac_rows.shape[1]
@@ -103,14 +123,15 @@ def fused_decode_dpk(width, packed, exc_rows, dc, ac_rows, sf, n_stream: int,
         return _fused_decode_dpk_plain(width, packed, exc_rows, dc, ac_rows, sf,
                                        n_stream, b, cw, cfg, qtable)
     if b > MAX_B:
-        raise ValueError(f"tile of {b} blocks does not fit one CUDA block: "
-                         f"kernel M takes at most {MAX_B} blocks per tile")
+        raise ValueError(f"tile of {b} blocks: kernel M takes at most {MAX_B} "
+                         f"blocks per tile")
     nblk = n_stream // BS
     t = width.shape[0]
     width = width.to(torch.uint8).contiguous()
     ac_rows = ac_rows.to(torch.float32).contiguous()
     dc = dc.to(torch.float32).contiguous()
     dpk_fuse._check(packed, torch.uint8, "packed")
+    packed = dpk_fuse._aligned16(packed)  # M reads its rows in 32-bit words
     dpk_fuse._check(exc_rows, torch.uint8, "exc_rows")
     if (width.shape[1:] != (BS,) or packed.shape != (t * BS, b // 2)
             or t * b < nblk or dc.shape[0] < nblk
@@ -125,8 +146,8 @@ def fused_decode_dpk(width, packed, exc_rows, dc, ac_rows, sf, n_stream: int,
     q32 = dpk_fuse._qtable32(qtable) if qt_mode else None
     sf32 = sf.reshape(1).to(torch.float32).contiguous()
     basis = transform.dct2_basis(BS, dev)
-    dpk_fuse._launch(
-        "fused_decode_dpk", width.data_ptr(), packed.data_ptr(),
+    launch(
+        width.data_ptr(), packed.data_ptr(),
         exc_rows.data_ptr(), ac_rows.data_ptr(), dc.data_ptr(), basis.data_ptr(),
         sf32.data_ptr(), None if q32 is None else q32.data_ptr(), nblk,
         exc_rows.shape[0], ac_rows.shape[0], b, cw, cape, capc, w, rmin, rmax,

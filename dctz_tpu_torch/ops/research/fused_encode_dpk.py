@@ -11,6 +11,8 @@ capc 128, byte for byte. Nothing in api calls it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...config import CodecConfig
@@ -50,6 +52,14 @@ def fused_encode_dpk(x: torch.Tensor, sf: torch.Tensor, error_bound: float):
     ac_counts (n/512,) i32, dc (n/64,) f32) with T = ceil(n / 16384): the
     tail tile is zero-padded. Counts are the true, unclipped ones; AC rows
     keep each chunk row's first 128 escapes."""
+    return _encode(x, sf, error_bound,
+                   functools.partial(dpk_fuse._launch, "fused_encode_dpk"))
+
+
+def _encode(x: torch.Tensor, sf: torch.Tensor, error_bound: float, launch):
+    """fused_encode_dpk with `launch(*args)` as the card's kernel: kernel
+    L's C entry point, or its card-only reference's (ops/research/_ref.py),
+    bound to its name. CPU tensors take the plain version."""
     n = x.shape[0]
     if x.dim() != 1 or n % 1024:
         raise ValueError(f"x must be flat with a length that is a multiple of "
@@ -57,6 +67,7 @@ def fused_encode_dpk(x: torch.Tensor, sf: torch.Tensor, error_bound: float):
     if not dpk_fuse._on_cuda(x, sf):
         return _fused_encode_dpk_plain(x, sf, error_bound)
     dpk_fuse._check(x, torch.float32, "x")
+    x = dpk_fuse._aligned16(x)
     w, rmin, rmax = qz._geometry(CodecConfig(error_bound=error_bound))
     t = -(-n // (B * BS))
     nc, nblk = n // CW, n // BS
@@ -70,9 +81,8 @@ def fused_encode_dpk(x: torch.Tensor, sf: torch.Tensor, error_bound: float):
     dc = torch.empty((t * B,), dtype=torch.float32, device=dev)
     sf32 = sf.reshape(1).to(torch.float32).contiguous()
     basis = transform.dct2_basis(BS, dev)
-    dpk_fuse._launch("fused_encode_dpk", x.data_ptr(), basis.data_ptr(),
-                     sf32.data_ptr(), n, rmin, rmax, w, width.data_ptr(),
-                     packed.data_ptr(), exc.data_ptr(), ac.data_ptr(),
-                     exc_counts.data_ptr(), ac_counts.data_ptr(), dc.data_ptr())
+    launch(x.data_ptr(), basis.data_ptr(), sf32.data_ptr(), n, rmin, rmax, w,
+           width.data_ptr(), packed.data_ptr(), exc.data_ptr(), ac.data_ptr(),
+           exc_counts.data_ptr(), ac_counts.data_ptr(), dc.data_ptr())
     return (width, packed, exc[:nc], exc_counts[:nc], ac[:nc], ac_counts[:nc],
             dc[:nblk])

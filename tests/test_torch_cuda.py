@@ -199,20 +199,21 @@ def test_kernels_c_d_match_plain(dev, n):
 
 def test_kernel_b_equals_l(dev):
     """On the bench array, B on kernel A's output (verify off; A equals F
-    bit for bit) gives L's width, packed, exception rows, exception counts
-    and DC, and its AC streams too where no chunk row holds more than 128
-    exceptions. L keeps the per-byte stages of dpk_tile.cuh."""
+    bit for bit) gives L_ref's width, packed, exception rows, exception
+    counts and DC, and its AC streams too where no chunk row holds more than
+    128 exceptions. L_ref, the card-only reference, keeps the per-byte
+    stages of dpk_tile.cuh (L shares B's)."""
     from dctz_tpu_torch import api
     from dctz_tpu_torch.ops import dpk_fuse as fk
     from dctz_tpu_torch.ops import fused_encode as fe
-    from dctz_tpu_torch.ops.research import fused_encode_dpk as fed
+    from dctz_tpu_torch.ops.research import _ref
 
     n = 5 * TILE_N - 1024
     x = torch.from_numpy(_bench(n)).to(dev)
     sf, _ = api._stats_device(x, n, 1)
     ids, vals, _ok = fk.dct_quant_verify(x, sf, fe.tolerance(x, n, 1e-3), n, 1e-3, False)
     got = fk.dpk_pack_compact(ids, vals, n, 128, 512)
-    ref = fed.fused_encode_dpk(x, sf, 1e-3)
+    ref = _ref.fused_encode_dpk_ref(x, sf, 1e-3)
     for i in (0, 1, 2, 3):
         assert torch.equal(got[i], ref[i]), i
     assert bool((got[6] == ref[6]).all())
@@ -310,7 +311,9 @@ def test_kernel_e_matches_plain(dev, n, kind):
     """E's maxima are taken over the coefficients kernel A computes: bit-equal
     to the clamped max over A-EC's own output, within 4 ulp of the plain
     version (a torch matmul). On the x30 input, where every escape position
-    folds across many blocks ("one_position"), and on a misaligned view."""
+    folds across many blocks ("one_position"), and on a misaligned view.
+    The plain version runs on the CPU copy of the input: its sums follow the
+    kernel's fmaf order there, which the card's matmul does not."""
     from dctz_tpu_torch import api
     from dctz_tpu_torch.config import CodecConfig
     from dctz_tpu_torch.ops import dpk_fuse as fk
@@ -323,9 +326,12 @@ def test_kernel_e_matches_plain(dev, n, kind):
     assert fk.LAUNCHES["qtable_qmax"] == 1
     if kind == "one_position":
         assert torch.argmax(got).item() == ONE_K and got[ONE_K].item() > 1.0
-    plain = fe._qtable_qmax_plain(xp, sf, CodecConfig(mode="qt", error_bound=1e-3))
+    # the plain version on the CPU, whose float32 sums follow the kernel's
+    # fmaf order (the card's matmul sums in another order)
+    plain = fe._qtable_qmax_plain(xp.cpu(), sf.cpu(), CodecConfig(mode="qt", error_bound=1e-3))
     plain = torch.clamp_min(plain, 1.0)
-    ulps = (got - plain).abs() / torch.maximum(got, plain) * 2.0**23
+    got_c = got.cpu()
+    ulps = (got_c - plain).abs() / torch.maximum(got_c, plain) * 2.0**23
     assert ulps.max().item() <= 4
     from dctz_tpu_torch.core import quantize as qz
 
@@ -892,3 +898,187 @@ def test_kernel_m_qt_equals_c_d_qt_at_tile_256(dev):
     assert fk.LAUNCHES["fused_decode_dpk"] == 1
     ref = fk.decode_fused(st[0], st[1], st[2], st[4], st[6], sf, cfg, cw, n, q)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+# Kernels L and M against their card-only references L_ref and M_ref
+# (csrc/*_ref.cu, ops/research/_ref.py), which keep the per-thread
+# transforms of common.cuh and the per-byte DPK stages.
+
+#: lengths for L: one tile, a ragged last tile whose last 64-block sub-tile
+#: is partial (3 of its 4 KB), sixteen tiles, and a last sub-tile of 1 KB
+L_LENGTHS = [TILE_N, 5 * TILE_N - 1024, 16 * TILE_N, 2 * TILE_N + 1024]
+
+
+@pytest.mark.parametrize("n", L_LENGTHS)
+def test_kernel_l_equals_ref(dev, n):
+    """L equals L_ref bit for bit on all seven streams, and L_ref equals F,
+    then pack_ids (kernel H) at cape 128, then H of F's escapes (the check of
+    the tiled forward transform against the per-thread one). Only L's launch
+    counts."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+    from dctz_tpu_torch.ops import idpack, shuffle
+    from dctz_tpu_torch.ops.research import _ref
+    from dctz_tpu_torch.ops.research import fused_encode_dpk as fed
+
+    x = torch.from_numpy(_bench(n)).to(dev)
+    sf, _ = api._stats_device(x, n, 1)
+    fk.reset_launches()
+    got = fed.fused_encode_dpk(x, sf, 1e-3)
+    ref = _ref.fused_encode_dpk_ref(x, sf, 1e-3)
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fused_encode_dpk": 1}
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == r.dtype and g.shape == r.shape, i
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                           r.view(torch.int32) if r.dtype == torch.float32 else r), i
+    ids, dcac = fe.dct_quant(x, sf, 1e-3)
+    chain = idpack.pack_ids(ids, n, 256, 128)[:4]
+    esc = (ids == 255) & (torch.arange(64, device=dev) > 0)
+    chain += shuffle.compact_f32(esc.reshape(-1, 512), dcac.reshape(-1, 512), 128)
+    chain += (dcac[:, 0],)
+    for i, (r, c) in enumerate(zip(ref, chain)):
+        assert torch.equal(r, c) if i != 6 else bool((r == c).all()), i
+
+
+def _decode_case_at(dev, b, cw, nblk, mode, seed):
+    """Decode inputs at tile b and chunk width cw over nblk blocks (nblk * 64
+    a multiple of cw): widths and packing of idpack._code_tiles, the
+    exception bytes and the AC values of out-of-range samples compacted per
+    chunk row at capacity 128 (rows past it keep their first 128), the
+    exception rows cut to the smallest tier that holds the peak."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops import compaction as cp
+    from dctz_tpu_torch.ops import idpack
+
+    rng = np.random.default_rng(seed)
+    ids, _ = _ids(rng, nblk, 0.02)
+    n = nblk * 64
+    w, pk, ids_i, mask = idpack._code_tiles(torch.from_numpy(ids), n, b)
+    exc, cnt = cp.compact_rows(mask.reshape(-1, cw), ids_i.to(torch.uint8).reshape(-1, cw), 128)
+    cape = next(c for c in (32, 64, 128) if c >= min(int(cnt.max()), 128))
+    esc = torch.from_numpy((ids == 255) & (np.arange(64) >= 1))
+    dense = torch.from_numpy((rng.standard_normal((nblk, 64)) * 3 + 1.0).astype(np.float32))
+    ac, _acn = cp.compact_rows(esc.reshape(-1, cw), dense.reshape(-1, cw), 128)
+    dc = torch.from_numpy((rng.standard_normal(nblk) * 10).astype(np.float32))
+    q = (torch.from_numpy(np.abs(rng.standard_normal(64)).astype(np.float32) + 1.0)
+         if mode == "qt" else None)
+    arrays = [a.contiguous().to(dev) for a in (w.to(torch.uint8), pk, exc[:, :cape], dc, ac)]
+    cfg = dz.CodecConfig(mode=mode, error_bound=1e-3)
+    return arrays, n, cfg, None if q is None else q.to(dev)
+
+
+#: (b, cw, blocks, instantiation): tiles 32-256 with a partial tail tile at
+#: cw 512, cw 64-256 and 8192 (rows across the 64-block units), a tile of
+#: 96 (a guarded last unit), and chunk widths that are not powers of two,
+#: which take the lane walk (rows across the units at 384)
+M_GEOMS = [(32, 512, 152, "words"), (64, 512, 304, "words"), (128, 512, 608, "words"),
+           (256, 512, 1216, "words"), (256, 128, 1216, "words"), (256, 256, 1216, "words"),
+           (64, 64, 304, "words"), (256, 8192, 1152, "words"), (128, 8192, 640, "words"),
+           (96, 1024, 432, "words"), (24, 192, 114, "lanes"), (96, 384, 432, "lanes"),
+           (40, 2560, 200, "lanes")]
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("b,cw,nblk,walk", M_GEOMS)
+def test_kernel_m_equals_ref(dev, mode, b, cw, nblk, walk):
+    """M equals M_ref bit for bit, at tiles 24-256, chunk widths 64-8192, EC
+    and QT, with a partial tail tile; the geometry takes the instantiation
+    named (the library agrees with fused_decode.walk_of). Only M's launch
+    counts."""
+    from dctz_tpu_torch.kernels import build
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops.research import _ref
+    from dctz_tpu_torch.ops.research import fused_decode as fd
+
+    assert fd.walk_of(b, cw) == walk
+    assert build.lib().dctz_fused_decode_dpk_word_walk(b, cw) == (walk == "words")
+    arrays, n, cfg, q = _decode_case_at(dev, b, cw, nblk, mode, b * 7 + cw)
+    sf = torch.tensor(37.5, device=dev)
+    fk.reset_launches()
+    got = fd.fused_decode_dpk(*arrays, sf, n, b, cw, cfg, q)
+    ref = _ref.fused_decode_dpk_ref(*arrays, sf, n, b, cw, cfg, q)
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fused_decode_dpk": 1}
+    assert got.shape == ref.shape == (n,)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_kernel_m_qt_equals_ref_on_x30(dev):
+    """M-QT equals M_ref and C + D-QT bit for bit on G's streams of the x30
+    input (qtable entries above 1) coded by B at tile 256, and M_ref equals
+    C + D-QT (the check of the tiled inverse transform in QT)."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+    from dctz_tpu_torch.ops.research import _ref
+    from dctz_tpu_torch.ops.research import fused_decode as fd
+
+    n = 5 * TILE_N - 1024
+    xp = _padded_on(dev, _qt_input(n, 13))
+    sf, _ = api._stats_device(xp, n, 1)
+    q = _qtable(dev, xp, sf)
+    ids, dcac = fe.dct_quant(xp, sf, 1e-3, q)
+    cfg = dz.CodecConfig(mode="qt", error_bound=1e-3)
+    for cw in (512, 256, 128):
+        st = fk.encode_fused(ids, dcac, n, 256, cw, cw)
+        if int(st[3].max()) <= 128 and int(st[5].max()) <= 128:
+            break
+    else:
+        pytest.fail("every chunk width overflows 128")
+    w, pk, exc, ac, dc = (st[0], st[1], st[2][:, :128].contiguous(), st[4][:, :128].contiguous(),
+                          st[6])
+    got = fd.fused_decode_dpk(w, pk, exc, dc, ac, sf, n, 256, cw, cfg, q)
+    ref = _ref.fused_decode_dpk_ref(w, pk, exc, dc, ac, sf, n, 256, cw, cfg, q)
+    chain = fk.decode_fused(st[0], st[1], st[2], st[4], st[6], sf, cfg, cw, n, q)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(ref.view(torch.int32), chain.view(torch.int32))
+
+
+def test_kernel_m_ref_equals_c_d_at_tile_256(dev):
+    """On L's streams of the benchmark array, M_ref decodes C + D's bits
+    (the check of the tiled inverse transform against the per-thread one)."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops.research import _ref
+    from dctz_tpu_torch.ops.research import fused_encode_dpk as fed
+
+    n = 5 * TILE_N - 1024
+    x = torch.from_numpy(_bench(n)).to(dev)
+    sf, _ = api._stats_device(x, n, 1)
+    w, pk, exc, _ec, ac, _acn, dc = fed.fused_encode_dpk(x, sf, 1e-3)
+    cfg = dz.CodecConfig(error_bound=1e-3)
+    ref = _ref.fused_decode_dpk_ref(w, pk, exc, dc, ac, sf, n, 256, 512, cfg)
+    chain = fk.decode_fused(w, pk, exc, ac, dc, sf, cfg, 512, n)
+    assert torch.equal(ref.view(torch.int32), chain.view(torch.int32))
+
+
+def _ptxas_spills(log: str) -> dict:
+    """Spill bytes (stores + loads) per kernel name in nvcc's -Xptxas -v
+    output."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '.*?\d+([a-z_]+)_kernel", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name is not None:
+            out[name] = out.get(name, 0) + int(m.group(1)) + int(m.group(2))
+    return out
+
+
+def test_kernels_l_m_occupancy(dev):
+    """L and M (both instantiations) fit at least 2 resident CTAs per SM
+    and do not spill."""
+    from dctz_tpu_torch.kernels import build
+
+    build.lib()
+    for k in ("fused_encode_dpk", "fused_decode_dpk"):
+        assert build.ctas_per_sm(k) >= 2, k
+    spills = _ptxas_spills(build.PTXAS_LOG.read_text())
+    for k in ("fused_encode_dpk", "fused_decode_dpk", "fused_decode_dpk_lanes"):
+        assert spills.get(k) == 0, (k, spills.get(k))

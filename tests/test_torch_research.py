@@ -271,3 +271,56 @@ def test_research_gates_are_off_by_default():
 
     for mod in (api, stream):
         assert "research" not in inspect.getsource(mod)
+
+
+@pytest.mark.parametrize("b,cw,walk", [(256, 512, "words"), (64, 512, "words"),
+                                       (64, 64, "words"), (256, 8192, "words"),
+                                       (32, 2048, "words"), (96, 1024, "words"),
+                                       (24, 192, "lanes"), (96, 384, "lanes"),
+                                       (6, 128, "lanes")])
+def test_m_instantiation_by_geometry(b, cw, walk):
+    """Kernel M takes its word walk where b is a multiple of 8 and cw a
+    power of two, else its lane walk; every case is a geometry the gate
+    admits."""
+    from dctz_tpu_torch.ops.research import fused_decode as td
+
+    assert td.eligible(torch.float32, 64, b, cw, 128, 128)
+    assert td.walk_of(b, cw) == walk
+
+
+def test_references_take_the_plain_version_on_the_cpu():
+    """The card-only references of L and M (ops/research/_ref.py) take the
+    arguments of the wrappers they check; on CPU tensors both are the plain
+    version."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops.research import _ref
+    from dctz_tpu_torch.ops.research import fused_decode as td
+    from dctz_tpu_torch.ops.research import fused_encode_dpk as ted
+    from dctz_tpu_torch.utils.bench_data import climate_formula_np
+
+    n = TILE_N + 2048
+    x = torch.from_numpy(climate_formula_np(n))
+    sf = torch.tensor(_sf_of(x.numpy()), dtype=torch.float32)
+    got, ref = ted.fused_encode_dpk(x, sf, EB), _ref.fused_encode_dpk_ref(x, sf, EB)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    w, pk, exc, _ec, ac, _acn, dc = got
+    cfg = dz.CodecConfig(error_bound=EB)
+    y = td.fused_decode_dpk(w, pk, exc, dc, ac, sf, n, 256, 512, cfg)
+    assert torch.equal(y, _ref.fused_decode_dpk_ref(w, pk, exc, dc, ac, sf, n, 256, 512, cfg))
+
+
+def test_references_are_off_every_path():
+    """Nothing in the port but ops/research/_ref.py names the reference
+    kernels: chip_smoke.py and the card tests call them, no entry point."""
+    import pathlib
+
+    import dctz_tpu_torch
+
+    root = pathlib.Path(dctz_tpu_torch.__file__).parent
+    for path in root.rglob("*.py"):
+        if path.name in ("_ref.py", "build.py"):
+            continue
+        text = path.read_text()
+        for name in ("fused_encode_dpk_ref", "fused_decode_dpk_ref", "import _ref"):
+            assert name not in text, (path, name)
