@@ -32,9 +32,12 @@ Phases, each printed as one JSON line:
      configuration (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the
      kernels' library; for C the lesser of its two instantiations, the
      staged one at its largest buffers) beside those registers and spills.
-     A, A-QT, B, C (both instantiations), D, D-QT, E, F, G, L and M (both
-     instantiations) must not spill and must fit at least 2 CTAs per SM;
-     the card-only references L_ref and M_ref get occupancy lines too
+     A, A-QT, B, C (both instantiations), D, D-QT, E, F, G, H, J, L and M
+     (C, H, J and M in both instantiations) must not spill, and their first
+     instantiations must fit at least 2 CTAs per SM (H and J's word walks at
+     their largest buffers on the API's paths, every capacity 512); the
+     lane walks of H and J and the card-only references L_ref and M_ref get
+     occupancy lines too
   3. kernels against their plain PyTorch versions on the card, at the main
      paths' shapes. EC input (the bench array): B and C byte-equal, A within
      1e-5 of ids, D within 32 ulp of sf. QT input (the x30 array): E
@@ -49,8 +52,12 @@ Phases, each printed as one JSON line:
      counts beside them). The v1 paths' kernels on the bench array: F
      and G with no id mismatch and DC and stored values within the budget
      (F also equal to A's ids and coefficients), H byte-equal on F's
-     escapes at capacity 128, I byte-equal on the rows the decode of the
-     v1_ec container hands it (and equal to masked_scatter of its AC stream).
+     escapes at capacity 128 in its word walk, and in its lane walk on the
+     same mask viewed one byte off 16 (ops/shuffle.walk_of), and at v1_cesm's
+     geometry (the generic chain's call, chunk width 128, its arguments
+     taken from one compress of the CESM-sized input), I byte-equal on the
+     rows the decode of the v1_ec container hands it (and equal to
+     masked_scatter of its AC stream).
      The last four on the bench array: L's integer streams byte-equal to
      its plain version's (AC and DC within 32 ulp of max|x/sf|), all its
      streams equal to F -> idpack.pack_ids -> H, and the card-only
@@ -71,10 +78,12 @@ Phases, each printed as one JSON line:
      D-QT, and M bit-equal to M_ref at tiles 256 and 64, EC and QT, with
      the instantiation of M each took (fused_decode.walk_of, checked
      against the library's); J (pack_ids_with_ac at tile 64) and K
-     byte-equal
+     byte-equal, J also called alone in its word walk and, on id bytes
+     viewed 8 bytes off 16, in its lane walk
   4. end to end, per path: compress and decompress through the public API on
      the card with the launch counters reset just before and read just after
-     (every kernel of the path > 0), the container family expected, the
+     (every kernel of the path > 0; H and J in their word walks, as
+     dpk_fuse.INSTANTIATIONS counts them), the container family expected, the
      pointwise bound satisfied, the ratio within 0.1% of the plain (CPU)
      path's, each path's output decoded by the other within the bound, and a
      DTZS decode bit-equal to the monolithic decode of the same data
@@ -89,9 +98,17 @@ Phases, each printed as one JSON line:
      and the escapes it keeps, not the whole coefficient array) and, for H,
      I, J and K, one PyTorch
      call that computes the same function from or to the tight stream
-     (library_ms); for A, A-QT, D, D-QT, E, F, G, L and M the kernel's own device time
-     from torch.profiler beside the wrapper's CUDA-event time (which also
-     holds the wrapper's small launches); then, for the record, L beside A
+     (library_ms); H a second time at v1_cesm's geometry, and H and J's
+     lane walks on the views above (kernel_time lines, not in the table);
+     for A, A-QT, D, D-QT, E, F, G, H, J, L and M the kernel's own device
+     time from torch.profiler beside the wrapper's CUDA-event time (which
+     also holds the wrapper's small launches and host time); B, C and H-K
+     once each with the launch queued behind a device sleep, after the L2
+     cache was flushed (cold) and right after a call on the same inputs
+     (warm: what L2 still holds), beside the table's time in a loop, and so
+     H and J's lane walks (their design before the word walks) on the same
+     inputs, and H's two walks at v1_cesm's geometry (kernel_l2 lines);
+     then, for the record, L beside A
      (verify off) + B and beside F + pack_ids + H, M (tiles 256 and 64)
      beside C + D, L_ref and M_ref (onepass_vs_launches), and a
      transform-only yardstick, torch.matmul(blocks, basis.T) and
@@ -135,16 +152,24 @@ TILE_KERNELS = ("dct_quant_verify", "dct_quant_verify_qt", "dequant_idct",
 #: the redesigned kernels: no spill (C and M in both instantiations, which
 #: ptxas lists apart), at least MIN_CTAS_PER_SM resident CTAs per SM
 PERSISTENT_KERNELS = TILE_KERNELS + ("dpk_pack_compact", "dpk_unpack_expand",
-                                     "fused_encode_dpk", "fused_decode_dpk")
-#: the second instantiations of C and M, which must not spill either
-SECOND_INSTANTIATIONS = ("dpk_unpack_expand_wide", "fused_decode_dpk_lanes")
+                                     "fused_encode_dpk", "fused_decode_dpk",
+                                     "chunk_compact", "chunk_compact_unified")
+#: the second instantiations of C, M, H and J, which must not spill either
+SECOND_INSTANTIATIONS = ("dpk_unpack_expand_wide", "fused_decode_dpk_lanes",
+                         "chunk_compact_lanes", "chunk_compact_unified_lanes")
 #: kernels whose own device time phase 5 reads from the profiler, and the
 #: symbol it finds them by
 DEVICE_TIME = {k: ("qtable_qmax_kernel" if k == "qtable_qmax"
                    else k.removesuffix("_qt") + ("_kernel<true>" if k.endswith("_qt")
                                                  else "_kernel<false>"))
                for k in TILE_KERNELS} | {"fused_encode_dpk": "fused_encode_dpk_kernel",
-                                         "fused_decode_dpk": "fused_decode_dpk_kernel"}
+                                         "fused_decode_dpk": "fused_decode_dpk_kernel",
+                                         "chunk_compact": "chunk_compact_kernel",
+                                         "chunk_compact_unified":
+                                             "chunk_compact_unified_kernel"}
+#: kernels timed once more with a single queued launch, cold and warm in L2
+L2_KERNELS = ("dpk_pack_compact", "dpk_unpack_expand", "chunk_compact", "chunk_expand",
+              "chunk_compact_unified", "chunk_compact_bytes")
 MIN_CTAS_PER_SM = 2
 QT_KERNELS = ("qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
               "dpk_unpack_expand", "dequant_idct_qt")
@@ -257,6 +282,26 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, flush=None) -> float:
+    """Milliseconds of one call of fn between CUDA events, the call queued
+    behind a device sleep so that the host's time in the wrapper does not
+    count; flush, when given, is written first (more bytes than the card's
+    L2 holds)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if flush is not None:
+        flush.fill_(1.0)
+    torch.cuda._sleep(2_000_000)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def wall_s(fn, reps: int) -> float:
@@ -460,8 +505,9 @@ def main() -> int:
     emit("build", seconds=round(build.last_build_s, 3), library=str(build.LIB_PATH),
          ptxas=ptxas)
     require(set(SOURCES) <= set(ptxas), f"ptxas reports no kernel of {set(SOURCES) - set(ptxas)}")
-    ctas = {k: build.ctas_per_sm(k) for k in build.OCCUPANCY + build.REFERENCES}
-    for k in build.OCCUPANCY + build.REFERENCES:
+    occupancy = build.OCCUPANCY + build.LANE_WALKS + build.REFERENCES
+    ctas = {k: build.ctas_per_sm(k) for k in occupancy}
+    for k in occupancy:
         emit("occupancy", kernel=k, ctas_per_sm=ctas[k], **ptxas[k])
     for k in PERSISTENT_KERNELS + SECOND_INSTANTIATIONS:
         require(ptxas[k].get("spill_stores") == 0 and ptxas[k].get("spill_loads") == 0,
@@ -695,14 +741,62 @@ def main() -> int:
     mask_h = esc_f.reshape(-1, cw)
     vals_h = dcac_f.reshape(-1, cw)
     capc_h = min(128, cw)
+
+    def took(*expected):
+        got = {k: v for k, v in fk.INSTANTIATIONS.items() if v}
+        return got == {k: 1 for k in expected}, got
+
+    fk.reset_launches()
     rows_h, cnt_h = shuffle.compact_f32(mask_h, vals_h, capc_h)
+    ok_h, walk_h = took("chunk_compact")
     rows_hp, cnt_hp = cp.compact_rows(mask_h, vals_h, capc_h)
     torch.cuda.synchronize()
+    require(ok_h, f"H: took {walk_h}, not its word walk")
     require(torch.equal(rows_h.view(torch.int32), rows_hp.view(torch.int32))
             and torch.equal(cnt_h, cnt_hp), "H: differs from the plain version")
+    # H's lane walk: the same rows, the mask viewed one byte off 16
+    buf_h = torch.empty(mask_h.numel() + 1, dtype=torch.uint8, device=dev)
+    buf_h[1:].copy_(mask_h.reshape(-1).view(torch.uint8))
+    mask_hl = buf_h[1:].view(mask_h.shape)
+    fk.reset_launches()
+    rows_hl, cnt_hl = shuffle.compact_f32(mask_hl, vals_h, capc_h)
+    ok_hl, walk_hl = took("chunk_compact_lanes")
+    torch.cuda.synchronize()
+    require(ok_hl, f"H on the offset mask: took {walk_hl}, not its lane walk")
+    require(torch.equal(rows_hl.view(torch.int32), rows_hp.view(torch.int32))
+            and torch.equal(cnt_hl, cnt_hp), "H's lane walk differs from the plain version")
+    del rows_hl, cnt_hl
+    # H at v1_cesm's geometry: the generic chain's call (chunk width 128),
+    # its arguments taken from one compress of the CESM-sized input
+    x_cesm = climate_formula_np(N_CESM)
+    calls_h = []
+    compact_f32 = shuffle.compact_f32
+
+    def spy(mask, vals, capc):
+        calls_h.append((mask.clone(), vals.clone(), capc))
+        return compact_f32(mask, vals, capc)
+
+    shuffle.compact_f32 = spy
+    try:
+        dz.compress(x_cesm, config=cfg_of("v1_cesm"), device="cuda")
+    finally:
+        shuffle.compact_f32 = compact_f32
+    mask_c, vals_c, capc_c = calls_h[0]
+    fk.reset_launches()
+    rows_c, cnt_c = shuffle.compact_f32(mask_c, vals_c, capc_c)
+    ok_c, walk_c = took("chunk_compact")
+    rows_cp, cnt_cp = cp.compact_rows(mask_c, vals_c, capc_c)
+    torch.cuda.synchronize()
+    require(ok_c, f"H at v1_cesm's geometry: took {walk_c}, not its word walk")
+    require(torch.equal(rows_c.view(torch.int32), rows_cp.view(torch.int32))
+            and torch.equal(cnt_c, cnt_cp), "H at v1_cesm's geometry differs from the plain version")
     emit("kernel_check", kernel="chunk_compact", byte_equal=True, max_abs_err=0.0,
          rows=rows_h.shape[0], cw=cw, capacity=capc_h,
-         overflowed_rows=int((cnt_h > capc_h).sum()))
+         overflowed_rows=int((cnt_h > capc_h).sum()), instantiation=walk_h,
+         lanes_byte_equal=True, lanes_mask_offset=mask_hl.data_ptr() % 16,
+         cesm={"rows": rows_c.shape[0], "cw": mask_c.shape[1], "capacity": capc_c,
+               "calls": len(calls_h), "overflowed_rows": int((cnt_c > capc_c).sum()),
+               "byte_equal": True, "instantiation": walk_c})
     kernels["chunk_compact"] = {"max_abs_err": 0.0}
 
     # I on what the decode of the v1_ec container hands it
@@ -920,8 +1014,32 @@ def main() -> int:
     torch.cuda.synchronize()
     for a, b in zip(st_j64, st_j64p):
         require(a.dtype == b.dtype and torch.equal(a, b), "J: differs from the plain version")
+    # J alone on the same rows: its word walk, and its lane walk on the id
+    # bytes viewed 8 bytes off 16
+    j_plain = shuffle._compact_unified_plain(mask_j, idb_j, vals_j, 128, 128, 128)
+    fk.reset_launches()
+    j_words = shuffle.compact_unified(mask_j, idb_j, vals_j, 128, 128)
+    ok_j, walk_j = took("chunk_compact_unified")
+    buf_j = torch.empty(idb_j.numel() + 8, dtype=torch.uint8, device=dev)
+    buf_j[8:].copy_(idb_j.reshape(-1))
+    idb_jl = buf_j[8:].view(idb_j.shape)
+    fk.reset_launches()
+    j_lanes = shuffle.compact_unified(mask_j, idb_jl, vals_j, 128, 128)
+    ok_jl, walk_jl = took("chunk_compact_unified_lanes")
+    torch.cuda.synchronize()
+    require(ok_j, f"J: took {walk_j}, not its word walk")
+    require(ok_jl, f"J on the offset id bytes: took {walk_jl}, not its lane walk")
+    for got, what in ((j_words, "word"), (j_lanes, "lane")):
+        require(torch.equal(got[0], j_plain[0])
+                and torch.equal(got[1].view(torch.int32), j_plain[1].view(torch.int32)),
+                f"J's {what} walk differs from the plain version")
+    require(torch.equal(j_words[0], st_j64[2]) and torch.equal(j_words[1], st_j64[4]),
+            "J alone differs from pack_ids_with_ac's rows")
+    del j_lanes, j_plain
     emit("kernel_check", kernel="chunk_compact_unified", byte_equal=True, max_abs_err=0.0,
-         tile=64, rows=mask_j.shape[0], cw=cw, exc_peak=int(st_j64[3].max()))
+         tile=64, rows=mask_j.shape[0], cw=cw, exc_peak=int(st_j64[3].max()),
+         instantiation=walk_j, lanes_byte_equal=True,
+         lanes_id_offset=idb_jl.data_ptr() % 16)
     kernels["chunk_compact_unified"] = {"max_abs_err": 0.0}
 
     # K on the DPK exception mask and id bytes of F's ids (tile 256): the
@@ -940,9 +1058,9 @@ def main() -> int:
 
     # 4. end to end through the public API, one path at a time; the counters
     # count each path's own run only
-    inputs = {"bench": x_np, "x30": x_qt_np, "cesm": climate_formula_np(N_CESM)}
+    inputs = {"bench": x_np, "x30": x_qt_np, "cesm": x_cesm}
     tolx = {k: cfg.error_bound * float(x.max() - x.min()) for k, x in inputs.items()}
-    launches, blobs, decoded, e2e = {}, {}, {}, {}
+    launches, walks_e2e, blobs, decoded, e2e = {}, {}, {}, {}, {}
     for path, (kw, inp, needed) in PATHS.items():
         pcfg = cfg_of(path)
         seg = (kw or {}).get("segment_elems")
@@ -951,6 +1069,7 @@ def main() -> int:
         blob = dz.compress(x, config=pcfg, device="cuda")
         y = dz.decompress(blob, device="cuda")
         launches[path] = dict(fk.LAUNCHES)
+        walks_e2e[path] = {k: v for k, v in fk.INSTANTIATIONS.items() if v}
         blobs[path], decoded[path] = blob, y
         ev = dz.evaluate(x, y, cfg.error_bound)
         ratio = x.nbytes / len(blob)
@@ -960,10 +1079,14 @@ def main() -> int:
             fmt += " dpk" if ct.parse_v2(blob)[0].dpk else " host-coded"
         emit("end_to_end", path=path, input=inp, n=x.size, bytes_in=x.nbytes,
              bytes_out=len(blob), container=fmt,
-             ratio=ratio, dtzs=dtzs, launches=launches[path], psnr_db=ev["psnr_db"],
+             ratio=ratio, dtzs=dtzs, launches=launches[path],
+             instantiations=walks_e2e[path], psnr_db=ev["psnr_db"],
              max_rel_err=ev["max_rel_err"], bound_satisfied=ev["bound_satisfied"])
         missing = [k for k in needed if launches[path][k] == 0]
         require(not missing, f"{path}: kernels not launched: {missing}")
+        if "chunk_compact" in needed:
+            require(set(walks_e2e[path]) == {"chunk_compact"},
+                    f"{path}: H took {walks_e2e[path]}, not its word walk alone")
         require(ev["bound_satisfied"], f"{path}: pointwise bound violated")
         want = ("dtzs" if seg == "auto" else "v1" if kw is None or "container" not in kw
                 else "v2 dpk" if kw["ids_codec"] == "device" else "v2 host-coded")
@@ -1015,14 +1138,18 @@ def main() -> int:
                                   ids_oi.to(torch.uint8).reshape(-1, 512), 128)
     torch.cuda.synchronize()
     launches[path] = dict(fk.LAUNCHES)
+    walks_e2e[path] = {k: v for k, v in fk.INSTANTIATIONS.items() if v}
     err_o = (y_o - x_dev).abs().max().item()
     err_64 = (y_64 - x_dev).abs().max().item()
     emit("end_to_end", path=path, input="bench", n=n, bytes_in=x_np.nbytes,
-         launches=launches[path], max_err=err_o, max_err_tile64=err_64,
+         launches=launches[path], instantiations=walks_e2e[path], max_err=err_o,
+         max_err_tile64=err_64,
          bound=tolx["bench"], exc_peak=int(st_o[3].max()),
          exc_peak_tile64=int(st_64[3].max()))
     missing = [k for k in ONEPASS_KERNELS + ("dct_quant",) if launches[path][k] == 0]
     require(not missing, f"{path}: kernels not launched: {missing}")
+    require(set(walks_e2e[path]) == {"chunk_compact_unified"},
+            f"{path}: J took {walks_e2e[path]}, not its word walk alone")
     require(err_o <= tolx["bench"] and err_64 <= tolx["bench"],
             f"{path}: pointwise bound violated")
     require(int(st_64[3].max()) <= 128, f"{path}: a tile-64 chunk row overflows 128")
@@ -1185,6 +1312,77 @@ def main() -> int:
         dev_ms = profiled_kernel_ms(timed[name][0], symbol, REPS)
         emit("kernel_device_time", card=card, kernel=name, event_ms=event_ms[name], **dev_ms)
         report["kernel_device_time"][name] = {"event_ms": event_ms[name], **dev_ms}
+
+    # for the record, not in the table: H a second time at v1_cesm's
+    # geometry (the generic chain's call), and H and J's lane walks on the
+    # offset views of phase 3, timed as the table times
+    h_bytes, j_bytes = timed["chunk_compact"][2], timed["chunk_compact_unified"][2]
+    extra = {
+        ("chunk_compact", "v1_cesm", "chunk_compact"): (
+            lambda: shuffle.compact_f32(mask_c, vals_c, capc_c),
+            lambda: cp.compact_rows(mask_c, vals_c, capc_c),
+            nbytes(mask_c, rows_c, cnt_c) + 4 * int(torch.clamp_max(cnt_c, capc_c).sum()),
+            lambda: torch.masked_select(vals_c, mask_c)),
+        ("chunk_compact", "v1_ec, mask 1 byte off 16", "chunk_compact_lanes"): (
+            lambda: shuffle.compact_f32(mask_hl, vals_h, capc_h),
+            timed["chunk_compact"][1], h_bytes, library["chunk_compact"]),
+        ("chunk_compact_unified", "dpk_onepass, id bytes 8 off 16",
+         "chunk_compact_unified_lanes"): (
+            lambda: shuffle.compact_unified(mask_j, idb_jl, vals_j, 128, 128),
+            timed["chunk_compact_unified"][1], j_bytes, library["chunk_compact_unified"]),
+    }
+    report["kernel_time_extra"] = []
+    for (name, geometry, inst), (kfn, pfn, n_bytes, lfn) in extra.items():
+        p1, k1, k2, p2 = cuda_ms(pfn, REPS), cuda_ms(kfn, REPS), cuda_ms(kfn, REPS), cuda_ms(pfn, REPS)
+        lib_runs = [cuda_ms(lfn, REPS) for _ in range(2)]
+        b_ms, b_by = bound_ms(n_bytes, 0.0)
+        row = {"kernel": name, "geometry": geometry, "instantiation": inst,
+               "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": sum(lib_runs) / 2, "bytes": n_bytes,
+               "runs": [k1, k2], "plain_runs": [p1, p2], "library_runs": lib_runs,
+               "ptxas": ptxas.get(inst)}
+        emit("kernel_time", card=card, **row)
+        report["kernel_time_extra"].append(row)
+
+    # B, C and H-K once each, queued behind a device sleep (no host time):
+    # cold, after 256 MB were written to flush the card's 50 MB of L2, and
+    # warm, right after a call on the same inputs; beside the table's loop.
+    # Then H and J's lane walks (the design before their word walks) on the
+    # same inputs, launched through their entry points with word_walk 0,
+    # and H's two walks at v1_cesm's geometry
+    def h_launch(mask, vals, capc, word_walk):
+        rows = torch.empty((mask.shape[0], capc), dtype=torch.float32, device=dev)
+        cnt = torch.empty((mask.shape[0],), dtype=torch.int32, device=dev)
+        m = mask.view(torch.uint8)
+        return lambda: fk._launch("chunk_compact", m.data_ptr(), vals.data_ptr(), m.shape[0],
+                                  m.shape[1], capc, rows.data_ptr(), cnt.data_ptr(), word_walk)
+
+    def j_launch(word_walk):
+        exc = torch.empty((mask_j.shape[0], 128), dtype=torch.uint8, device=dev)
+        ac = torch.empty((mask_j.shape[0], 128), dtype=torch.float32, device=dev)
+        m = mask_j.view(torch.uint8)
+        return lambda: fk._launch("chunk_compact_unified", m.data_ptr(), idb_j.data_ptr(),
+                                  vals_j.data_ptr(), m.shape[0], m.shape[1], 128, 128, 128,
+                                  exc.data_ptr(), ac.data_ptr(), word_walk)
+
+    single = {(k, "main"): timed[k][0] for k in L2_KERNELS} | {
+        ("chunk_compact_lanes", "main"): h_launch(mask_h, vals_h, capc_h, 0),
+        ("chunk_compact_unified_lanes", "main"): j_launch(0),
+        ("chunk_compact", "v1_cesm"): h_launch(mask_c, vals_c, capc_c, 1),
+        ("chunk_compact_lanes", "v1_cesm"): h_launch(mask_c, vals_c, capc_c, 0)}
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    report["kernel_l2"] = []
+    for (name, geometry), kfn in single.items():
+        kfn()
+        cold = [queued_ms(kfn, flush) for _ in range(3)]
+        warm = [queued_ms(kfn) for _ in range(3)]
+        row = {"kernel": name, "geometry": geometry, "cold_ms": statistics.median(cold),
+               "warm_ms": statistics.median(warm),
+               "loop_ms": event_ms.get(name) if geometry == "main" else None,
+               "cold_runs": cold, "warm_runs": warm}
+        emit("kernel_l2", card=card, **row)
+        report["kernel_l2"].append(row)
+    del flush
 
     # for the record, not a claim: the one-pass kernels beside the launches
     # they could replace, in turns (each measured twice, in mirrored order)

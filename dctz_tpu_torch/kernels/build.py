@@ -73,14 +73,15 @@ SIGNATURES = {
     "dctz_dct_quant": [P, P, P, I64, F32, F32, F32, P, P, P],
     # x, basis, sf, qtable, eb, qtf, n_pad, rmin, rmax, w, ids, dcac, stream
     "dctz_dct_quant_qt": [P, P, P, P, F32, F32, I64, F32, F32, F32, P, P, P],
-    # mask, vals, nc, cw, capc, rows, counts, stream
-    "dctz_chunk_compact": [P, P, I64, I32, I32, P, P, P],
+    # mask, vals, nc, cw, capc, rows, counts, word_walk, stream
+    "dctz_chunk_compact": [P, P, I64, I32, I32, P, P, I32, P],
     # mask, rows, nc, cw, capc, out, stream
     "dctz_chunk_expand": [P, P, I64, I32, I32, P, P],
     # mask, vals, nc, cw, capc, rows, stream
     "dctz_chunk_compact_bytes": [P, P, I64, I32, I32, P, P],
-    # mask, idb, vals, nc, cw, cape, capc, cut, exc, ac, stream
-    "dctz_chunk_compact_unified": [P, P, P, I64, I32, I32, I32, I32, P, P, P],
+    # mask, idb, vals, nc, cw, cape, capc, cut, exc, ac, word_walk, stream
+    "dctz_chunk_compact_unified": [P, P, P, I64, I32, I32, I32, I32, P, P, I32,
+                                   P],
     # x, basis, sf, n, rmin, rmax, w, width, packed, exc, ac, exc_counts,
     # ac_counts, dc, stream
     "dctz_fused_encode_dpk": [P, P, P, I64, F32, F32, F32, P, P, P, P, P, P,
@@ -104,7 +105,10 @@ OCCUPANCY = ("qtable_qmax", "dct_quant_verify", "dct_quant_verify_qt",
              "dequant_idct_qt", "dct_quant", "dct_quant_qt", "chunk_compact",
              "chunk_expand", "chunk_compact_unified", "chunk_compact_bytes",
              "fused_encode_dpk", "fused_decode_dpk")
-SIGNATURES.update({f"dctz_ctas_per_sm_{k}": [] for k in OCCUPANCY + REFERENCES})
+#: the lane walks of H and J (csrc/chunk_shuffle.cu), their second
+#: instantiations, whose resident CTAs per SM the library reports too
+LANE_WALKS = ("chunk_compact_lanes", "chunk_compact_unified_lanes")
+SIGNATURES.update({f"dctz_ctas_per_sm_{k}": [] for k in OCCUPANCY + LANE_WALKS + REFERENCES})
 
 
 def nvcc() -> str:

@@ -1,5 +1,5 @@
-"""Where kernels B, C, E, F, L and M spend their time: each timed whole and
-with one stage cut out at a time.
+"""Where kernels B, C, E, F, H, J, L and M spend their time: each timed
+whole and with one stage cut out at a time.
 
     python -m dctz_tpu_torch.kernels.stage_split [--csrc DIR] [--out FILE]
 
@@ -12,9 +12,12 @@ events, in rounds over all variants, on the inputs the main path gives it:
 values of kernel A's plain version at exception capacity 128; C takes B's
 plain streams cut to the decode's capacity tiers; E takes the bench array
 with every 977th sample x30 (the QT input of chip_smoke.py), F and L the bench
-array, M the streams B's plain version codes from it (tile 256). The
-kernels come in groups (B and C; E and F; L and M), each with its cut sets,
-oldest first; a group's cuts are those of its first set whose every
+array, M the streams B's plain version codes from it (tile 256), H the AC
+escapes of F's plain version at capacity 128 (the v1_ec encode's call), J
+the exception bytes of F's plain ids coded at tile 64 with their AC values
+at capacity 128 (pack_ids_with_ac's call in chip_smoke.py). The kernels
+come in groups (B and C; E and F; H and J; L and M), each with its cut
+sets, oldest first; a group's cuts are those of its first set whose every
 edit finds its text. A cut variant computes wrong results on purpose, and
 only its time is read. Prints one JSON line per kernel and variant. Needs a
 CUDA card and nvcc.
@@ -41,6 +44,7 @@ ROUNDS = 3
 B_SRC, C_SRC = "dpk_pack_compact.cu", "dpk_unpack_expand.cu"
 E_SRC, F_SRC = "qtable_qmax.cu", "dct_quant.cu"
 L_SRC, M_SRC = "fused_encode_dpk.cu", "fused_decode_dpk.cu"
+HJ_SRC = "chunk_shuffle.cu"
 
 #: B and C's cut sets: name -> {variant: (source, [(old text, new text),
 #: ...])}. "byte_stages": B on the per-byte stages of dpk_tile.cuh, C with
@@ -231,9 +235,76 @@ LM_CUTS = {
         "M walk_only": (M_SRC, [M_NO_PRODUCT, M_NO_STORE]),
     },
 }
+#: H and J's cut sets. "ballot": one warp per chunk row and a ballot per 32
+#: samples (the lane walk, before H and J had a word walk; its entry points
+#: take no word_walk argument); "words": the word walk. scan_only: the mask
+#: (J: and id) loads and the ranks, no value gather and no row stores (H
+#: keeps its counts); no_store: everything but the row stores (the staging
+#: is still read and zeroed); J's no_id_load: the mask words in place of the
+#: id words (no escapes, so no AC values either).
+#: the ballot set's marker (unchanged text that only the older source has,
+#: so that the set does not match a source whose compact_row K alone runs)
+_OLD_H = ("  compact_row(mask, vals, nc, cw, capc, rows, counts);\n",
+          "  compact_row(mask, vals, nc, cw, capc, rows, counts);\n")
+_OLD_FILL = ("  for (int q = min(count, capc) + lane; q < capc; q += 32) out[q] = T(0);\n",
+             "")
+_OLD_J_FILL = ("  for (int q = min(ecount, cape) + lane; q < cape; q += 32) eo[q] = 0;\n"
+               "  for (int q = min(acount, capc) + lane; q < capc; q += 32) ao[q] = 0.f;\n",
+               "")
+_OLD_J_EXC = "    if (on && rank < cape) eo[rank] = static_cast<uint8_t>(id);\n"
+_OLD_J_AC = "    if (esc && arank < capc) ao[arank] = v[e];\n"
+_H_SCATTER = "      if (c != 0 && r < a.capc) {\n"
+_H_STORE = "    store_span(st, pad, dst, rows * a.capc, tid);\n"
+_J_STORES = ("    store_span(se, pe, edst, rows * a.cape, tid);\n"
+             "    store_span(sa, pa, adst, rows * a.capc, tid);\n")
+
+
+#: the stores of words::store_span (H's rows, J's exception and AC rows)
+#: made to depend on a value that does not occur: the staging is still read
+#: and zeroed
+_NO_STORE = (HJ_SRC, [
+    ("    __stcs(d4 + i, s4[i]);\n", "    if (s4[i].x == 0x9e3779b9u) __stcs(d4 + i, s4[i]);\n"),
+    ("    dst[tid] = st[pad + tid];\n",
+     "    if (st[pad + tid] == T(77)) dst[tid] = st[pad + tid];\n"),
+    ("    dst[m] = st[pad + m];\n", "    if (st[pad + m] == T(77)) dst[m] = st[pad + m];\n")])
+
+
+HJ_CUTS = {
+    "ballot": {
+        "H scan_only": (HJ_SRC, [_OLD_H, (
+            "    if (on && rank < capc) out[rank] = v[e];\n",
+            "    if (on && rank == -12345) out[0] = T(0);\n"), _OLD_FILL]),
+        "H no_store": (HJ_SRC, [_OLD_H, (
+            "    if (on && rank < capc) out[rank] = v[e];\n",
+            "    if (on && rank < capc && v[e] == T(123)) out[rank] = v[e];\n"), _OLD_FILL]),
+        "J scan_only": (HJ_SRC, [
+            (_OLD_J_EXC, "    if (on && rank == -12345) eo[0] = static_cast<uint8_t>(id);\n"),
+            (_OLD_J_AC, "    if (esc && arank == -12345) ao[0] = 0.f;\n"), _OLD_J_FILL]),
+        "J no_store": (HJ_SRC, [
+            (_OLD_J_EXC, "    if (on && rank < cape && id == 1234) eo[rank] = 0;\n"),
+            (_OLD_J_AC, "    if (esc && arank < capc && v[e] == 1234.5f) ao[arank] = v[e];\n"),
+            _OLD_J_FILL]),
+        "J no_id_load": (HJ_SRC, [(
+            "    const int id = (on && rank < need) ? ib[e] : 0;\n",
+            "    const int id = (on && rank < need) ? m[e] : 0;\n")]),
+    },
+    "words": {
+        "H scan_only": (HJ_SRC, [
+            (_H_SCATTER, "      if (c != 0 && r == -12345) {\n"), (_H_STORE, "")]),
+        "H no_store": _NO_STORE,
+        "J scan_only": (HJ_SRC, [
+            ("        if (r < a.cape) erow[r] = static_cast<uint8_t>(id);\n",
+             "        if (r == -12345) a.exc[0] = static_cast<uint8_t>(id);\n"),
+            ("          if (ar < a.capc) arow[ar] = v[b];\n",
+             "          if (ar == -12345) a.ac[0] = 0.f;\n"),
+            (_J_STORES, "")]),
+        "J no_store": _NO_STORE,
+        "J no_id_load": (HJ_SRC, [("    i = load16(a.idb + ld.off, ok);\n", "    i = m;\n")]),
+    },
+}
 #: the kernel groups: group -> (the sources timed whole, the cut sets)
 GROUPS = {"B, C": ((B_SRC, C_SRC), BC_CUTS), "E, F": ((E_SRC, F_SRC), EF_CUTS),
-          "L, M": ((L_SRC, M_SRC), LM_CUTS)}
+          "H, J": ((HJ_SRC, HJ_SRC), HJ_CUTS), "L, M": ((L_SRC, M_SRC), LM_CUTS)}
 
 
 
@@ -282,13 +353,14 @@ def _build(csrc: pathlib.Path, sets: dict, root: pathlib.Path) -> dict:
 
 
 def _inputs(torch):
-    """Kernel B's, C's, E's, F's, L's and M's arguments at the main path's
-    shapes (B, C and M from the plain versions on the card)."""
+    """Kernel B's, C's, E's, F's, H's, J's, L's and M's arguments at the main
+    path's shapes (B, C, H, J and M from the plain versions on the card),
+    by kernel letter. H and J's end in the word_walk flag (1)."""
     from ..config import CodecConfig
     from ..core import quantize as qz
     from ..core import transform
     from ..ops import dpk_fuse as fk
-    from ..ops import fused_encode
+    from ..ops import fused_encode, idpack
     from ..utils.bench_data import climate_formula_np
     from .. import api
 
@@ -336,14 +408,30 @@ def _inputs(torch):
               dc_b.data_ptr(), basis.data_ptr(), sf1.data_ptr(), None, nblk,
               exc_t.shape[0], ac_t.shape[0], 256, CW, cape, capc, w, rmin, rmax, 1.0, 0,
               out_m.data_ptr())
+    ids_fp, dcac_fp = fused_encode._dct_quant_plain(x, sf, cfg)
+    nc = N // CW
+    mask_h = ((ids_fp == 255) & (torch.arange(64, device=dev) > 0)).view(torch.uint8)
+    rows_h = torch.empty((nc, CAPE), dtype=torch.float32, device=dev)
+    cnt_h = torch.empty((nc,), dtype=torch.int32, device=dev)
+    h_args = (mask_h.data_ptr(), dcac_fp.data_ptr(), nc, CW, CAPE, rows_h.data_ptr(),
+              cnt_h.data_ptr(), 1)
+    _w, _pk, ids_64, mask_64 = idpack._code_tiles(ids_fp, N, 64)
+    mask_j, idb_j = mask_64.view(torch.uint8), ids_64.to(torch.uint8)
+    exc_j = torch.empty((nc, CAPE), dtype=torch.uint8, device=dev)
+    ac_j = torch.empty((nc, CAPE), dtype=torch.float32, device=dev)
+    j_args = (mask_j.data_ptr(), idb_j.data_ptr(), dcac_fp.data_ptr(), nc, CW, CAPE, CAPE,
+              CAPE, exc_j.data_ptr(), ac_j.data_ptr(), 1)
     keep = (ids, vals, width, packed, exc_t, ac_t, dc_b, outs_b, ids_c, acv_c, basis, xq,
-            sf1, sf_q1, bits, ids_f, dcac_f, outs_l, out_m)
-    return {B_SRC: ("dctz_dpk_pack_compact", b_args),
-            C_SRC: ("dctz_dpk_unpack_expand", c_args),
-            E_SRC: ("dctz_qtable_qmax", e_args),
-            F_SRC: ("dctz_dct_quant", f_args),
-            L_SRC: ("dctz_fused_encode_dpk", l_args),
-            M_SRC: ("dctz_fused_decode_dpk", m_args)}, {"cape": cape, "capc": capc}, keep
+            sf1, sf_q1, bits, ids_f, dcac_f, outs_l, out_m, ids_fp, dcac_fp, mask_h, rows_h,
+            cnt_h, mask_j, idb_j, exc_j, ac_j)
+    return {"B": ("dctz_dpk_pack_compact", b_args),
+            "C": ("dctz_dpk_unpack_expand", c_args),
+            "E": ("dctz_qtable_qmax", e_args),
+            "F": ("dctz_dct_quant", f_args),
+            "H": ("dctz_chunk_compact", h_args),
+            "J": ("dctz_chunk_compact_unified", j_args),
+            "L": ("dctz_fused_encode_dpk", l_args),
+            "M": ("dctz_fused_decode_dpk", m_args)}, {"cape": cape, "capc": capc}, keep
 
 
 def main() -> int:
@@ -364,10 +452,13 @@ def main() -> int:
     calls, caps, _keep = _inputs(torch)
     stream = torch.cuda.current_stream().cuda_stream
     fns = {}
-    for name, (src, path) in libs.items():
-        sym, call_args = calls[src]
+    for name, (_src, path) in libs.items():
+        sym, call_args = calls[name[0]]
+        argtypes = build.SIGNATURES[sym]
+        if name[0] in "HJ" and set_of[name[0]] == "ballot":  # no word_walk flag
+            call_args, argtypes = call_args[:-1], argtypes[:-2] + argtypes[-1:]
         fn = getattr(ctypes.CDLL(str(path)), sym)
-        fn.argtypes = build.SIGNATURES[sym]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = (fn, call_args)
 

@@ -71,9 +71,21 @@ LAUNCHES = {
 }
 
 
+#: launches of each instantiation of kernels H and J (ops/shuffle.walk_of):
+#: the word walk under the kernel's name, the lane walk with "_lanes";
+#: LAUNCHES counts both under the kernel's name
+INSTANTIATIONS = {
+    "chunk_compact": 0,
+    "chunk_compact_lanes": 0,
+    "chunk_compact_unified": 0,
+    "chunk_compact_unified_lanes": 0,
+}
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, INSTANTIATIONS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -93,7 +105,7 @@ def _check(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, instantiation: str | None = None) -> None:
     from ..kernels import build
 
     fn = getattr(build.lib(), "dctz_" + name)
@@ -101,6 +113,8 @@ def _launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
     LAUNCHES[name] += 1
+    if instantiation is not None:
+        INSTANTIATIONS[instantiation] += 1
 
 
 def _ceil_lanes(c: int) -> int:

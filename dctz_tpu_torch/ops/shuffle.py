@@ -11,12 +11,17 @@ compact_bytes).
   K chunk_compact_bytes:   H on uint8 values
 
 The JAX package routes values through butterfly roll networks because the
-TPU has no fast scatter; the kernels here rank the masked lanes of each row
-with warp ballots (csrc/chunk_shuffle.cu). The plain versions are
-ops/compaction.compact_rows and expand_rows (J: two compact_rows). As in
-ops/dpk_fuse.py, a wrapper takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors, or raises; it counts launches in
-dpk_fuse.LAUNCHES.
+TPU has no fast scatter; the kernels here rank the masked samples of each
+row with warp scans (csrc/chunk_shuffle.cu). H and J have two
+instantiations each, chosen by the shape of the call (walk_of): the word
+walk (a 512-sample warp step, 16 mask bytes a lane, rows staged in shared
+memory, persistent CTAs) and the lane walk (chunk_compact_lanes,
+chunk_compact_unified_lanes: a warp ballot per 32 samples) for the rest.
+The plain versions are ops/compaction.compact_rows and expand_rows (J: two
+compact_rows). As in ops/dpk_fuse.py, a wrapper takes the plain version for
+CPU tensors and launches the kernel for CUDA tensors, or raises; it counts
+launches in dpk_fuse.LAUNCHES (H and J per instantiation also in
+dpk_fuse.INSTANTIATIONS).
 
 As in the JAX package, J and K's output rows are min(capacity, cw) wide.
 """
@@ -28,6 +33,31 @@ import torch
 from ..core import constants as C
 from . import compaction as cp
 from . import dpk_fuse
+
+
+STEP = 512  # samples of a warp step of the word walk
+#: bytes of the staged rows of a CTA's group, at most, in the word walk
+#: (csrc/chunk_shuffle.cu: words::STAGE_MAX)
+STAGE_MAX = 96 * 1024
+
+
+def walk_of(cw: int, row_bytes: int, *ptrs: int) -> str:
+    """Which instantiation of kernels H and J takes a call: "words", the
+    word walk, where the chunk width cw is 64, 128, 256 or a multiple of
+    512, every byte input's address in ptrs (the mask; J's id bytes too)
+    starts on 16 bytes, and a group's rows of row_bytes each (H: 4 capc, J:
+    cape + 4 capc) fit STAGE_MAX (a group: 8 rows above cw 512, else 8 *
+    1024 / cw); else "lanes", the lane walk. The C entry points refuse the
+    word walk where this rule does not give it."""
+    if not (cw in (64, 128, 256) or (cw > 0 and cw % STEP == 0)):
+        return "lanes"
+    rows = 8 * (2 * STEP // cw) if cw <= STEP else 8
+    fits = all(p % 16 == 0 for p in ptrs) and rows * row_bytes <= STAGE_MAX
+    return "words" if fits else "lanes"
+
+
+def _instantiation(kernel: str, walk: str) -> str:
+    return kernel if walk == "words" else kernel + "_lanes"
 
 
 def _mask_u8(mask: torch.Tensor) -> torch.Tensor:
@@ -61,8 +91,11 @@ def compact_f32(mask: torch.Tensor, vals: torch.Tensor, capc: int):
     counts = torch.empty((nc,), dtype=torch.int32, device=vals.device)
     if nc:
         m = _mask_u8(mask)
+        walk = walk_of(cw, 4 * capc, m.data_ptr())
         dpk_fuse._launch("chunk_compact", m.data_ptr(), vals.data_ptr(), nc,
-                         cw, capc, rows.data_ptr(), counts.data_ptr())
+                         cw, capc, rows.data_ptr(), counts.data_ptr(),
+                         int(walk == "words"),
+                         instantiation=_instantiation("chunk_compact", walk))
     return rows, counts
 
 
@@ -138,7 +171,10 @@ def compact_unified(mask: torch.Tensor, idb: torch.Tensor, vals: torch.Tensor,
     exc = torch.empty((nc, width_e), dtype=torch.uint8, device=vals.device)
     ac = torch.empty((nc, width_c), dtype=torch.float32, device=vals.device)
     if nc:
-        dpk_fuse._launch("chunk_compact_unified", _mask_u8(mask).data_ptr(),
-                         idb.data_ptr(), vals.data_ptr(), nc, cw, width_e,
-                         width_c, cut, exc.data_ptr(), ac.data_ptr())
+        m = _mask_u8(mask)
+        walk = walk_of(cw, width_e + 4 * width_c, m.data_ptr(), idb.data_ptr())
+        dpk_fuse._launch("chunk_compact_unified", m.data_ptr(), idb.data_ptr(),
+                         vals.data_ptr(), nc, cw, width_e, width_c, cut,
+                         exc.data_ptr(), ac.data_ptr(), int(walk == "words"),
+                         instantiation=_instantiation("chunk_compact_unified", walk))
     return exc, ac

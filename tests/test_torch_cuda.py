@@ -510,11 +510,23 @@ def test_kernels_f_g_match_plain(dev, mode, n, kind):
         assert torch.equal(dk[esc], ca[esc]) and torch.equal(dk[:, 0], ca[:, 0])
 
 
-@pytest.mark.parametrize("cw", [64, 128, 256, 512])
+#: chunk widths of kernels H and J's card tests: every width the word walk
+#: takes up to 2048 (rows across 2 and 4 warp steps from 1024), and 384,
+#: which takes the lane walk
+HJ_WIDTHS = [64, 128, 256, 512, 1024, 2048, 384]
+
+
+def _walk_case(cw):
+    return "lanes" if cw == 384 else "words"
+
+
+@pytest.mark.parametrize("cw", HJ_WIDTHS)
 @pytest.mark.parametrize("density", [0.0, 0.03, 0.25, 1.0])
 def test_kernels_h_i_byte_equal(dev, cw, density):
     """H and I against compact_rows / expand_rows, byte for byte, at
-    capacities that are not lane multiples; I on float32 and int32 rows."""
+    capacities that are not lane multiples and at cw (the overflow retry's);
+    I on float32 and int32 rows. 77 rows leave the last group of rows of
+    H's word walk partial; H takes the instantiation named."""
     from dctz_tpu_torch.ops import compaction as cp
     from dctz_tpu_torch.ops import dpk_fuse as fk
     from dctz_tpu_torch.ops import shuffle
@@ -524,9 +536,12 @@ def test_kernels_h_i_byte_equal(dev, cw, density):
     mask = torch.from_numpy(rng.random((nc, cw)) < density).to(dev)
     vals = torch.from_numpy(rng.standard_normal((nc, cw)).astype(np.float32)).to(dev)
     for capc in sorted({min(96, cw), min(130, cw), cw}):
+        walk = _walk_case(cw)
+        assert shuffle.walk_of(cw, 4 * capc, mask.data_ptr()) == walk
         fk.reset_launches()
         rows, counts = shuffle.compact_f32(mask, vals, capc)
         assert fk.LAUNCHES["chunk_compact"] == 1
+        assert fk.INSTANTIATIONS[shuffle._instantiation("chunk_compact", walk)] == 1
         rows_p, counts_p = cp.compact_rows(mask, vals, capc)
         assert torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
         assert torch.equal(counts, counts_p)
@@ -581,11 +596,12 @@ def test_tf32_is_refused(dev):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.parametrize("cw", [128, 512])
+@pytest.mark.parametrize("cw", [128, 512] + [w for w in HJ_WIDTHS if w not in (128, 512)])
 @pytest.mark.parametrize("density", [0.0, 0.03, 0.25, 1.0])
 def test_kernels_j_k_byte_equal(dev, cw, density):
     """J and K against their plain versions, byte for byte, at capacities
-    that are not lane multiples and at J's cut above cape (96 -> 128)."""
+    that are not lane multiples, at J's cut above cape (96 -> 128) and at
+    cw; J takes the instantiation named."""
     from dctz_tpu_torch.ops import dpk_fuse as fk
     from dctz_tpu_torch.ops import shuffle
 
@@ -600,13 +616,56 @@ def test_kernels_j_k_byte_equal(dev, cw, density):
         got = shuffle.compact_bytes(mask, idb, capc)
         assert fk.LAUNCHES["chunk_compact_bytes"] == 1
         assert torch.equal(got, shuffle.compact_bytes(mask.cpu(), idb.cpu(), capc).to(dev))
-    for cape, capc in ((96, 96), (130, 130), (96, 130)):
+    for cape, capc in ((96, 96), (130, 130), (96, 130), (cw, cw)):
+        walk = _walk_case(cw)
+        assert shuffle.walk_of(cw, min(cape, cw) + 4 * min(capc, cw), mask.data_ptr(),
+                               idb.data_ptr()) == walk
         fk.reset_launches()
         got = shuffle.compact_unified(mask, idb, vals, cape, capc)
         assert fk.LAUNCHES["chunk_compact_unified"] == 1
+        assert fk.INSTANTIATIONS[shuffle._instantiation("chunk_compact_unified", walk)] == 1
         ref = shuffle.compact_unified(mask.cpu(), idb.cpu(), vals.cpu(), cape, capc)
         assert torch.equal(got[0].cpu(), ref[0])
         assert torch.equal(got[1].cpu().view(torch.int32), ref[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [1, 4, 16])
+@pytest.mark.parametrize("cw", [128, 512])
+def test_kernels_h_j_on_mask_views(dev, cw, offset):
+    """H and J on mask and id-byte views that start `offset` bytes into
+    their buffers: off 16 bytes they take the lane walk, on 16 the word
+    walk; both give their plain versions' bytes, at a density where rows
+    overflow 96 slots (0.9)."""
+    from dctz_tpu_torch.ops import compaction as cp
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import shuffle
+
+    rng = np.random.default_rng(cw + offset)
+    nc = 77
+    walk = "words" if offset % 16 == 0 else "lanes"
+    buf = torch.from_numpy(rng.random(nc * cw + offset) < 0.9).to(dev)
+    mask = buf[offset:].view(nc, cw)
+    ids = rng.integers(0, 255, nc * cw + offset).astype(np.uint8)
+    ids = torch.from_numpy(np.where(rng.random(ids.size) < 0.3, np.uint8(255), ids)).to(dev)
+    idb = ids[offset:].view(nc, cw)
+    vals = torch.from_numpy(rng.standard_normal((nc, cw)).astype(np.float32)).to(dev)
+    assert mask.data_ptr() % 16 == offset % 16 and idb.data_ptr() % 16 == offset % 16
+    fk.reset_launches()
+    rows, counts = shuffle.compact_f32(mask, vals, 96)
+    got = shuffle.compact_unified(mask, idb, vals, 96, 96)
+    assert fk.INSTANTIATIONS == {
+        shuffle._instantiation("chunk_compact", walk): 1,
+        shuffle._instantiation("chunk_compact_unified", walk): 1,
+        **{k: 0 for k in fk.INSTANTIATIONS
+           if k not in (shuffle._instantiation("chunk_compact", walk),
+                        shuffle._instantiation("chunk_compact_unified", walk))}}
+    rows_p, counts_p = cp.compact_rows(mask, vals, 96)
+    assert bool((counts_p > 96).any())
+    assert torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
+    assert torch.equal(counts, counts_p)
+    ref = shuffle.compact_unified(mask.cpu(), idb.cpu(), vals.cpu(), 96, 96)
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu().view(torch.int32), ref[1].view(torch.int32))
 
 
 @pytest.mark.parametrize("nblk,b,cape", [(512, 64, 128), (700, 64, 128), (700, 32, 256),
@@ -1069,6 +1128,20 @@ def _ptxas_spills(log: str) -> dict:
         if m and name is not None:
             out[name] = out.get(name, 0) + int(m.group(1)) + int(m.group(2))
     return out
+
+
+def test_kernels_h_j_occupancy(dev):
+    """H and J's word walks fit at least 2 resident CTAs per SM at their
+    largest buffers on the API's paths; neither walk of either spills."""
+    from dctz_tpu_torch.kernels import build
+
+    build.lib()
+    for k in ("chunk_compact", "chunk_compact_unified"):
+        assert build.ctas_per_sm(k) >= 2, k
+    spills = _ptxas_spills(build.PTXAS_LOG.read_text())
+    for k in ("chunk_compact", "chunk_compact_lanes", "chunk_compact_unified",
+              "chunk_compact_unified_lanes"):
+        assert spills.get(k) == 0, (k, spills.get(k))
 
 
 def test_kernels_l_m_occupancy(dev):

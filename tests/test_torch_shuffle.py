@@ -31,7 +31,7 @@ def _mask_vals(cw, density, seed):
 
 @pytest.mark.parametrize("capc", [96, 130])
 @pytest.mark.parametrize("density", [0.0, 0.03, 0.25, 1.0])
-@pytest.mark.parametrize("cw", [128, 256, 512])
+@pytest.mark.parametrize("cw", [128, 256, 512, 1024])
 def test_compact_f32_byte_equal(oracle_shuffle, cw, density, capc):
     from dctz_tpu.ops import shuffle as jsh
     from dctz_tpu_torch.ops import shuffle as tsh
@@ -76,7 +76,7 @@ def test_int32_rows_expand_byte_equal(oracle_shuffle):
     assert got.dtype == np.int32 and got.tobytes() == ref.tobytes()
 
 
-@pytest.mark.parametrize("density", [0.03, 0.5])
+@pytest.mark.parametrize("density", [0.03, 0.5, 0.0, 1.0])
 def test_chunk_width_64_matches_sort_arm(oracle_shuffle, density):
     """cw = 64 is not a shape of the TPU kernels: dctz_tpu's compact_chunked
     sorts and expand_chunked takes its one-hot arm; the port's plain H and I
@@ -99,6 +99,53 @@ def test_chunk_width_64_matches_sort_arm(oracle_shuffle, density):
     back_j = np.asarray(jc.expand_chunked(jnp.asarray(m2), rows_j))
     back_t = tc.expand_chunked(torch.from_numpy(m2), rows_t).numpy()
     assert back_t.tobytes() == back_j.tobytes()
+
+
+@pytest.mark.parametrize("density", [0.25, 1.0])
+def test_chunk_width_64_full_capacity_matches_sort_arm(oracle_shuffle, density):
+    """cw = 64 at capacity 64, the overflow retry's width: the port's plain
+    H against dctz_tpu's sort arm, rows and true counts."""
+    from dctz_tpu.ops import compaction as jc
+    from dctz_tpu_torch.ops import compaction as tc
+
+    rng = np.random.default_rng(640)
+    n, cw = 64 * 40, 64
+    mask = rng.random(n) < density
+    vals = rng.standard_normal(n).astype(np.float32)
+    rows_j, cnt_j, ovf_j = jc.compact_chunked(jnp.asarray(mask), jnp.asarray(vals), cw, cw)
+    rows_t, cnt_t, ovf_t = tc.compact_chunked(torch.from_numpy(mask),
+                                              torch.from_numpy(vals), cw, cw)
+    assert rows_t.numpy().tobytes() == np.asarray(rows_j).tobytes()
+    assert np.array_equal(cnt_t.numpy(), np.asarray(cnt_j))
+    assert not bool(ovf_t) and not bool(ovf_j)
+
+
+#: (cw, row bytes, byte-input offsets from 16 bytes, instantiation)
+WALK_RULE = [
+    (64, 4 * 64, (0,), "words"), (128, 4 * 128, (0,), "words"),
+    (256, 4 * 96, (0,), "words"), (512, 4 * 130, (0,), "words"),
+    (512, 128 + 4 * 128, (0, 0), "words"), (1024, 4 * 1024, (0,), "words"),
+    (1536, 4 * 96, (0,), "words"), (2048, 2048 + 4 * 2048, (0, 0), "words"),
+    (32, 4 * 32, (0,), "lanes"), (96, 4 * 96, (0,), "lanes"),
+    (192, 4 * 96, (0,), "lanes"), (384, 4 * 130, (0,), "lanes"),
+    (640, 4 * 130, (0,), "lanes"), (512, 4 * 128, (1,), "lanes"),
+    (512, 128 + 4 * 128, (0, 8), "lanes"), (128, 4 * 128, (4,), "lanes"),
+    (4096, 4 * 4096, (0,), "lanes"), (2048, 4 * 2048, (0,), "words"),
+    (64, 4 * 64, (16,), "words"),
+]
+
+
+@pytest.mark.parametrize("cw,row_bytes,offsets,walk", WALK_RULE)
+def test_walk_of_rule(cw, row_bytes, offsets, walk):
+    """Kernels H and J take their word walk at chunk widths 64, 128, 256 and
+    multiples of 512 with 16-byte aligned byte inputs and rows whose
+    staging fits (8 rows of 4096 floats do not); else their lane walk."""
+    from dctz_tpu_torch.ops import shuffle as tsh
+
+    ptrs = [4096 * (i + 1) + off for i, off in enumerate(offsets)]
+    assert tsh.walk_of(cw, row_bytes, *ptrs) == walk
+    assert tsh._instantiation("chunk_compact", walk) == (
+        "chunk_compact" if walk == "words" else "chunk_compact_lanes")
 
 
 def _id_bytes(cw, seed):
@@ -127,7 +174,7 @@ def test_compact_bytes_byte_equal(oracle_shuffle, cw, density, capc):
 
 @pytest.mark.parametrize("cape,capc", [(96, 96), (130, 130), (96, 130)])
 @pytest.mark.parametrize("density", [0.0, 0.03, 0.25, 1.0])
-@pytest.mark.parametrize("cw", [128, 512])
+@pytest.mark.parametrize("cw", [128, 512, 1024])
 def test_compact_unified_byte_equal(oracle_shuffle, cw, density, cape, capc):
     """Kernel J's plain version: the exception bytes and the AC values of
     the ESCAPE bytes among the first min(cw, ceil128(cape)) exceptions (the
