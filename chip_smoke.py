@@ -21,7 +21,7 @@ paths, on 32Mi float32 elements (128 MB) unless named otherwise:
   encode (kernel L) and decode (kernel M) at tile 256; kernel F, then
   idpack.pack_ids_with_ac at tile 64 (kernel J), then M at tile 64; and
   shuffle.compact_bytes (kernel K, which no caller reaches) on the DPK
-  exception bytes, equal to L's exception rows.
+  exception bytes, equal to L's exception rows, in its word walk.
 
 Phases, each printed as one JSON line:
 
@@ -32,12 +32,12 @@ Phases, each printed as one JSON line:
      configuration (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the
      kernels' library; for C the lesser of its two instantiations, the
      staged one at its largest buffers) beside those registers and spills.
-     A, A-QT, B, C (both instantiations), D, D-QT, E, F, G, H, J, L and M
-     (C, H, J and M in both instantiations) must not spill, and their first
-     instantiations must fit at least 2 CTAs per SM (H and J's word walks at
-     their largest buffers on the API's paths, every capacity 512); the
-     lane walks of H and J and the card-only references L_ref and M_ref get
-     occupancy lines too
+     A, A-QT, B, C (both instantiations), D, D-QT, E, F, G, H, J, K, L and
+     M (C, H, J, K and M in both instantiations) must not spill, and their
+     first instantiations must fit at least 2 CTAs per SM (H, J and K's word
+     walks at their largest buffers on the API's paths, every capacity
+     512); the lane walks of H, J and K and the card-only references L_ref
+     and M_ref get occupancy lines too
   3. kernels against their plain PyTorch versions on the card, at the main
      paths' shapes. EC input (the bench array): B and C byte-equal, A within
      1e-5 of ids, D within 32 ulp of sf. QT input (the x30 array): E
@@ -78,11 +78,12 @@ Phases, each printed as one JSON line:
      D-QT, and M bit-equal to M_ref at tiles 256 and 64, EC and QT, with
      the instantiation of M each took (fused_decode.walk_of, checked
      against the library's); J (pack_ids_with_ac at tile 64) and K
-     byte-equal, J also called alone in its word walk and, on id bytes
-     viewed 8 bytes off 16, in its lane walk
+     byte-equal, each also called alone in its word walk and, on id bytes
+     viewed 8 bytes off 16, in its lane walk (K's word walk also equal to
+     L's exception rows)
   4. end to end, per path: compress and decompress through the public API on
      the card with the launch counters reset just before and read just after
-     (every kernel of the path > 0; H and J in their word walks, as
+     (every kernel of the path > 0; H, J and K in their word walks, as
      dpk_fuse.INSTANTIATIONS counts them), the container family expected, the
      pointwise bound satisfied, the ratio within 0.1% of the plain (CPU)
      path's, each path's output decoded by the other within the bound, and a
@@ -98,16 +99,17 @@ Phases, each printed as one JSON line:
      and the escapes it keeps, not the whole coefficient array) and, for H,
      I, J and K, one PyTorch
      call that computes the same function from or to the tight stream
-     (library_ms); H a second time at v1_cesm's geometry, and H and J's
+     (library_ms); H a second time at v1_cesm's geometry, and H, J and K's
      lane walks on the views above (kernel_time lines, not in the table);
-     for A, A-QT, D, D-QT, E, F, G, H, J, L and M the kernel's own device
-     time from torch.profiler beside the wrapper's CUDA-event time (which
-     also holds the wrapper's small launches and host time); B, C and H-K
-     once each with the launch queued behind a device sleep, after the L2
-     cache was flushed (cold) and right after a call on the same inputs
-     (warm: what L2 still holds), beside the table's time in a loop, and so
-     H and J's lane walks (their design before the word walks) on the same
-     inputs, and H's two walks at v1_cesm's geometry (kernel_l2 lines);
+     for every kernel of the table the kernel's own device time from
+     torch.profiler beside the wrapper's CUDA-event time (which also holds
+     the wrapper's small launches and host time; kernel_device_time lines);
+     B, C and H-K once each with the launch queued behind a device sleep,
+     after the L2 cache was flushed (cold) and right after a call on the
+     same inputs (warm: what L2 still holds), beside the table's time in a
+     loop, and so H, J and K's lane walks (their design before the word
+     walks) on the same inputs, and H's two walks at v1_cesm's geometry
+     (kernel_l2 lines);
      then, for the record, L beside A
      (verify off) + B and beside F + pack_ids + H, M (tiles 256 and 64)
      beside C + D, L_ref and M_ref (onepass_vs_launches), and a
@@ -153,20 +155,23 @@ TILE_KERNELS = ("dct_quant_verify", "dct_quant_verify_qt", "dequant_idct",
 #: ptxas lists apart), at least MIN_CTAS_PER_SM resident CTAs per SM
 PERSISTENT_KERNELS = TILE_KERNELS + ("dpk_pack_compact", "dpk_unpack_expand",
                                      "fused_encode_dpk", "fused_decode_dpk",
-                                     "chunk_compact", "chunk_compact_unified")
-#: the second instantiations of C, M, H and J, which must not spill either
+                                     "chunk_compact", "chunk_compact_unified",
+                                     "chunk_compact_bytes")
+#: the second instantiations of C, M, H, J and K, which must not spill either
 SECOND_INSTANTIATIONS = ("dpk_unpack_expand_wide", "fused_decode_dpk_lanes",
-                         "chunk_compact_lanes", "chunk_compact_unified_lanes")
-#: kernels whose own device time phase 5 reads from the profiler, and the
-#: symbol it finds them by
+                         "chunk_compact_lanes", "chunk_compact_unified_lanes",
+                         "chunk_compact_bytes_lanes")
+#: every kernel of the table, and the symbol by which phase 5 finds its own
+#: device time in the profiler: the instantiation that the table's call
+#: takes (C's staged one at the main path's capacities, H, J and K's word
+#: walks)
 DEVICE_TIME = {k: ("qtable_qmax_kernel" if k == "qtable_qmax"
                    else k.removesuffix("_qt") + ("_kernel<true>" if k.endswith("_qt")
                                                  else "_kernel<false>"))
-               for k in TILE_KERNELS} | {"fused_encode_dpk": "fused_encode_dpk_kernel",
-                                         "fused_decode_dpk": "fused_decode_dpk_kernel",
-                                         "chunk_compact": "chunk_compact_kernel",
-                                         "chunk_compact_unified":
-                                             "chunk_compact_unified_kernel"}
+               for k in TILE_KERNELS} | {k: k + "_kernel" for k in (
+                   "dpk_pack_compact", "dpk_unpack_expand", "fused_encode_dpk",
+                   "fused_decode_dpk", "chunk_compact", "chunk_expand",
+                   "chunk_compact_unified", "chunk_compact_bytes")}
 #: kernels timed once more with a single queued launch, cold and warm in L2
 L2_KERNELS = ("dpk_pack_compact", "dpk_unpack_expand", "chunk_compact", "chunk_expand",
               "chunk_compact_unified", "chunk_compact_bytes")
@@ -414,13 +419,13 @@ def profiled_kernel_ms(fn, symbol: str, reps: int) -> dict:
     `reps` calls of fn (after a warm-up), and all of fn's device time per
     call. A session that records none of the kernel's launches (the
     profiler drops a session's device records now and then) is run again,
-    three times at most; None where none recorded them."""
+    up to six sessions in all; None where none recorded them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(1, 4):
+    for attempt in range(1, 7):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1043,17 +1048,31 @@ def main() -> int:
     kernels["chunk_compact_unified"] = {"max_abs_err": 0.0}
 
     # K on the DPK exception mask and id bytes of F's ids (tile 256): the
-    # plain version's rows, and the exception rows of pack_ids and of L
+    # plain version's rows, and the exception rows of pack_ids and of L, in
+    # its word walk; and its lane walk on the id bytes viewed 8 bytes off 16
     _w, _pk, ids_i256, mask256 = idpack._code_tiles(ids_f, n_pad, 256)
     mask_k, byt_k = mask256.reshape(-1, cw), ids_i256.to(torch.uint8).reshape(-1, cw)
+    fk.reset_launches()
     rows_k = shuffle.compact_bytes(mask_k, byt_k, 128)
+    ok_k, walk_k = took("chunk_compact_bytes")
     rows_kp = cp.compact_rows(mask_k, byt_k, 128)[0]
+    buf_k = torch.empty(byt_k.numel() + 8, dtype=torch.uint8, device=dev)
+    buf_k[8:].copy_(byt_k.reshape(-1))
+    byt_kl = buf_k[8:].view(byt_k.shape)
+    fk.reset_launches()
+    rows_kl = shuffle.compact_bytes(mask_k, byt_kl, 128)
+    ok_kl, walk_kl = took("chunk_compact_bytes_lanes")
     torch.cuda.synchronize()
+    require(ok_k, f"K: took {walk_k}, not its word walk")
+    require(ok_kl, f"K on the offset bytes: took {walk_kl}, not its lane walk")
     require(torch.equal(rows_k, rows_kp), "K: differs from the plain version")
+    require(torch.equal(rows_kl, rows_kp), "K's lane walk differs from the plain version")
     require(torch.equal(rows_k, chain[2]) and torch.equal(rows_k, exc_l),
             "K: differs from the exception rows of pack_ids and L")
+    del rows_kl
     emit("kernel_check", kernel="chunk_compact_bytes", byte_equal=True, max_abs_err=0.0,
-         rows=mask_k.shape[0], cw=cw, capacity=128)
+         rows=mask_k.shape[0], cw=cw, capacity=128, instantiation=walk_k,
+         equal_to_l=True, lanes_byte_equal=True, lanes_byte_offset=byt_kl.data_ptr() % 16)
     kernels["chunk_compact_bytes"] = {"max_abs_err": 0.0}
 
     # 4. end to end through the public API, one path at a time; the counters
@@ -1148,8 +1167,9 @@ def main() -> int:
          exc_peak_tile64=int(st_64[3].max()))
     missing = [k for k in ONEPASS_KERNELS + ("dct_quant",) if launches[path][k] == 0]
     require(not missing, f"{path}: kernels not launched: {missing}")
-    require(set(walks_e2e[path]) == {"chunk_compact_unified"},
-            f"{path}: J took {walks_e2e[path]}, not its word walk alone")
+    require(set(walks_e2e[path]) == {"chunk_compact_unified", "chunk_compact_bytes"}
+            and walks_e2e[path]["chunk_compact_bytes"] == 1,
+            f"{path}: J and K took {walks_e2e[path]}, not their word walks alone")
     require(err_o <= tolx["bench"] and err_64 <= tolx["bench"],
             f"{path}: pointwise bound violated")
     require(int(st_64[3].max()) <= 128, f"{path}: a tile-64 chunk row overflows 128")
@@ -1304,8 +1324,8 @@ def main() -> int:
              ptxas=ptxas.get(name))
     report["kernels"] = rows_out
 
-    # the tiled kernels' own device time (torch.profiler) beside the
-    # wrapper's CUDA-event time of the table above
+    # every kernel's own device time (torch.profiler) beside the wrapper's
+    # CUDA-event time of the table above
     event_ms = {r["name"]: r["ms"] for r in rows_out}
     report["kernel_device_time"] = {}
     for name, symbol in DEVICE_TIME.items():
@@ -1314,8 +1334,8 @@ def main() -> int:
         report["kernel_device_time"][name] = {"event_ms": event_ms[name], **dev_ms}
 
     # for the record, not in the table: H a second time at v1_cesm's
-    # geometry (the generic chain's call), and H and J's lane walks on the
-    # offset views of phase 3, timed as the table times
+    # geometry (the generic chain's call), and H, J and K's lane walks on
+    # the offset views of phase 3, timed as the table times
     h_bytes, j_bytes = timed["chunk_compact"][2], timed["chunk_compact_unified"][2]
     extra = {
         ("chunk_compact", "v1_cesm", "chunk_compact"): (
@@ -1330,6 +1350,10 @@ def main() -> int:
          "chunk_compact_unified_lanes"): (
             lambda: shuffle.compact_unified(mask_j, idb_jl, vals_j, 128, 128),
             timed["chunk_compact_unified"][1], j_bytes, library["chunk_compact_unified"]),
+        ("chunk_compact_bytes", "dpk_onepass, bytes 8 off 16", "chunk_compact_bytes_lanes"): (
+            lambda: shuffle.compact_bytes(mask_k, byt_kl, 128),
+            timed["chunk_compact_bytes"][1], timed["chunk_compact_bytes"][2],
+            library["chunk_compact_bytes"]),
     }
     report["kernel_time_extra"] = []
     for (name, geometry, inst), (kfn, pfn, n_bytes, lfn) in extra.items():
@@ -1347,9 +1371,9 @@ def main() -> int:
     # B, C and H-K once each, queued behind a device sleep (no host time):
     # cold, after 256 MB were written to flush the card's 50 MB of L2, and
     # warm, right after a call on the same inputs; beside the table's loop.
-    # Then H and J's lane walks (the design before their word walks) on the
-    # same inputs, launched through their entry points with word_walk 0,
-    # and H's two walks at v1_cesm's geometry
+    # Then H, J and K's lane walks (the design before their word walks) on
+    # the same inputs, launched through their entry points with word_walk
+    # 0, and H's two walks at v1_cesm's geometry
     def h_launch(mask, vals, capc, word_walk):
         rows = torch.empty((mask.shape[0], capc), dtype=torch.float32, device=dev)
         cnt = torch.empty((mask.shape[0],), dtype=torch.int32, device=dev)
@@ -1365,9 +1389,16 @@ def main() -> int:
                                   vals_j.data_ptr(), m.shape[0], m.shape[1], 128, 128, 128,
                                   exc.data_ptr(), ac.data_ptr(), word_walk)
 
+    def k_launch(word_walk):
+        rows = torch.empty((mask_k.shape[0], 128), dtype=torch.uint8, device=dev)
+        m = shuffle._mask_u8(mask_k)
+        return lambda: fk._launch("chunk_compact_bytes", m.data_ptr(), byt_k.data_ptr(),
+                                  m.shape[0], m.shape[1], 128, rows.data_ptr(), word_walk)
+
     single = {(k, "main"): timed[k][0] for k in L2_KERNELS} | {
         ("chunk_compact_lanes", "main"): h_launch(mask_h, vals_h, capc_h, 0),
         ("chunk_compact_unified_lanes", "main"): j_launch(0),
+        ("chunk_compact_bytes_lanes", "main"): k_launch(0),
         ("chunk_compact", "v1_cesm"): h_launch(mask_c, vals_c, capc_c, 1),
         ("chunk_compact_lanes", "v1_cesm"): h_launch(mask_c, vals_c, capc_c, 0)}
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)

@@ -26,25 +26,30 @@
 // because the TPU has no fast scatter or gather; that network is not carried
 // over. Two walks rank the masked samples here:
 //
-// The lane walk (I, K, and the second instantiations of H and J,
-// chunk_compact_lanes and chunk_compact_unified_lanes): one warp walks one
+// The lane walk (I, and the second instantiations of H, J and K,
+// chunk_compact_lanes, chunk_compact_unified_lanes and
+// chunk_compact_bytes_lanes): one warp walks one
 // chunk row 32 samples at a time, one mask byte a lane; __ballot_sync marks
 // the masked lanes, __popc of the lanes below gives each one its rank, and a
 // running count carries the rank across steps. J ranks the exceptions and
 // the escapes among them in the same walk, with two ballots a step. Any cw
 // that is a multiple of 32 works (the TPU kernels need cw % 128 == 0).
 //
-// The word walk (H chunk_compact and J chunk_compact_unified, for cw = 64,
-// 128, 256 or a multiple of 512, 16-byte aligned mask and id bytes, and rows
-// whose staging fits, words::takes): a warp step covers 512 samples, lane l
-// holding samples 16l .. 16l+15 as one 16-byte word (J: and their id bytes,
-// another). Byte tests in 32-bit words count a word's masked bytes (and,
-// where they are needed, turn it into 16 flags). A lane's first rank comes
-// from one ballot where no lane of the warp holds two masked samples (the
-// common case on H's escape masks), else from an inclusive shuffle scan over
-// the lanes of each chunk row (16, 8 or 4 lanes at cw = 256, 128, 64; the
-// warp from 512, where the warp carries the count across a row's cw/512
-// steps; J scans the exception and escape counts packed in one word). A lane
+// The word walk (H chunk_compact, J chunk_compact_unified and K
+// chunk_compact_bytes, for cw = 64, 128, 256 or a multiple of 512, 16-byte
+// aligned mask and id bytes, and rows whose staging fits, words::takes): a
+// warp step covers 512 samples, lane l holding samples 16l .. 16l+15 as one
+// 16-byte word (J and K: and their id bytes, another). K is J's exception
+// half alone: one template, compact_exceptions<AC>, compiles both, K with
+// the AC values compiled out. Byte tests in 32-bit words count a word's
+// masked bytes (and, where they are needed, turn it into 16 flags). A
+// lane's first rank comes from an inclusive shuffle scan over the lanes of
+// each chunk row (16, 8 or 4 lanes at cw = 256, 128, 64; the warp from 512,
+// where the warp carries the count across a row's cw/512 steps; J scans the
+// exception and escape counts packed in one word). H takes one ballot in
+// its place where no lane of the warp holds two masked samples, the common
+// case on its escape masks; on the exception masks of J and K some lane of
+// nearly every step holds two, and the test alone made them slower. A lane
 // then gathers only its kept values and writes them by rank into its row of
 // a zeroed staging copy in shared memory of the CTA's group of rows; after
 // one barrier the CTA stores the group's contiguous span of rows with
@@ -54,15 +59,20 @@
 // rows at 512), a row per warp above. CTAs are persistent (SMs x resident
 // CTAs, walking groups blockIdx.x, + gridDim.x, ...), with two staging
 // buffers and one barrier per group; each warp keeps the words of its next
-// two steps in flight (streaming loads into registers). J loads every id
-// word: on the exception masks J compacts most 16-byte words hold an
-// exception, and an id load that waits for its mask word made J no faster.
+// two steps in flight (streaming loads into registers). J and K load every
+// id word: an id load that waits for its mask word was no faster
+// (kernels/stage_split.py times that and K's other alternatives).
 //
 // What bounds them: bytes, with no arithmetic to speak of. Each kernel reads
 // the mask, 1 byte per sample, and a value only where it keeps one: H and K
 // the first capc masked values of a row, I one row slot per masked position,
-// J the id bytes too and the AC values it keeps. H, J and K
-// write their rows, I 4 bytes per sample.
+// J the id bytes too and the AC values it keeps. H, J and K write their
+// rows, I 4 bytes per sample. The word walks of J and K read every id word,
+// a second byte per sample, which sets their floor above that bound (K at
+// 32Mi samples reads 67 MB where the bound counts the 33.5 MB mask and the
+// kept bytes), and their walks (the scan, a shared byte store per
+// exception) cost about as much again: K without its id words is only a
+// few percent faster.
 
 #include "dpk_walk.cuh"
 
@@ -93,8 +103,8 @@ struct UnifiedArgs {
   int buf, ebytes;  // word walk: bytes of one staging buffer, of its exc rows
 };
 
-// The stable compaction of one chunk row by its warp (kernels H and K);
-// counts may be null.
+// The stable compaction of one chunk row by its warp (the lane walks of
+// kernels H and K); counts may be null.
 template <class T>
 __device__ __forceinline__ void compact_row(const uint8_t* __restrict__ mask,
                                             const T* __restrict__ vals,
@@ -127,9 +137,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 }
 
 __global__ void __launch_bounds__(WARPS * 32)
-    chunk_compact_bytes_kernel(const uint8_t* __restrict__ mask,
-                               const uint8_t* __restrict__ vals, long long nc,
-                               int cw, int capc, uint8_t* __restrict__ rows) {
+    chunk_compact_bytes_lanes_kernel(const uint8_t* __restrict__ mask,
+                                     const uint8_t* __restrict__ vals, long long nc,
+                                     int cw, int capc, uint8_t* __restrict__ rows) {
   compact_row(mask, vals, nc, cw, capc, rows, static_cast<int*>(nullptr));
 }
 
@@ -191,7 +201,7 @@ unsigned grid_of(long long nc) {
 }
 
 // ---------------------------------------------------------------------------
-// The word walk of H and J
+// The word walk of H, J and K
 // ---------------------------------------------------------------------------
 
 namespace words {
@@ -436,16 +446,19 @@ __global__ void __launch_bounds__(words::THREADS, 3)
   }
 }
 
-__global__ void __launch_bounds__(words::THREADS, 3)
-    chunk_compact_unified_kernel(const UnifiedArgs a) {
+// The exception walk of J (AC: the masked id bytes and, in the same walk,
+// the AC values of the escapes among them) and of K (!AC: the masked bytes
+// alone, from a.idb into a.exc; a.vals, a.ac, a.capc and a.cut unused).
+template <bool AC>
+__device__ __forceinline__ void compact_exceptions(const UnifiedArgs& a) {
   using namespace words;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, wid = tid >> 5;
   const Geo q(a.cw);
   const int nc = static_cast<int>(a.nc);
   const int groups = (nc + q.R - 1) / q.R;
-  const int need = max(a.cape, a.cut);  // exception ranks whose id byte is used
-  const unsigned below = lanes_below();
+  // exception ranks whose id byte is used
+  const int need = AC ? max(a.cape, a.cut) : a.cape;
   zero_shared(smem, 2 * a.buf, tid);
   __syncthreads();
   // the mask and id words of the warp's next two steps, in flight
@@ -466,10 +479,11 @@ __global__ void __launch_bounds__(words::THREADS, 3)
     float* sa = reinterpret_cast<float*>(se + a.ebytes);
     const int r0 = g * q.R;
     uint8_t* edst = a.exc + static_cast<long long>(r0) * a.cape;
-    float* adst = a.ac + static_cast<long long>(r0) * a.capc;
-    const int pe = pad_of(edst), pa = pad_of(adst);
+    float* adst = AC ? a.ac + static_cast<long long>(r0) * a.capc : nullptr;
+    const int pe = pad_of(edst), pa = AC ? pad_of(adst) : 0;
     const int wrow = wid * q.RW + q.seg;
-    const float* vw = a.vals + static_cast<long long>(r0 + wid * q.RW) * a.cw + (tid & 31) * 16;
+    const float* vw = AC ? a.vals + static_cast<long long>(r0 + wid * q.RW) * a.cw + (tid & 31) * 16
+                         : nullptr;
     for (int j = 0; j < q.Q; ++j) {
       const uint4 cur = m0, idw = i0;
       m0 = m1;
@@ -478,22 +492,13 @@ __global__ void __launch_bounds__(words::THREADS, 3)
       const int srow_i = wrow + j * q.rstep;
       // this lane's exceptions, and the escapes among them
       const unsigned mb = nonzero16(cur);
-      const unsigned eb = escape16(idw) & mb;
+      const unsigned eb = AC ? escape16(idw) & mb : 0u;
       const int c = __popc(mb), na = __popc(eb);
-      int before_e, before_a, tot_e;
-      if (__any_sync(FULL, c > 1)) {
-        // exception counts in the low half, escape counts in the high half
-        const unsigned inc = q.scan(static_cast<unsigned>(c | na << 16));
-        before_e = static_cast<int>(inc & 0xffffu) - c;
-        before_a = static_cast<int>(inc >> 16) - na;
-        tot_e = static_cast<int>(q.total(inc) & 0xffffu);
-      } else {
-        const unsigned be = __ballot_sync(FULL, c != 0) & q.segmask;
-        const unsigned ba = __ballot_sync(FULL, na != 0) & q.segmask;
-        before_e = __popc(be & below);
-        before_a = __popc(ba & below);
-        tot_e = __popc(be);
-      }
+      // exception counts in the low half, escape counts in the high half
+      const unsigned inc = q.scan(static_cast<unsigned>(c | na << 16));
+      const int before_e = static_cast<int>(inc & 0xffffu) - c;
+      const int before_a = static_cast<int>(inc >> 16) - na;
+      const int tot_e = static_cast<int>(q.total(inc) & 0xffffu);
       if (q.starts(j)) ecarry = acarry = 0;
       // ranks: the exception rank of this lane's first masked sample, and the
       // escape rank of its first escape (exact wherever the exception rank is
@@ -502,26 +507,36 @@ __global__ void __launch_bounds__(words::THREADS, 3)
       int ar = acarry + before_a;
       uint8_t* erow = se + pe + srow_i * a.cape;
       float* arow = sa + pa + srow_i * a.capc;
-      const float* v = vw + j * STEP;
+      const float* v = AC ? vw + j * STEP : nullptr;
       int kept = 0;
       for (unsigned m = mb; m != 0 && r < need; m &= m - 1, ++r) {
         const int b = __ffs(m) - 1;
         const unsigned id = byte16(idw, b);
         if (r < a.cape) erow[r] = static_cast<uint8_t>(id);
-        if (id == ESCAPE && r < a.cut) {
+        if (AC && id == ESCAPE && r < a.cut) {
           if (ar < a.capc) arow[ar] = v[b];
           ++ar;
           ++kept;
         }
       }
       ecarry += tot_e;
-      if (q.rstep == 0) acarry += __reduce_add_sync(FULL, kept);
+      if (AC && q.rstep == 0) acarry += __reduce_add_sync(FULL, kept);
     }
     __syncthreads();
     const int rows = min(q.R, nc - r0);
     store_span(se, pe, edst, rows * a.cape, tid);
-    store_span(sa, pa, adst, rows * a.capc, tid);
+    if (AC) store_span(sa, pa, adst, rows * a.capc, tid);
   }
+}
+
+__global__ void __launch_bounds__(words::THREADS, 3)
+    chunk_compact_unified_kernel(const UnifiedArgs a) {
+  compact_exceptions<true>(a);
+}
+
+__global__ void __launch_bounds__(words::THREADS, 3)
+    chunk_compact_bytes_kernel(const UnifiedArgs a) {
+  compact_exceptions<false>(a);
 }
 
 // CTAs of a persistent grid for a kernel whose dynamic shared memory
@@ -545,10 +560,11 @@ size_t compact_smem(int cw, int capc, int* buf) {
   return round_kb(2 * static_cast<size_t>(*buf));
 }
 
+// J's exception and AC rows; K's exception rows alone (capc 0).
 size_t unified_smem(int cw, int cape, int capc, int* buf, int* ebytes) {
   const int rows = words::group_rows(cw);
   *ebytes = words::region(rows, cape);
-  *buf = *ebytes + words::region(rows, 4LL * capc);
+  *buf = *ebytes + (capc > 0 ? words::region(rows, 4LL * capc) : 0);
   return round_kb(2 * static_cast<size_t>(*buf));
 }
 
@@ -599,11 +615,21 @@ extern "C" int dctz_chunk_expand(const uint8_t* mask, const unsigned* rows,
 
 extern "C" int dctz_chunk_compact_bytes(const uint8_t* mask, const uint8_t* vals,
                                         long long nc, int cw, int capc,
-                                        uint8_t* rows, void* stream) {
-  chunk_compact_bytes_kernel<<<grid_of(nc), WARPS * 32, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      mask, vals, nc, cw, capc, rows);
-  return static_cast<int>(cudaGetLastError());
+                                        uint8_t* rows, int word_walk, void* stream) {
+  if (!word_walk) {
+    chunk_compact_bytes_lanes_kernel<<<grid_of(nc), WARPS * 32, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+        mask, vals, nc, cw, capc, rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!words::takes(cw, capc, mask, vals) || capc < 1 || nc >= words::ROWS_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // J's exception half: the bytes in place of the id bytes, no AC rows
+  UnifiedArgs a{mask, vals, nullptr, nc, cw, capc, 0, capc, rows, nullptr, 0, 0};
+  static int cache[SMEM_SLOTS][tile::MAX_DEVICES] = {};
+  const size_t smem = unified_smem(cw, capc, 0, &a.buf, &a.ebytes);
+  const int r = words::group_rows(cw);
+  return launch_words(chunk_compact_bytes_kernel, a, smem, (nc + r - 1) / r, cache, stream);
 }
 
 extern "C" int dctz_chunk_compact_unified(const uint8_t* mask,
@@ -629,7 +655,7 @@ extern "C" int dctz_chunk_compact_unified(const uint8_t* mask,
 
 // Resident CTAs per SM at the launch configuration; the word walks at their
 // largest buffers on the API's paths (cw = 512, every capacity 512: H's
-// overflow retry).
+// overflow retry; K at the same width and capacity).
 extern "C" int dctz_ctas_per_sm_chunk_compact() {
   int buf = 0;
   return tile::tile_ctas_per_sm(chunk_compact_kernel, compact_smem(512, 512, &buf));
@@ -642,4 +668,9 @@ extern "C" int dctz_ctas_per_sm_chunk_compact_unified() {
                                 unified_smem(512, 512, 512, &buf, &ebytes));
 }
 extern "C" int dctz_ctas_per_sm_chunk_compact_unified_lanes() { return dctz::ctas_per_sm(chunk_compact_unified_lanes_kernel, WARPS * 32, 0); }
-extern "C" int dctz_ctas_per_sm_chunk_compact_bytes() { return dctz::ctas_per_sm(chunk_compact_bytes_kernel, WARPS * 32, 0); }
+extern "C" int dctz_ctas_per_sm_chunk_compact_bytes() {
+  int buf = 0, ebytes = 0;
+  return tile::tile_ctas_per_sm(chunk_compact_bytes_kernel,
+                                unified_smem(512, 512, 0, &buf, &ebytes));
+}
+extern "C" int dctz_ctas_per_sm_chunk_compact_bytes_lanes() { return dctz::ctas_per_sm(chunk_compact_bytes_lanes_kernel, WARPS * 32, 0); }

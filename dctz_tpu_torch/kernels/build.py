@@ -77,8 +77,8 @@ SIGNATURES = {
     "dctz_chunk_compact": [P, P, I64, I32, I32, P, P, I32, P],
     # mask, rows, nc, cw, capc, out, stream
     "dctz_chunk_expand": [P, P, I64, I32, I32, P, P],
-    # mask, vals, nc, cw, capc, rows, stream
-    "dctz_chunk_compact_bytes": [P, P, I64, I32, I32, P, P],
+    # mask, vals, nc, cw, capc, rows, word_walk, stream
+    "dctz_chunk_compact_bytes": [P, P, I64, I32, I32, P, I32, P],
     # mask, idb, vals, nc, cw, cape, capc, cut, exc, ac, word_walk, stream
     "dctz_chunk_compact_unified": [P, P, P, I64, I32, I32, I32, I32, P, P, I32,
                                    P],
@@ -105,9 +105,10 @@ OCCUPANCY = ("qtable_qmax", "dct_quant_verify", "dct_quant_verify_qt",
              "dequant_idct_qt", "dct_quant", "dct_quant_qt", "chunk_compact",
              "chunk_expand", "chunk_compact_unified", "chunk_compact_bytes",
              "fused_encode_dpk", "fused_decode_dpk")
-#: the lane walks of H and J (csrc/chunk_shuffle.cu), their second
+#: the lane walks of H, J and K (csrc/chunk_shuffle.cu), their second
 #: instantiations, whose resident CTAs per SM the library reports too
-LANE_WALKS = ("chunk_compact_lanes", "chunk_compact_unified_lanes")
+LANE_WALKS = ("chunk_compact_lanes", "chunk_compact_unified_lanes",
+              "chunk_compact_bytes_lanes")
 SIGNATURES.update({f"dctz_ctas_per_sm_{k}": [] for k in OCCUPANCY + LANE_WALKS + REFERENCES})
 
 

@@ -1,4 +1,4 @@
-"""Where kernels B, C, E, F, H, J, L and M spend their time: each timed
+"""Where kernels B, C, E, F, H, J, K, L and M spend their time: each timed
 whole and with one stage cut out at a time.
 
     python -m dctz_tpu_torch.kernels.stage_split [--csrc DIR] [--out FILE]
@@ -15,12 +15,15 @@ with every 977th sample x30 (the QT input of chip_smoke.py), F and L the bench
 array, M the streams B's plain version codes from it (tile 256), H the AC
 escapes of F's plain version at capacity 128 (the v1_ec encode's call), J
 the exception bytes of F's plain ids coded at tile 64 with their AC values
-at capacity 128 (pack_ids_with_ac's call in chip_smoke.py). The kernels
-come in groups (B and C; E and F; H and J; L and M), each with its cut
+at capacity 128 (pack_ids_with_ac's call in chip_smoke.py), K the exception
+mask and id bytes of the same ids coded at tile 256 at capacity 128
+(chip_smoke.py's dpk_onepass call). The kernels
+come in groups (B and C; E and F; H and J; K; L and M), each with its cut
 sets, oldest first; a group's cuts are those of its first set whose every
 edit finds its text. A cut variant computes wrong results on purpose, and
-only its time is read. Prints one JSON line per kernel and variant. Needs a
-CUDA card and nvcc.
+only its time is read; a design alternative (alt_ in its name) computes
+the kernel's result, which is checked, and is timed beside it. Prints one
+JSON line per kernel and variant. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -255,8 +258,15 @@ _OLD_J_EXC = "    if (on && rank < cape) eo[rank] = static_cast<uint8_t>(id);\n"
 _OLD_J_AC = "    if (esc && arank < capc) ao[arank] = v[e];\n"
 _H_SCATTER = "      if (c != 0 && r < a.capc) {\n"
 _H_STORE = "    store_span(st, pad, dst, rows * a.capc, tid);\n"
-_J_STORES = ("    store_span(se, pe, edst, rows * a.cape, tid);\n"
-             "    store_span(sa, pa, adst, rows * a.capc, tid);\n")
+_EXC_STORE = "    store_span(se, pe, edst, rows * a.cape, tid);\n"
+_J_STORES = _EXC_STORE + "    store_span(sa, pa, adst, rows * a.capc, tid);\n"
+#: J's walk as the template it shares with K (compact_exceptions<AC>)
+_J_STORES_AC = _EXC_STORE + "    if (AC) store_span(sa, pa, adst, rows * a.capc, tid);\n"
+_EXC_BYTE = ("        if (r < a.cape) erow[r] = static_cast<uint8_t>(id);\n",
+             "        if (r == -12345) a.exc[0] = static_cast<uint8_t>(id);\n")
+_AC_VALUE = ("          if (ar < a.capc) arow[ar] = v[b];\n",
+             "          if (ar == -12345) a.ac[0] = 0.f;\n")
+_NO_ID_LOAD = ("    i = load16(a.idb + ld.off, ok);\n", "    i = m;\n")
 
 
 #: the stores of words::store_span (H's rows, J's exception and AC rows)
@@ -292,19 +302,128 @@ HJ_CUTS = {
         "H scan_only": (HJ_SRC, [
             (_H_SCATTER, "      if (c != 0 && r == -12345) {\n"), (_H_STORE, "")]),
         "H no_store": _NO_STORE,
-        "J scan_only": (HJ_SRC, [
-            ("        if (r < a.cape) erow[r] = static_cast<uint8_t>(id);\n",
-             "        if (r == -12345) a.exc[0] = static_cast<uint8_t>(id);\n"),
-            ("          if (ar < a.capc) arow[ar] = v[b];\n",
-             "          if (ar == -12345) a.ac[0] = 0.f;\n"),
-            (_J_STORES, "")]),
+        "J scan_only": (HJ_SRC, [_EXC_BYTE, _AC_VALUE, (_J_STORES, "")]),
         "J no_store": _NO_STORE,
-        "J no_id_load": (HJ_SRC, [("    i = load16(a.idb + ld.off, ok);\n", "    i = m;\n")]),
+        "J no_id_load": (HJ_SRC, [_NO_ID_LOAD]),
     },
+}
+#: "exceptions": J's walk as the template compact_exceptions<AC>, which K
+#: shares (H's cuts as in "words")
+HJ_CUTS["exceptions"] = HJ_CUTS["words"] | {
+    "J scan_only": (HJ_SRC, [_EXC_BYTE, _AC_VALUE, (_J_STORES_AC, "")])}
+#: K's cut sets. "ballot": K on the lane walk's compact_row, before K had a
+#: word walk (its entry point takes no word_walk argument; the marker is
+#: the old kernel's signature); "exceptions": K as J's template without
+#: its AC half. scan_only: the mask and byte loads and the ranks, no byte
+#: stores to the staging or the rows; no_value_load: the mask words in
+#: place of the byte words (the lane walk: each kept byte its position);
+#: no_store: everything but the row stores
+_OLD_K = ("    chunk_compact_bytes_kernel(const uint8_t* __restrict__ mask,\n",
+          "    chunk_compact_bytes_kernel(const uint8_t* __restrict__ mask,\n")
+_OLD_KEEP = "    if (on && rank < capc) out[rank] = v[e];\n"
+K_CUTS = {
+    "ballot": {
+        "K scan_only": (HJ_SRC, [_OLD_K, (
+            _OLD_KEEP, "    if (on && rank == -12345) out[0] = T(0);\n"), _OLD_FILL]),
+        "K no_value_load": (HJ_SRC, [_OLD_K, (
+            _OLD_KEEP, "    if (on && rank < capc) out[rank] = static_cast<T>(e);\n")]),
+        "K no_store": (HJ_SRC, [_OLD_K, (
+            _OLD_KEEP, "    if (on && rank < capc && v[e] == T(123)) out[rank] = v[e];\n"),
+            _OLD_FILL]),
+    },
+    "exceptions": {
+        "K scan_only": (HJ_SRC, [_EXC_BYTE, (_EXC_STORE, "")]),
+        "K no_value_load": (HJ_SRC, [_NO_ID_LOAD]),
+        "K no_store": _NO_STORE,
+    },
+}
+#: design alternatives of J and K's word walk, timed beside it: unlike a
+#: cut, each computes the kernel's result. alt_gated_ids: an id word loaded
+#: only where its mask word, fetched a step earlier, is not zero
+#: (alt_gated_ids_2: two steps earlier, the mask words three steps ahead);
+#: alt_3_ahead: the words of three steps in flight, not two; alt_4_ctas:
+#: __launch_bounds__ for 4 CTAs per SM (64 registers); alt_ballot_test: H's
+#: ballot in place of the scan where no lane holds two exceptions (J and
+#: K); alt_ballot_ranks: ranks from five ballots of the count's bits in
+#: place of the scan
+_FETCH = ("  Cursor ld(q, a.cw, wid);\n"
+          "  const auto fetch = [&](uint4& m, uint4& i) {\n"
+          "    const bool ok = ld.valid(groups, nc);\n"
+          "    m = load16(a.mask + ld.off, ok);\n"
+          "    i = load16(a.idb + ld.off, ok);\n"
+          "    ld.next(q, a.cw);\n"
+          "  };\n"
+          "  uint4 m0, i0, m1, i1;\n"
+          "  fetch(m0, i0);\n"
+          "  fetch(m1, i1);\n")
+_GATED = ("  Cursor ld(q, a.cw, wid), li(q, a.cw, wid);\n"
+          "  const auto fetch_m = [&]() {\n"
+          "    const uint4 m = load16(a.mask + ld.off, ld.valid(groups, nc));\n"
+          "    ld.next(q, a.cw);\n"
+          "    return m;\n"
+          "  };\n"
+          "  const auto fetch_i = [&](const uint4& m) {\n"
+          "    const uint4 i = load16(a.idb + li.off, (m.x | m.y | m.z | m.w) != 0u);\n"
+          "    li.next(q, a.cw);\n"
+          "    return i;\n"
+          "  };\n")
+_NEXT = "      m0 = m1;\n      i0 = i1;\n      fetch(m1, i1);\n"
+_INC = "        const unsigned inc = q.scan(static_cast<unsigned>(c | na << 16));\n"
+_SCAN = ("      // exception counts in the low half, escape counts in the high half\n"
+         + _INC[2:] +
+         "      const int before_e = static_cast<int>(inc & 0xffffu) - c;\n"
+         "      const int before_a = static_cast<int>(inc >> 16) - na;\n"
+         "      const int tot_e = static_cast<int>(q.total(inc) & 0xffffu);\n")
+_SCANNED = (_INC + "        before_e = static_cast<int>(inc & 0xffffu) - c;\n"
+            "        before_a = static_cast<int>(inc >> 16) - na;\n"
+            "        tot_e = static_cast<int>(q.total(inc) & 0xffffu);\n")
+_BALLOT_TEST = (HJ_SRC, [(_SCAN, (
+    "      int before_e, before_a, tot_e;\n"
+    "      if (__any_sync(FULL, c > 1)) {\n" + _SCANNED + "      } else {\n"
+    "        const unsigned below = lanes_below();\n"
+    "        const unsigned be = __ballot_sync(FULL, c != 0) & q.segmask;\n"
+    "        before_e = __popc(be & below);\n"
+    "        before_a = __popc(__ballot_sync(FULL, na != 0) & q.segmask & below);\n"
+    "        tot_e = __popc(be);\n"
+    "      }\n"))])
+HJ_CUTS["exceptions"]["J alt_ballot_test"] = _BALLOT_TEST
+K_CUTS["exceptions"] |= {
+    "K alt_gated_ids": (HJ_SRC, [
+        (_FETCH, _GATED + "  uint4 m0 = fetch_m();\n  uint4 m1 = fetch_m();\n"
+         "  uint4 i0 = fetch_i(m0);\n"),
+        (_NEXT, "      m0 = m1;\n      m1 = fetch_m();\n      i0 = fetch_i(m0);\n")]),
+    "K alt_gated_ids_2": (HJ_SRC, [
+        (_FETCH, _GATED + "  uint4 m0 = fetch_m();\n  uint4 m1 = fetch_m();\n"
+         "  uint4 m2 = fetch_m();\n  uint4 i0 = fetch_i(m0);\n  uint4 i1 = fetch_i(m1);\n"),
+        (_NEXT, "      m0 = m1;\n      m1 = m2;\n      i0 = i1;\n      m2 = fetch_m();\n"
+         "      i1 = fetch_i(m1);\n")]),
+    "K alt_3_ahead": (HJ_SRC, [
+        ("  uint4 m0, i0, m1, i1;\n  fetch(m0, i0);\n  fetch(m1, i1);\n",
+         "  uint4 m0, i0, m1, i1, m2, i2;\n  fetch(m0, i0);\n  fetch(m1, i1);\n"
+         "  fetch(m2, i2);\n"),
+        (_NEXT, "      m0 = m1;\n      i0 = i1;\n      m1 = m2;\n      i1 = i2;\n"
+         "      fetch(m2, i2);\n")]),
+    "K alt_4_ctas": (HJ_SRC, [(
+        "__launch_bounds__(words::THREADS, 3)\n    chunk_compact_bytes_kernel",
+        "__launch_bounds__(words::THREADS, 4)\n    chunk_compact_bytes_kernel")]),
+    "K alt_ballot_test": _BALLOT_TEST,
+    "K alt_ballot_ranks": (HJ_SRC, [(_SCAN, (
+        "      int before_e, before_a, tot_e;\n"
+        "      if (AC) {\n" + _SCANNED + "      } else {\n"
+        "        const unsigned below = lanes_below();\n"
+        "        before_e = before_a = tot_e = 0;\n"
+        "#pragma unroll\n"
+        "        for (int k = 0; k < 5; ++k) {\n"
+        "          const unsigned bk = __ballot_sync(FULL, (c >> k) & 1) & q.segmask;\n"
+        "          before_e += __popc(bk & below) << k;\n"
+        "          tot_e += __popc(bk) << k;\n"
+        "        }\n"
+        "      }\n"))]),
 }
 #: the kernel groups: group -> (the sources timed whole, the cut sets)
 GROUPS = {"B, C": ((B_SRC, C_SRC), BC_CUTS), "E, F": ((E_SRC, F_SRC), EF_CUTS),
-          "H, J": ((HJ_SRC, HJ_SRC), HJ_CUTS), "L, M": ((L_SRC, M_SRC), LM_CUTS)}
+          "H, J": ((HJ_SRC, HJ_SRC), HJ_CUTS), "K": ((HJ_SRC,), K_CUTS),
+          "L, M": ((L_SRC, M_SRC), LM_CUTS)}
 
 
 
@@ -353,9 +472,11 @@ def _build(csrc: pathlib.Path, sets: dict, root: pathlib.Path) -> dict:
 
 
 def _inputs(torch):
-    """Kernel B's, C's, E's, F's, H's, J's, L's and M's arguments at the main
-    path's shapes (B, C, H, J and M from the plain versions on the card),
-    by kernel letter. H and J's end in the word_walk flag (1)."""
+    """Kernel B's, C's, E's, F's, H's, J's, K's, L's and M's arguments at
+    the main path's shapes (B, C, H, J, K and M from the plain versions on
+    the card), by kernel letter. H, J and K's end in the word_walk flag
+    (1). Also the outputs of each kernel with design alternatives (J's
+    and K's), by letter."""
     from ..config import CodecConfig
     from ..core import quantize as qz
     from ..core import transform
@@ -421,17 +542,23 @@ def _inputs(torch):
     ac_j = torch.empty((nc, CAPE), dtype=torch.float32, device=dev)
     j_args = (mask_j.data_ptr(), idb_j.data_ptr(), dcac_fp.data_ptr(), nc, CW, CAPE, CAPE,
               CAPE, exc_j.data_ptr(), ac_j.data_ptr(), 1)
+    _w, _pk, ids_256, mask_256 = idpack._code_tiles(ids_fp, N, 256)
+    mask_k, byt_k = mask_256.view(torch.uint8), ids_256.to(torch.uint8)
+    rows_k = torch.empty((nc, CAPE), dtype=torch.uint8, device=dev)
+    k_args = (mask_k.data_ptr(), byt_k.data_ptr(), nc, CW, CAPE, rows_k.data_ptr(), 1)
     keep = (ids, vals, width, packed, exc_t, ac_t, dc_b, outs_b, ids_c, acv_c, basis, xq,
             sf1, sf_q1, bits, ids_f, dcac_f, outs_l, out_m, ids_fp, dcac_fp, mask_h, rows_h,
-            cnt_h, mask_j, idb_j, exc_j, ac_j)
+            cnt_h, mask_j, idb_j, exc_j, ac_j, mask_k, byt_k, rows_k)
     return {"B": ("dctz_dpk_pack_compact", b_args),
             "C": ("dctz_dpk_unpack_expand", c_args),
             "E": ("dctz_qtable_qmax", e_args),
             "F": ("dctz_dct_quant", f_args),
             "H": ("dctz_chunk_compact", h_args),
             "J": ("dctz_chunk_compact_unified", j_args),
+            "K": ("dctz_chunk_compact_bytes", k_args),
             "L": ("dctz_fused_encode_dpk", l_args),
-            "M": ("dctz_fused_decode_dpk", m_args)}, {"cape": cape, "capc": capc}, keep
+            "M": ("dctz_fused_decode_dpk", m_args)}, {"cape": cape, "capc": capc}, keep, {
+                "J": (exc_j, ac_j), "K": (rows_k,)}
 
 
 def main() -> int:
@@ -449,13 +576,13 @@ def main() -> int:
     sets = cut_sets(csrc)
     set_of = {k: name for group, (name, _c) in sets.items() for k in group.split(", ")}
     libs = _build(csrc, sets, build.BUILD_DIR / "stage_split")
-    calls, caps, _keep = _inputs(torch)
+    calls, caps, _keep, outs = _inputs(torch)
     stream = torch.cuda.current_stream().cuda_stream
     fns = {}
     for name, (_src, path) in libs.items():
         sym, call_args = calls[name[0]]
         argtypes = build.SIGNATURES[sym]
-        if name[0] in "HJ" and set_of[name[0]] == "ballot":  # no word_walk flag
+        if name[0] in "HJK" and set_of[name[0]] == "ballot":  # no word_walk flag
             call_args, argtypes = call_args[:-1], argtypes[:-2] + argtypes[-1:]
         fn = getattr(ctypes.CDLL(str(path)), sym)
         fn.argtypes = argtypes
@@ -471,6 +598,14 @@ def main() -> int:
     times: dict = {name: [] for name in fns}
     for name in fns:
         run(name)
+    # a design alternative must compute what the whole kernel computes
+    for name in fns:
+        if " alt_" in name:
+            run(name[0] + " whole")
+            want = [t.clone() for t in outs[name[0]]]
+            run(name)
+            if not all(torch.equal(t, w) for t, w in zip(outs[name[0]], want)):
+                raise RuntimeError(f"{name}: differs from {name[0]} whole")
     torch.cuda.synchronize()
     for _ in range(ROUNDS):
         for name in fns:

@@ -71,7 +71,7 @@ LAUNCHES = {
 }
 
 
-#: launches of each instantiation of kernels H and J (ops/shuffle.walk_of):
+#: launches of each instantiation of kernels H, J and K (ops/shuffle.walk_of):
 #: the word walk under the kernel's name, the lane walk with "_lanes";
 #: LAUNCHES counts both under the kernel's name
 INSTANTIATIONS = {
@@ -79,6 +79,8 @@ INSTANTIATIONS = {
     "chunk_compact_lanes": 0,
     "chunk_compact_unified": 0,
     "chunk_compact_unified_lanes": 0,
+    "chunk_compact_bytes": 0,
+    "chunk_compact_bytes_lanes": 0,
 }
 
 

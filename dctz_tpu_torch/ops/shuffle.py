@@ -8,19 +8,21 @@ compact_bytes).
   I chunk_expand:          the inverse, rows back at the masked positions
   J chunk_compact_unified: the masked id bytes of a row and, in the same
                            walk, the values of the ESCAPE bytes among them
-  K chunk_compact_bytes:   H on uint8 values
+  K chunk_compact_bytes:   H on uint8 values: J's exception half alone
 
 The JAX package routes values through butterfly roll networks because the
 TPU has no fast scatter; the kernels here rank the masked samples of each
-row with warp scans (csrc/chunk_shuffle.cu). H and J have two
+row with warp scans (csrc/chunk_shuffle.cu). H, J and K have two
 instantiations each, chosen by the shape of the call (walk_of): the word
 walk (a 512-sample warp step, 16 mask bytes a lane, rows staged in shared
-memory, persistent CTAs) and the lane walk (chunk_compact_lanes,
-chunk_compact_unified_lanes: a warp ballot per 32 samples) for the rest.
+memory, persistent CTAs; J and K one template, K with J's AC half compiled
+out) and the lane walk (chunk_compact_lanes, chunk_compact_unified_lanes,
+chunk_compact_bytes_lanes: a warp ballot per 32 samples) for the rest; I
+has the lane walk alone.
 The plain versions are ops/compaction.compact_rows and expand_rows (J: two
 compact_rows). As in ops/dpk_fuse.py, a wrapper takes the plain version for
 CPU tensors and launches the kernel for CUDA tensors, or raises; it counts
-launches in dpk_fuse.LAUNCHES (H and J per instantiation also in
+launches in dpk_fuse.LAUNCHES (H, J and K per instantiation also in
 dpk_fuse.INSTANTIATIONS).
 
 As in the JAX package, J and K's output rows are min(capacity, cw) wide.
@@ -42,11 +44,11 @@ STAGE_MAX = 96 * 1024
 
 
 def walk_of(cw: int, row_bytes: int, *ptrs: int) -> str:
-    """Which instantiation of kernels H and J takes a call: "words", the
+    """Which instantiation of kernels H, J and K takes a call: "words", the
     word walk, where the chunk width cw is 64, 128, 256 or a multiple of
-    512, every byte input's address in ptrs (the mask; J's id bytes too)
-    starts on 16 bytes, and a group's rows of row_bytes each (H: 4 capc, J:
-    cape + 4 capc) fit STAGE_MAX (a group: 8 rows above cw 512, else 8 *
+    512, every byte input's address in ptrs (the mask; J's id bytes and K's
+    bytes too) starts on 16 bytes, and a group's rows of row_bytes each (H:
+    4 capc, J: cape + 4 capc, K: capc) fit STAGE_MAX (a group: 8 rows above cw 512, else 8 *
     1024 / cw); else "lanes", the lane walk. The C entry points refuse the
     word walk where this rule does not give it."""
     if not (cw in (64, 128, 256) or (cw > 0 and cw % STEP == 0)):
@@ -121,7 +123,8 @@ def expand(mask: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 def compact_bytes(mask: torch.Tensor, byt: torch.Tensor, capc: int) -> torch.Tensor:
     """Kernel K. mask (nc, cw) bool/u8, byt (nc, cw) uint8 -> (nc, min(capc,
-    cw)) uint8: each row's masked bytes in position order, zero-filled."""
+    cw)) uint8: each row's masked bytes in position order, zero-filled. The
+    walk is walk_of's for rows of min(capc, cw) bytes and both inputs."""
     nc, cw = mask.shape
     width = min(capc, cw)
     if not dpk_fuse._on_cuda(mask, byt):
@@ -133,8 +136,11 @@ def compact_bytes(mask: torch.Tensor, byt: torch.Tensor, capc: int) -> torch.Ten
                          f"{tuple(mask.shape)}, capc {capc}")
     rows = torch.empty((nc, width), dtype=torch.uint8, device=byt.device)
     if nc:
-        dpk_fuse._launch("chunk_compact_bytes", _mask_u8(mask).data_ptr(),
-                         byt.data_ptr(), nc, cw, width, rows.data_ptr())
+        m = _mask_u8(mask)
+        walk = walk_of(cw, width, m.data_ptr(), byt.data_ptr())
+        dpk_fuse._launch("chunk_compact_bytes", m.data_ptr(), byt.data_ptr(), nc, cw,
+                         width, rows.data_ptr(), int(walk == "words"),
+                         instantiation=_instantiation("chunk_compact_bytes", walk))
     return rows
 
 

@@ -601,7 +601,7 @@ def test_tf32_is_refused(dev):
 def test_kernels_j_k_byte_equal(dev, cw, density):
     """J and K against their plain versions, byte for byte, at capacities
     that are not lane multiples, at J's cut above cape (96 -> 128) and at
-    cw; J takes the instantiation named."""
+    cw; J and K take the instantiation named."""
     from dctz_tpu_torch.ops import dpk_fuse as fk
     from dctz_tpu_torch.ops import shuffle
 
@@ -612,9 +612,12 @@ def test_kernels_j_k_byte_equal(dev, cw, density):
     idb = torch.from_numpy(np.where(rng.random((nc, cw)) < 0.3, np.uint8(255), idb)).to(dev)
     vals = torch.from_numpy(rng.standard_normal((nc, cw)).astype(np.float32)).to(dev)
     for capc in (96, 130):
+        walk = _walk_case(cw)
+        assert shuffle.walk_of(cw, min(capc, cw), mask.data_ptr(), idb.data_ptr()) == walk
         fk.reset_launches()
         got = shuffle.compact_bytes(mask, idb, capc)
         assert fk.LAUNCHES["chunk_compact_bytes"] == 1
+        assert fk.INSTANTIATIONS[shuffle._instantiation("chunk_compact_bytes", walk)] == 1
         assert torch.equal(got, shuffle.compact_bytes(mask.cpu(), idb.cpu(), capc).to(dev))
     for cape, capc in ((96, 96), (130, 130), (96, 130), (cw, cw)):
         walk = _walk_case(cw)
@@ -629,12 +632,12 @@ def test_kernels_j_k_byte_equal(dev, cw, density):
         assert torch.equal(got[1].cpu().view(torch.int32), ref[1].view(torch.int32))
 
 
-@pytest.mark.parametrize("offset", [1, 4, 16])
-@pytest.mark.parametrize("cw", [128, 512])
+@pytest.mark.parametrize("cw,offset", [(cw, off) for cw in (128, 512) for off in (1, 4, 16)]
+                         + [(1024, 16)])
 def test_kernels_h_j_on_mask_views(dev, cw, offset):
-    """H and J on mask and id-byte views that start `offset` bytes into
+    """H, J and K on mask and id-byte views that start `offset` bytes into
     their buffers: off 16 bytes they take the lane walk, on 16 the word
-    walk; both give their plain versions' bytes, at a density where rows
+    walk; all give their plain versions' bytes, at a density where rows
     overflow 96 slots (0.9)."""
     from dctz_tpu_torch.ops import compaction as cp
     from dctz_tpu_torch.ops import dpk_fuse as fk
@@ -653,12 +656,10 @@ def test_kernels_h_j_on_mask_views(dev, cw, offset):
     fk.reset_launches()
     rows, counts = shuffle.compact_f32(mask, vals, 96)
     got = shuffle.compact_unified(mask, idb, vals, 96, 96)
-    assert fk.INSTANTIATIONS == {
-        shuffle._instantiation("chunk_compact", walk): 1,
-        shuffle._instantiation("chunk_compact_unified", walk): 1,
-        **{k: 0 for k in fk.INSTANTIATIONS
-           if k not in (shuffle._instantiation("chunk_compact", walk),
-                        shuffle._instantiation("chunk_compact_unified", walk))}}
+    got_k = shuffle.compact_bytes(mask, idb, 96)
+    took = {shuffle._instantiation(k, walk)
+            for k in ("chunk_compact", "chunk_compact_unified", "chunk_compact_bytes")}
+    assert fk.INSTANTIATIONS == {k: int(k in took) for k in fk.INSTANTIATIONS}
     rows_p, counts_p = cp.compact_rows(mask, vals, 96)
     assert bool((counts_p > 96).any())
     assert torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
@@ -666,6 +667,8 @@ def test_kernels_h_j_on_mask_views(dev, cw, offset):
     ref = shuffle.compact_unified(mask.cpu(), idb.cpu(), vals.cpu(), 96, 96)
     assert torch.equal(got[0].cpu(), ref[0])
     assert torch.equal(got[1].cpu().view(torch.int32), ref[1].view(torch.int32))
+    assert torch.equal(got_k.cpu(), shuffle.compact_bytes(mask.cpu(), idb.cpu(), 96))
+    assert torch.equal(got_k, got[0])
 
 
 @pytest.mark.parametrize("nblk,b,cape", [(512, 64, 128), (700, 64, 128), (700, 32, 256),
@@ -1131,16 +1134,17 @@ def _ptxas_spills(log: str) -> dict:
 
 
 def test_kernels_h_j_occupancy(dev):
-    """H and J's word walks fit at least 2 resident CTAs per SM at their
-    largest buffers on the API's paths; neither walk of either spills."""
+    """H, J and K's word walks fit at least 2 resident CTAs per SM at their
+    largest buffers on the API's paths; neither walk of any spills."""
     from dctz_tpu_torch.kernels import build
 
     build.lib()
-    for k in ("chunk_compact", "chunk_compact_unified"):
+    for k in ("chunk_compact", "chunk_compact_unified", "chunk_compact_bytes"):
         assert build.ctas_per_sm(k) >= 2, k
     spills = _ptxas_spills(build.PTXAS_LOG.read_text())
     for k in ("chunk_compact", "chunk_compact_lanes", "chunk_compact_unified",
-              "chunk_compact_unified_lanes"):
+              "chunk_compact_unified_lanes", "chunk_compact_bytes",
+              "chunk_compact_bytes_lanes"):
         assert spills.get(k) == 0, (k, spills.get(k))
 
 

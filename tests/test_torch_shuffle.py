@@ -132,20 +132,27 @@ WALK_RULE = [
     (512, 128 + 4 * 128, (0, 8), "lanes"), (128, 4 * 128, (4,), "lanes"),
     (4096, 4 * 4096, (0,), "lanes"), (2048, 4 * 2048, (0,), "words"),
     (64, 4 * 64, (16,), "words"),
+    # K: rows of min(capc, cw) bytes, the mask and the bytes aligned
+    (512, 128, (0, 0), "words"), (64, 64, (0, 0), "words"),
+    (1024, 130, (0, 16), "words"), (8192, 8192, (0, 0), "words"),
+    (512, 128, (0, 1), "lanes"), (512, 128, (4, 0), "lanes"),
+    (384, 128, (0, 0), "lanes"), (16384, 16384, (0, 0), "lanes"),
 ]
 
 
 @pytest.mark.parametrize("cw,row_bytes,offsets,walk", WALK_RULE)
 def test_walk_of_rule(cw, row_bytes, offsets, walk):
-    """Kernels H and J take their word walk at chunk widths 64, 128, 256 and
-    multiples of 512 with 16-byte aligned byte inputs and rows whose
-    staging fits (8 rows of 4096 floats do not); else their lane walk."""
+    """Kernels H, J and K take their word walk at chunk widths 64, 128, 256
+    and multiples of 512 with 16-byte aligned byte inputs and rows whose
+    staging fits (8 rows of 4096 floats, or of 16384 bytes, do not); else
+    their lane walk."""
     from dctz_tpu_torch.ops import shuffle as tsh
 
     ptrs = [4096 * (i + 1) + off for i, off in enumerate(offsets)]
     assert tsh.walk_of(cw, row_bytes, *ptrs) == walk
-    assert tsh._instantiation("chunk_compact", walk) == (
-        "chunk_compact" if walk == "words" else "chunk_compact_lanes")
+    for kernel in ("chunk_compact", "chunk_compact_unified", "chunk_compact_bytes"):
+        assert tsh._instantiation(kernel, walk) == (
+            kernel if walk == "words" else kernel + "_lanes")
 
 
 def _id_bytes(cw, seed):
