@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out build/chip_smoke.json]
 
-Drives the port's paths once each at full size and checks them. Twelve
+Drives the port's paths once each at full size and checks them. Sixteen
 paths, on 32Mi float32 elements (128 MB) unless named otherwise:
 
   DPK v2, the bench.py configuration (eb 1e-3, v2 container, DPK ids, verify
@@ -22,6 +22,12 @@ paths, on 32Mi float32 elements (128 MB) unless named otherwise:
   idpack.pack_ids_with_ac at tile 64 (kernel J), then M at tile 64; and
   shuffle.compact_bytes (kernel K, which no caller reaches) on the DPK
   exception bytes, equal to L's exception rows, in its word walk.
+  The relaxed analysis, dct_precision="high" (three bfloat16 products on the
+  tensor cores, the RELAXED instantiations of A, A-QT, E, F and G), on the
+  bench array: ec_high_dtzs (bench.py's configuration: A-relaxed once per
+  16Mi frame), qt_high (DPK QT, monolithic: E-relaxed, A-QT-relaxed),
+  v1_ec_high (v1 EC, verify on: F-relaxed and the HIGHEST repair) and
+  v1_qt_high (v1 QT, verify on: E-relaxed, G-relaxed).
 
 Phases, each printed as one JSON line:
 
@@ -33,7 +39,8 @@ Phases, each printed as one JSON line:
      kernels' library; for C the lesser of its two instantiations, the
      staged one at its largest buffers) beside those registers and spills.
      A, A-QT, B, C (both instantiations), D, D-QT, E, F, G, H, J, K, L and
-     M (C, H, J, K and M in both instantiations) must not spill, and their
+     M (C, H, J, K and M in both instantiations) and the RELAXED
+     instantiations of A, A-QT, E, F and G must not spill, and their
      first instantiations must fit at least 2 CTAs per SM (H, J and K's word
      walks at their largest buffers on the API's paths, every capacity
      512); the lane walks of H, J and K and the card-only references L_ref
@@ -58,6 +65,16 @@ Phases, each printed as one JSON line:
      taken from one compress of the CESM-sized input), I byte-equal on the
      rows the decode of the v1_ec container hands it (and equal to
      masked_scatter of its AC stream).
+     The RELAXED instantiations on the bench array, each against its plain
+     version (transform.dot_bf16x3 on the card): the largest coefficient
+     difference in eps32 * max|x/sf| of its block beside RELAXED_BUDGET
+     (stored QT escapes within that times eb*qt_factor/q[k] plus 4 ulp) and
+     the ids that differ (at most 1e-5 of them); A-relaxed (verify off) =
+     F-relaxed, A-QT-relaxed = G-relaxed and E-relaxed = the clamped maximum
+     over A-relaxed's coefficients, bit for bit (E also on the x30 input,
+     whose qtable has entries above 1); the HIGHEST arm beyond the
+     budget somewhere; "screen" lines for A-relaxed and A-QT-relaxed (their
+     budget is 1024 eps) beside A's and A-QT's.
      The last four on the bench array: L's integer streams byte-equal to
      its plain version's (AC and DC within 32 ulp of max|x/sf|), all its
      streams equal to F -> idpack.pack_ids -> H, and the card-only
@@ -87,7 +104,10 @@ Phases, each printed as one JSON line:
      dpk_fuse.INSTANTIATIONS counts them), the container family expected, the
      pointwise bound satisfied, the ratio within 0.1% of the plain (CPU)
      path's, each path's output decoded by the other within the bound, and a
-     DTZS decode bit-equal to the monolithic decode of the same data
+     DTZS decode bit-equal to the monolithic decode of the same data (the
+     relaxed paths: none of the HIGHEST forward kernels launched, and a
+     "relaxed_vs_highest" line, the ratio and error beside the HIGHEST path
+     of the same mode)
      (dpk_onepass: both decodes within the bound, every kernel > 0, K's rows
      equal to L's exception rows)
   5. times, per path: compress and decompress GB/s (median of warm runs) and
@@ -96,7 +116,8 @@ Phases, each printed as one JSON line:
      traced run of each direction of the bench-array DTZS paths (the
      stream's per-segment spans); each kernel's time beside its plain
      version's (CUDA events), its bound (B's counts the ids, the DC values
-     and the escapes it keeps, not the whole coefficient array) and, for H,
+     and the escapes it keeps, not the whole coefficient array; the RELAXED
+     instantiations' operations are bf16 tensor-core FLOPs) and, for H,
      I, J and K, one PyTorch
      call that computes the same function from or to the tight stream
      (library_ms); H a second time at v1_cesm's geometry, and H, J and K's
@@ -143,7 +164,14 @@ E_ULPS = 4
 RATIO_REL_TOL = 1e-3
 EPS32 = 2.0 ** -23
 PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores (NVIDIA data sheet, H100 SXM)
+PEAK_BF16 = 989e12  # dense bf16 FLOP/s of the tensor cores (same sheet)
 PEAK_BYTES = 3.35e12  # bytes/s of HBM3
+#: a RELAXED kernel's coefficients against its plain version
+#: (transform.dot_bf16x3), in eps32 * max|x/sf| of the block: both take the
+#: same bfloat16 parts, whose products are exact in float32, so they differ
+#: only by the order of the float32 accumulation inside each product (the
+#: tensor cores' against cuBLAS'); tests/test_torch_cuda.py holds the same
+RELAXED_BUDGET = 32
 
 EC_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
               "dequant_idct")
@@ -161,17 +189,37 @@ PERSISTENT_KERNELS = TILE_KERNELS + ("dpk_pack_compact", "dpk_unpack_expand",
 SECOND_INSTANTIATIONS = ("dpk_unpack_expand_wide", "fused_decode_dpk_lanes",
                          "chunk_compact_lanes", "chunk_compact_unified_lanes",
                          "chunk_compact_bytes_lanes")
+#: the RELAXED instantiations (dct_precision="high": the bf16x3 analysis on
+#: the tensor cores) of A, A-QT, E, F and G, by the name of their launch
+#: counter and table row
+RELAXED_KERNELS = ("dct_quant_verify_relaxed", "dct_quant_verify_qt_relaxed",
+                   "qtable_qmax_relaxed", "dct_quant_relaxed", "dct_quant_qt_relaxed")
+PERSISTENT_KERNELS += RELAXED_KERNELS
+#: the template parameters of the kernels that take more than QT (ptxas_table
+#: and DEVICE_TIME read the instantiation from them)
+TEMPLATE_PARAMS = {"dct_quant_verify": ("qt", "relaxed"), "dct_quant": ("qt", "relaxed"),
+                   "qtable_qmax": ("relaxed",)}
+
+
+def symbol_of(name: str) -> str:
+    """The demangled symbol of the instantiation that the table row `name`
+    times, e.g. dct_quant_verify_kernel<true, false> for dct_quant_verify_qt."""
+    base = name.removesuffix("_relaxed").removesuffix("_qt")
+    params = TEMPLATE_PARAMS.get(base, ("qt",))
+    flags = {"qt": base + "_qt" in name, "relaxed": name.endswith("_relaxed")}
+    return base + "_kernel<" + ", ".join(
+        "true" if flags[p] else "false" for p in params) + ">"
+
+
 #: every kernel of the table, and the symbol by which phase 5 finds its own
 #: device time in the profiler: the instantiation that the table's call
 #: takes (C's staged one at the main path's capacities, H, J and K's word
-#: walks)
-DEVICE_TIME = {k: ("qtable_qmax_kernel" if k == "qtable_qmax"
-                   else k.removesuffix("_qt") + ("_kernel<true>" if k.endswith("_qt")
-                                                 else "_kernel<false>"))
-               for k in TILE_KERNELS} | {k: k + "_kernel" for k in (
-                   "dpk_pack_compact", "dpk_unpack_expand", "fused_encode_dpk",
-                   "fused_decode_dpk", "chunk_compact", "chunk_expand",
-                   "chunk_compact_unified", "chunk_compact_bytes")}
+#: walks; the template arguments of A, D, E, F and G)
+DEVICE_TIME = {k: symbol_of(k) for k in TILE_KERNELS + RELAXED_KERNELS} | {
+    k: k + "_kernel" for k in (
+        "dpk_pack_compact", "dpk_unpack_expand", "fused_encode_dpk",
+        "fused_decode_dpk", "chunk_compact", "chunk_expand",
+        "chunk_compact_unified", "chunk_compact_bytes")}
 #: kernels timed once more with a single queued launch, cold and warm in L2
 L2_KERNELS = ("dpk_pack_compact", "dpk_unpack_expand", "chunk_compact", "chunk_expand",
               "chunk_compact_unified", "chunk_compact_bytes")
@@ -181,6 +229,12 @@ QT_KERNELS = ("qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
 V1_EC_KERNELS = ("dct_quant", "chunk_compact", "chunk_expand", "dequant_idct")
 V1_QT_KERNELS = ("qtable_qmax", "dct_quant_qt", "chunk_compact", "chunk_expand",
                  "dequant_idct_qt")
+#: the relaxed paths' kernels: the RELAXED forward instantiations and the
+#: same packing and decode kernels as their HIGHEST paths
+EC_HIGH_KERNELS = ("dct_quant_verify_relaxed",) + EC_KERNELS[1:]
+QT_HIGH_KERNELS = ("qtable_qmax_relaxed", "dct_quant_verify_qt_relaxed") + QT_KERNELS[2:]
+V1_EC_HIGH_KERNELS = ("dct_quant_relaxed",) + V1_EC_KERNELS[1:]
+V1_QT_HIGH_KERNELS = ("qtable_qmax_relaxed", "dct_quant_qt_relaxed") + V1_QT_KERNELS[2:]
 GENERIC_KERNELS = ("chunk_compact", "chunk_expand", "dequant_idct")
 #: the one-pass DPK path (its own block in phase 4, not a PATHS entry: it
 #: runs through the research entry points and pack_ids_with_ac, not
@@ -205,14 +259,31 @@ PATHS = {
     "v1_cesm": (dict(verify=True), "cesm", GENERIC_KERNELS),
     "v2_deflate": (dict(container="v2", ids_codec="deflate", segment_elems=0,
                         verify=True), "bench", V1_EC_KERNELS),
+    # dct_precision="high", the relaxed analysis
+    "ec_high_dtzs": (dict(DPK, mode="ec", segment_elems="auto", dct_precision="high"),
+                     "bench", EC_HIGH_KERNELS),
+    "qt_high": (dict(DPK, mode="qt", segment_elems=0, dct_precision="high"), "bench",
+                QT_HIGH_KERNELS),
+    "v1_ec_high": (dict(verify=True, dct_precision="high"), "bench", V1_EC_HIGH_KERNELS),
+    "v1_qt_high": (dict(mode="qt", verify=True, dct_precision="high"), "bench",
+                   V1_QT_HIGH_KERNELS),
 }
+#: each relaxed path and the HIGHEST path of the same mode and container
+#: whose ratio it is printed beside
+HIGH_VS_HIGHEST = {"ec_high_dtzs": "ec_dtzs", "qt_high": "qt",
+                   "v1_ec_high": "v1_ec_verify", "v1_qt_high": "v1_qt"}
+#: the monolithic path whose decode a DTZS path's must equal bit for bit
+DTZS_TWIN = {"ec_dtzs": "ec", "qt_dtzs": "qt", "qt_x30_dtzs": "qt_x30"}
 #: the path whose launch counts the kernel table reports (bench.py's
 #: configuration for the DPK EC kernels, its QT twin for the QT ones, the
 #: package's default, v1 EC, for the non-DPK kernels)
 MAIN_PATH = {k: "ec_dtzs" for k in EC_KERNELS} | {
     k: "qt_dtzs" for k in QT_KERNELS if k not in EC_KERNELS} | {
     "dct_quant": "v1_ec", "chunk_compact": "v1_ec", "chunk_expand": "v1_ec",
-    "dct_quant_qt": "v1_qt"} | {k: "dpk_onepass" for k in ONEPASS_KERNELS}
+    "dct_quant_qt": "v1_qt"} | {k: "dpk_onepass" for k in ONEPASS_KERNELS} | {
+    "dct_quant_verify_relaxed": "ec_high_dtzs", "dct_quant_verify_qt_relaxed": "qt_high",
+    "qtable_qmax_relaxed": "qt_high", "dct_quant_relaxed": "v1_ec_high",
+    "dct_quant_qt_relaxed": "v1_qt_high"}
 SOURCES = {
     "qtable_qmax": ("dctz_tpu_torch/csrc/qtable_qmax.cu",
                     "dctz_tpu/ops/fused_encode.py:203"),
@@ -245,6 +316,9 @@ SOURCES = {
     "fused_decode_dpk": ("dctz_tpu_torch/csrc/fused_decode_dpk.cu",
                          "dctz_tpu/ops/research/fused_decode.py:380"),
 }
+#: the RELAXED instantiations replace the relaxed arms of the same TPU
+#: kernels (dpk_fuse.py:510-516; fused_encode.py:122-131, :92-103, :148-173)
+SOURCES |= {k: SOURCES[k.removesuffix("_relaxed")] for k in RELAXED_KERNELS}
 #: what the library yardstick of a kernel computes, where there is one
 LIBRARY_NOTE = {
     "chunk_compact": "torch.masked_select(vals, mask): the tight stream the "
@@ -325,14 +399,19 @@ def wall_s(fn, reps: int) -> float:
 
 
 def ptxas_table(log: str) -> dict:
-    """Registers, stack and spills per kernel (the QT instantiations of the
-    templated kernels get a _qt suffix) from nvcc's -Xptxas -v output."""
+    """Registers, stack and spills per kernel (the QT and RELAXED
+    instantiations of the templated kernels get a _qt and a _relaxed suffix,
+    TEMPLATE_PARAMS) from nvcc's -Xptxas -v output."""
     out, name = {}, None
     for ln in log.splitlines():
-        # mangled: ...<length><name>_kernel[ILb<QT>E]...
-        m = re.search(r"entry function '.*?\d+([a-z_]+)_kernel(ILb([01])E)?", ln)
+        # mangled: ...<length><name>_kernel[I(Lb<0|1>E)+E]...
+        m = re.search(r"entry function '.*?\d+([a-z_]+)_kernel((?:Lb[01]E|I)*)", ln)
         if m:
-            name = m.group(1) + ("_qt" if m.group(3) == "1" else "")
+            name = m.group(1)
+            flags = dict(zip(TEMPLATE_PARAMS.get(name, ("qt",)),
+                             (f == "1" for f in re.findall(r"Lb([01])E", m.group(2)))))
+            name += ("_qt" if flags.get("qt") else "") + (
+                "_relaxed" if flags.get("relaxed") else "")
             out[name] = {}
             continue
         if name is None:
@@ -432,7 +511,8 @@ def profiled_kernel_ms(fn, symbol: str, reps: int) -> dict:
             torch.cuda.synchronize()
         evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
                and not ev.name.startswith("Activity Buffer")]
-        mine = [ev.time_range.elapsed_us() for ev in evs if symbol in ev.name]
+        mine = [ev.time_range.elapsed_us() for ev in evs
+                if symbol.replace(" ", "") in ev.name.replace(" ", "")]
         if len(mine) == reps:
             break
     every = sum(ev.time_range.elapsed_us() for ev in evs)
@@ -456,10 +536,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(n_bytes: int, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: int, flops: float, peak: float = PEAK_FP32) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the fp32 operations over the fp32 peak."""
-    tb, tf = n_bytes / PEAK_BYTES, flops / PEAK_FP32
+    memory rate and the operations over their peak (fp32 outside the tensor
+    cores unless named)."""
+    tb, tf = n_bytes / PEAK_BYTES, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -659,14 +740,20 @@ def main() -> int:
     # A's L2 screen on the bench and x30 inputs, EC and QT (each input's own
     # qtable): blocks sent to the exact check and blocks repaired, through
     # A's counters, beside the plain version's counts of the same
+    # (the RELAXED instantiations too: their screen's budget is 1024 eps)
     report["screen"] = []
     for inp, x_in, sf_in, tol_in in (("bench", xp, sf, tol), ("x30", xq, sf_q, tol_q)):
         q_in = fused_encode.qtable_qmax(x_in, sf_in, cfg.error_bound)
-        for name, q, c in (("dct_quant_verify", None, cfg), ("dct_quant_verify_qt", q_in, cfg_qt)):
+        q_in_r = fused_encode.qtable_qmax(x_in, sf_in, cfg.error_bound, relaxed=True)
+        for name, q, c, rlx in (("dct_quant_verify", None, cfg, False),
+                                ("dct_quant_verify_qt", q_in, cfg_qt, False),
+                                ("dct_quant_verify_relaxed", None, cfg, True),
+                                ("dct_quant_verify_qt_relaxed", q_in_r, cfg_qt, True)):
             ck = torch.zeros(2, dtype=torch.int64, device=dev)
             cp_ = torch.zeros(2, dtype=torch.int64, device=dev)
-            fk.dct_quant_verify(x_in, sf_in, tol_in, n, cfg.error_bound, True, q, ck)
-            fk._dct_quant_verify_plain(x_in, sf_in, tol_in, n, c, True, q, cp_)
+            fk.dct_quant_verify(x_in, sf_in, tol_in, n, cfg.error_bound, True, q, ck,
+                                relaxed=rlx)
+            fk._dct_quant_verify_plain(x_in, sf_in, tol_in, n, c, True, q, cp_, rlx)
             (flagged, repaired), (flagged_p, missed_p) = ck.tolist(), cp_.tolist()
             row = {"kernel": name, "input": inp, "blocks": nblk_pad, "flagged": flagged,
                    "repaired": repaired, "flagged_share": flagged / nblk_pad,
@@ -741,6 +828,146 @@ def main() -> int:
     require(mism_g == 0, f"G: {mism_g} id mismatches")
     require(over_g == 0, "G: stored values beyond the budget")
     kernels["dct_quant_qt"] = {"max_abs_err": err_g, "id_mismatch": 0.0}
+
+    # the RELAXED instantiations (dct_precision="high") on the bench array,
+    # as the relaxed paths call them, each against its plain version
+    # (transform.dot_bf16x3 on the card): the largest coefficient difference
+    # in eps32 * max|x/sf| of its block beside RELAXED_BUDGET (stored QT
+    # escapes: that budget times eb*qt_factor/q[k], plus 4 ulp) and the ids
+    # that differ (at most A_ID_MISMATCH_MAX of them: a coefficient within
+    # the budget of a bin edge); A-relaxed (verify off) equal to F-relaxed
+    # and A-QT-relaxed to G-relaxed, E-relaxed to the clamped maximum over
+    # A-relaxed's coefficients, bit for bit (one routine,
+    # dct_tile.cuh:tile_product_bf16x3); and the HIGHEST arm's coefficients
+    # beyond the budget somewhere (the relaxed launch took the relaxed arm)
+    mx_b = (xp / sf).reshape(-1, 64).abs().amax(1, keepdim=True)
+
+    def eps_of_max(a, b, mask):
+        """max |a - b| over mask, in eps32 * max|x/sf| of the block."""
+        r = (a - b).abs() / (EPS32 * mx_b)
+        return r[mask].max().item() if bool(mask.any()) else 0.0
+
+    every = torch.ones_like(coef_a0, dtype=torch.bool)
+    ids_ar, coef_ar, ok_ar = fk.dct_quant_verify(xp, sf, tol, n, cfg.error_bound, True,
+                                                 relaxed=True)
+    ids_arp, coef_arp, ok_arp = fk._dct_quant_verify_plain(xp, sf, tol, n, cfg, True,
+                                                           relaxed=True)
+    ids_a0r, coef_a0r, _ok = fk.dct_quant_verify(xp, sf, tol, n, cfg.error_bound, False,
+                                                 relaxed=True)
+    torch.cuda.synchronize()
+    rel_a = eps_of_max(coef_ar, coef_arp, every)
+    diff_a = int((ids_ar != ids_arp).sum())
+    vs_highest = eps_of_max(coef_a0r, coef_a0, every)
+    emit("kernel_check", kernel="dct_quant_verify_relaxed", coef_max_err=rel_a,
+         unit="eps32 * max|x/sf| of the block", tolerance=RELAXED_BUDGET, ids_differ=diff_a,
+         ids=ids_ar.numel(), id_tolerance=A_ID_MISMATCH_MAX, ok_kernel=bool(ok_ar),
+         ok_plain=bool(ok_arp), highest_arm_max_diff=vs_highest)
+    require(rel_a <= RELAXED_BUDGET, f"A-relaxed: {rel_a} eps*max|xs| from its plain version")
+    require(diff_a <= A_ID_MISMATCH_MAX * ids_ar.numel(), f"A-relaxed: {diff_a} ids differ")
+    require(bool(ok_ar) == bool(ok_arp), "A-relaxed: ok flags differ")
+    require(vs_highest > RELAXED_BUDGET, "A-relaxed: within the budget of the HIGHEST arm")
+    kernels["dct_quant_verify_relaxed"] = {
+        "max_abs_err": (coef_ar - coef_arp).abs().max().item(), "id_mismatch": diff_a}
+
+    ids_fr, dcac_fr = fused_encode.dct_quant(xp, sf, cfg.error_bound, relaxed=True)
+    ids_frp, dcac_frp = fused_encode._dct_quant_plain(xp, sf, cfg, relaxed=True)
+    torch.cuda.synchronize()
+    esc_fr = (ids_fr == 255) & (col > 0)
+    keep_fr = (ids_fr == ids_frp) & (esc_fr | (col == 0))
+    rel_f = eps_of_max(dcac_fr, dcac_frp, keep_fr)
+    diff_f = int((ids_fr != ids_frp).sum())
+    like_ar = (torch.equal(ids_fr[:, 1:], ids_a0r[:, 1:])
+               and torch.equal(dcac_fr[esc_fr].view(torch.int32), coef_a0r[esc_fr].view(torch.int32))
+               and torch.equal(dcac_fr[:, 0].view(torch.int32), coef_a0r[:, 0].view(torch.int32)))
+    emit("kernel_check", kernel="dct_quant_relaxed", coef_max_err=rel_f,
+         unit="eps32 * max|x/sf| of the block", tolerance=RELAXED_BUDGET, ids_differ=diff_f,
+         ids=ids_fr.numel(), equal_to_a_relaxed=like_ar)
+    require(rel_f <= RELAXED_BUDGET, f"F-relaxed: {rel_f} eps*max|xs| from its plain version")
+    require(diff_f <= A_ID_MISMATCH_MAX * ids_fr.numel(), f"F-relaxed: {diff_f} ids differ")
+    require(like_ar, "F-relaxed: differs from A-relaxed's ids or coefficients")
+    kernels["dct_quant_relaxed"] = {
+        "max_abs_err": (dcac_fr - dcac_frp).abs()[keep_fr].max().item(), "id_mismatch": diff_f}
+
+    q_r = fused_encode.qtable_qmax(xp, sf, cfg.error_bound, relaxed=True)
+    q_rp = torch.clamp_min(fused_encode._qtable_qmax_plain(xp, sf, cfg_qt, True), 1.0)
+    esc_a0r = ~((coef_a0r >= rmin) & (coef_a0r <= rmax)) & (col > 0)
+    q_from_a = torch.clamp_min(
+        torch.where(esc_a0r, coef_a0r.abs(), torch.zeros_like(coef_a0r)).amax(0), 1.0)
+    torch.cuda.synchronize()
+    rel_e = (q_r - q_rp).abs().max().item() / (EPS32 * mx_b.max().item())
+    # and on the x30 input, whose qtable has entries above 1
+    q_rq = fused_encode.qtable_qmax(xq, sf_q, cfg.error_bound, relaxed=True)
+    q_rqp = torch.clamp_min(fused_encode._qtable_qmax_plain(xq, sf_q, cfg_qt, True), 1.0)
+    _ids, coef_q0r, _ok = fk.dct_quant_verify(xq, sf_q, tol_q, n, cfg.error_bound, False,
+                                              relaxed=True)
+    esc_q0r = ~((coef_q0r >= rmin) & (coef_q0r <= rmax)) & (col > 0)
+    q_from_aq = torch.clamp_min(
+        torch.where(esc_q0r, coef_q0r.abs(), torch.zeros_like(coef_q0r)).amax(0), 1.0)
+    torch.cuda.synchronize()
+    rel_eq = (q_rq - q_rqp).abs().max().item() / (EPS32 * (xq / sf_q).abs().max().item())
+    emit("kernel_check", kernel="qtable_qmax_relaxed", coef_max_err=rel_e,
+         unit="eps32 * max|x/sf| of the array", tolerance=RELAXED_BUDGET,
+         equal_to_a_relaxed=bool(torch.equal(q_r, q_from_a)),
+         entries_above_1=int((q_r[1:] > 1.0).sum()), x30_coef_max_err=rel_eq,
+         x30_equal_to_a_relaxed=bool(torch.equal(q_rq, q_from_aq)),
+         x30_entries_above_1=int((q_rq[1:] > 1.0).sum()))
+    require(max(rel_e, rel_eq) <= RELAXED_BUDGET,
+            f"E-relaxed: {rel_e}, {rel_eq} eps*max|xs| from its plain version")
+    require(torch.equal(q_r, q_from_a) and torch.equal(q_rq, q_from_aq),
+            "E-relaxed: differs from the maximum over A-relaxed's")
+    require(bool((q_rq[1:] > 1.0).any()), "E-relaxed: the x30 input left every entry clamped")
+    del coef_q0r, esc_q0r
+    kernels["qtable_qmax_relaxed"] = {"max_abs_err": max(
+        (q_r - q_rp).abs().max().item(), (q_rq - q_rqp).abs().max().item())}
+
+    def qt_relaxed_check(name, ids_k, vals_k, ids_p, vals_p):
+        """A stored value within the budget (QT escapes: scaled) where the
+        ids agree; returns (coefficient difference, ids that differ)."""
+        same = ids_k == ids_p
+        esc = same & (ids_k == 255) & (col > 0)
+        coefs = same & ~esc
+        lim = budget_r * (cfg.error_bound * cfg_qt.qt_factor) / q_r + 4 * EPS32 * vals_p.abs()
+        over = int((((vals_k - vals_p).abs() > lim) & esc).sum())
+        rel = eps_of_max(vals_k, vals_p, coefs)
+        diff = int((~same).sum())
+        require(rel <= RELAXED_BUDGET and over == 0,
+                f"{name}: {rel} eps*max|xs|, {over} stored escapes beyond the budget")
+        require(diff <= A_ID_MISMATCH_MAX * ids_k.numel(), f"{name}: {diff} ids differ")
+        return rel, diff, over, (vals_k - vals_p).abs()[same].max().item()
+
+    budget_r = RELAXED_BUDGET * EPS32 * mx_b
+    ids_aqr, vals_aqr, ok_aqr = fk.dct_quant_verify(xp, sf, tol, n, cfg.error_bound, True,
+                                                    q_r, relaxed=True)
+    ids_aqrp, vals_aqrp, ok_aqrp = fk._dct_quant_verify_plain(xp, sf, tol, n, cfg_qt, True,
+                                                              q_r, relaxed=True)
+    ids_aq0r, vals_aq0r, _ok = fk.dct_quant_verify(xp, sf, tol, n, cfg.error_bound, False,
+                                                   q_r, relaxed=True)
+    torch.cuda.synchronize()
+    rel_aq, diff_aq, over_aq, abs_aq = qt_relaxed_check(
+        "A-QT-relaxed", ids_aqr, vals_aqr, ids_aqrp, vals_aqrp)
+    emit("kernel_check", kernel="dct_quant_verify_qt_relaxed", coef_max_err=rel_aq,
+         unit="eps32 * max|x/sf| of the block", tolerance=RELAXED_BUDGET, ids_differ=diff_aq,
+         ids=ids_aqr.numel(), stored_over_budget=over_aq, ok_kernel=bool(ok_aqr),
+         ok_plain=bool(ok_aqrp))
+    require(bool(ok_aqr) == bool(ok_aqrp), "A-QT-relaxed: ok flags differ")
+    kernels["dct_quant_verify_qt_relaxed"] = {"max_abs_err": abs_aq, "id_mismatch": diff_aq}
+
+    ids_gr, dcac_gr = fused_encode.dct_quant(xp, sf, cfg.error_bound, q_r, relaxed=True)
+    ids_grp, dcac_grp = fused_encode._dct_quant_plain(xp, sf, cfg_qt, q_r, relaxed=True)
+    torch.cuda.synchronize()
+    esc_gr = (ids_gr == 255) & (col > 0)
+    rel_g, diff_g, over_gr, abs_g = qt_relaxed_check(
+        "G-relaxed", ids_gr, torch.where(esc_gr | (col == 0), dcac_gr, torch.zeros_like(dcac_gr)),
+        ids_grp, dcac_grp)
+    like_aqr = (torch.equal(ids_gr[:, 1:], ids_aq0r[:, 1:])
+                and torch.equal(dcac_gr[esc_gr].view(torch.int32), vals_aq0r[esc_gr].view(torch.int32))
+                and torch.equal(dcac_gr[:, 0].view(torch.int32), vals_aq0r[:, 0].view(torch.int32)))
+    emit("kernel_check", kernel="dct_quant_qt_relaxed", coef_max_err=rel_g,
+         unit="eps32 * max|x/sf| of the block", tolerance=RELAXED_BUDGET, ids_differ=diff_g,
+         ids=ids_gr.numel(), stored_over_budget=over_gr, equal_to_a_qt_relaxed=like_aqr,
+         qtable_entries_above_1=int((q_r[1:] > 1.0).sum()))
+    require(like_aqr, "G-relaxed: differs from A-QT-relaxed's ids or stored values")
+    kernels["dct_quant_qt_relaxed"] = {"max_abs_err": abs_g, "id_mismatch": diff_g}
 
     # H on F's AC escapes at the default capacity, as the v1_ec encode runs it
     mask_h = esc_f.reshape(-1, cw)
@@ -1111,8 +1338,15 @@ def main() -> int:
                 else "v2 dpk" if kw["ids_codec"] == "device" else "v2 host-coded")
         require(fmt == want, f"{path}: wrote {fmt}, not {want}")
         if dtzs:
-            same_bits = y.tobytes() == decoded[path.removesuffix("_dtzs")].tobytes()
-            emit("dtzs_vs_monolithic", path=path, bit_equal=same_bits)
+            # the monolithic path of the same configuration, or (a relaxed
+            # path, which has none among PATHS) its container made here
+            twin = DTZS_TWIN.get(path)
+            y_mono = (decoded[twin] if twin else dz.decompress(dz.compress(
+                x, config=dz.CodecConfig(**dict(kw, segment_elems=0)), device="cuda"),
+                device="cuda"))
+            same_bits = y.tobytes() == y_mono.tobytes()
+            emit("dtzs_vs_monolithic", path=path, monolithic=twin or "made here",
+                 bit_equal=same_bits)
             require(same_bits, f"{path}: DTZS decode differs from the monolithic decode")
 
         t0 = time.perf_counter()
@@ -1134,6 +1368,17 @@ def main() -> int:
         require(e1 <= tolx[inp] and e2 <= tolx[inp], f"{path}: cross decode violates the bound")
         e2e[path] = {"ratio": ratio, "ratio_plain": ratio_cpu, "launches": launches[path],
                      "evaluate": ev}
+        if path in HIGH_VS_HIGHEST:
+            # the relaxed analysis beside the HIGHEST path of the same mode
+            hp = HIGH_VS_HIGHEST[path]
+            highest = [k for k in needed if k.endswith("_relaxed")]
+            require(not any(launches[path][k.removesuffix("_relaxed")] for k in highest),
+                    f"{path}: a HIGHEST forward kernel launched")
+            emit("relaxed_vs_highest", path=path, ratio=ratio, highest_path=hp,
+                 highest_ratio=e2e[hp]["ratio"], ratio_rel_diff=ratio / e2e[hp]["ratio"] - 1.0,
+                 max_rel_err=ev["max_rel_err"],
+                 highest_max_rel_err=e2e[hp]["evaluate"]["max_rel_err"],
+                 bound_satisfied=ev["bound_satisfied"])
 
     # the one-pass DPK path, through the research entry points and
     # pack_ids_with_ac: L encodes the bench array and M decodes it (tile
@@ -1221,6 +1466,8 @@ def main() -> int:
     # their bytes count those values of this run's data, not the whole
     # value arrays
     dct_flops = 2.0 * 64 * n_pad
+    # the relaxed analysis: three bf16 products on the tensor cores
+    relaxed_flops = 3 * 2.0 * 64 * n_pad
     out_lib = torch.zeros_like(acv_i)
     library = {
         "chunk_compact": lambda: torch.masked_select(vals_h, mask_h),
@@ -1298,6 +1545,30 @@ def main() -> int:
             lambda: fused_decode._fused_decode_dpk_plain(w_l, pk_l, exc_l, dc_l, ac_l, sf,
                                                          n_pad, 256, 512, cfg, None),
             nbytes(w_l, pk_l, exc_l, dc_l, ac_l, x_m), dct_flops),
+        # the RELAXED instantiations on the bench array, as phase 3 checked
+        # them (their operations are bf16 tensor-core FLOPs: PEAK_BF16)
+        "dct_quant_verify_relaxed": (
+            lambda: fk.dct_quant_verify(xp, sf, tol, n, cfg.error_bound, True, relaxed=True),
+            lambda: fk._dct_quant_verify_plain(xp, sf, tol, n, cfg, True, relaxed=True),
+            nbytes(xp, ids_ar, coef_ar), relaxed_flops),
+        "dct_quant_verify_qt_relaxed": (
+            lambda: fk.dct_quant_verify(xp, sf, tol, n, cfg.error_bound, True, q_r,
+                                        relaxed=True),
+            lambda: fk._dct_quant_verify_plain(xp, sf, tol, n, cfg_qt, True, q_r,
+                                               relaxed=True),
+            nbytes(xp, q_r, ids_aqr, vals_aqr), relaxed_flops),
+        "qtable_qmax_relaxed": (
+            lambda: fused_encode.qtable_qmax(xp, sf, cfg.error_bound, relaxed=True),
+            lambda: fused_encode._qtable_qmax_plain(xp, sf, cfg_qt, True),
+            nbytes(xp, q_r), relaxed_flops),
+        "dct_quant_relaxed": (
+            lambda: fused_encode.dct_quant(xp, sf, cfg.error_bound, relaxed=True),
+            lambda: fused_encode._dct_quant_plain(xp, sf, cfg, relaxed=True),
+            nbytes(xp, ids_fr, dcac_fr), relaxed_flops),
+        "dct_quant_qt_relaxed": (
+            lambda: fused_encode.dct_quant(xp, sf, cfg.error_bound, q_r, relaxed=True),
+            lambda: fused_encode._dct_quant_plain(xp, sf, cfg_qt, q_r, relaxed=True),
+            nbytes(xp, q_r, ids_gr, dcac_gr), relaxed_flops),
     }
     require(nblk_pad == nblk == nblk_q, "kernel shapes differ from the main path's")
     rows_out = []
@@ -1310,7 +1581,8 @@ def main() -> int:
         lib_runs = ([cuda_ms(library[name], REPS) for _ in range(2)]
                     if name in library else [])
         lib_ms = sum(lib_runs) / 2 if lib_runs else None
-        b_ms, b_by = bound_ms(n_bytes, flops)
+        b_ms, b_by = bound_ms(n_bytes, flops,
+                              PEAK_BF16 if name in RELAXED_KERNELS else PEAK_FP32)
         src, rep = SOURCES[name]
         rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                          "launches": launches[MAIN_PATH[name]][name],

@@ -29,6 +29,13 @@ container families, dispatched as the JAX package dispatches on its TPU:
                   per-chunk AC counts from the ids -> rows -> kernel I ->
                   kernel D (rem-point tail in-kernel) -> the first n samples
 
+CodecConfig.dct_precision="high" (the relaxed analysis: three bfloat16
+products, dctz_tpu/ops/dpk_fuse.py:_dot_bf16x3) takes the RELAXED
+instantiations of kernels A, E, F and G on every fused route, and
+transform.dot_bf16x3 in the generic chain; the verify-repair of the fused
+non-DPK branch recomputes its coefficients at HIGHEST, as dctz_tpu's
+_repair_fused does, and every reconstruction stays float32.
+
 Everything else raises NotImplementedError naming the ROADMAP item that
 will port it (host-coded DTZS frames: item 8; float64, brsf != 1 and the
 other codec options: item 9); nothing falls back silently.
@@ -70,14 +77,18 @@ def _check_slice(cfg: CodecConfig) -> None:
     families are checked where they are dispatched)."""
     if cfg.rate != "fixed" or cfg.brsf != 1.0:
         raise _todo("rate='auto' / brsf != 1", "9")
-    if cfg.dct_precision != "highest":
-        raise _todo("dct_precision='high'", "9")
     if cfg.dc_delta:
         raise _todo("dc_delta on compress", "9")
     if cfg.block_size != C.BLK_SZ or cfg.nbins != C.NBINS or not cfg.truncate:
         raise _todo("non-default block/bin geometry or truncate=False", "9")
     if cfg.internal_dtype not in ("auto", "float32"):
         raise ValueError(f"internal_dtype {cfg.internal_dtype!r}")
+
+
+def _relaxed(cfg: CodecConfig) -> bool:
+    """The relaxed analysis (dct_precision "high") selects the kernels'
+    RELAXED instantiations."""
+    return cfg.dct_precision == "high"
 
 
 def _resolve_ids_codec(cfg: CodecConfig) -> CodecConfig:
@@ -428,7 +439,7 @@ def _compress_fused(arr: torch.Tensor, n: int, cfg: CodecConfig, timer) -> bytes
 
     if cfg.container == "v2" and cfg.ids_codec == "device":
         return _compress_fused_dpk(arr, n, cfg, timer)
-    eb = cfg.error_bound
+    eb, relaxed = cfg.error_bound, _relaxed(cfg)
     with timer.stage("device"):
         x = stream._on_device(arr, arr.device)
         n_pad = int(x.shape[0])
@@ -436,14 +447,15 @@ def _compress_fused(arr: torch.Tensor, n: int, cfg: CodecConfig, timer) -> bytes
         ok = None
         if cfg.verify:
             if cfg.mode == "qt":
-                ids, dcac, qtable = fe.fused_encode_qt(x, sf, eb)
+                ids, dcac, qtable = fe.fused_encode_qt(x, sf, eb, relaxed=relaxed)
             else:
-                (ids, dcac), qtable = fe.fused_encode_ec(x, sf, eb), None
+                ids, dcac = fe.fused_encode_ec(x, sf, eb, relaxed=relaxed)
+                qtable = None
             q, ok = _repair_fused(x, sf, ids, dcac[:, 0], n, cfg, qtable)
         elif cfg.mode == "qt":
-            q = fe.fused_encode_pipeline_qt(x, sf, eb)
+            q = fe.fused_encode_pipeline_qt(x, sf, eb, relaxed=relaxed)
         else:
-            q = fe.fused_encode_pipeline(x, sf, eb)
+            q = fe.fused_encode_pipeline(x, sf, eb, relaxed=relaxed)
         qtable = (fe.patch_slot0(q.qtable, q.dc, n) if q.qtable is not None
                   else None)
     stream_len = n if cfg.container == "v1" else n_pad
@@ -456,7 +468,9 @@ def _repair_fused(x: torch.Tensor, sf: torch.Tensor, ids: torch.Tensor,
     recompute the coefficients with a torch matmul (as the JAX package does
     with XLA; ulp differences from kernel F or G are absorbed by the bin-id
     indirection), repair over the padded length with the tolerance of the n
-    real samples, and compact (kernel H). Returns (Quantized, ok)."""
+    real samples, and compact (kernel H). Returns (Quantized, ok). The
+    coefficients are HIGHEST whatever cfg.dct_precision says: the
+    reference's _repair_fused calls transform.forward with no precision."""
     from .ops import fused_encode as fe
     from .ops import repair
 
@@ -471,13 +485,14 @@ def _repair_fused(x: torch.Tensor, sf: torch.Tensor, ids: torch.Tensor,
     return qz.repack(ids2, dense, dc, qtable, n_pad, cfg), ok
 
 
-def _forward_padded(xs: torch.Tensor, bs: int) -> torch.Tensor:
+def _forward_padded(xs: torch.Tensor, bs: int,
+                    precision: str = "highest") -> torch.Tensor:
     """(nblk, bs) coefficients of a flat scaled array: whole blocks, and a
     partial last block through the rem-point basis, zero-padded to a row
     (transform.forward then dctz_tpu.api._pad_coeffs)."""
     from .core import transform
 
-    main_c, tail_c = transform.forward(xs, bs)
+    main_c, tail_c = transform.forward(xs, bs, precision)
     if tail_c.shape[0] == 0:
         return main_c
     tail_row = torch.nn.functional.pad(tail_c, (0, bs - tail_c.shape[0]))
@@ -490,7 +505,10 @@ def _compress_generic(arr: torch.Tensor, n: int, cfg: CodecConfig,
     by v1 containers with n % 1024 != 0: stats over the n samples, the DCT
     with a rem-point tail, bins (QT: the column-max qtable, slot 0 the last
     block's DC, unclamped), verify-repair when asked, and the compaction
-    (kernel H). The ids of the n real positions make the stream."""
+    (kernel H). The ids of the n real positions make the stream. The
+    forward transform takes cfg.dct_precision (transform.prec_of in
+    dctz_tpu/api.py:88-90): "high" is transform.dot_bf16x3, fp32 matmuls of
+    the bfloat16 parts, as XLA runs Precision.HIGH on a TPU."""
     from .core.stats import amax_mean, scaling_factor
     from .ops import fused_encode as fe
     from .ops import repair
@@ -499,7 +517,7 @@ def _compress_generic(arr: torch.Tensor, n: int, cfg: CodecConfig,
     with timer.stage("device"):
         amax, mean = amax_mean(arr, n)
         sf = scaling_factor(amax, cfg.sf_adj)
-        coeffs = _forward_padded(arr / sf, bs)
+        coeffs = _forward_padded(arr / sf, bs, cfg.dct_precision)
         ids, dc, vals, qtable = qz.quantize(coeffs, n, cfg)
         ok = None
         if cfg.verify:
@@ -602,7 +620,8 @@ def _compress_fused_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
         # float32 arithmetic, as the monolithic JAX path (the stream writer
         # computes its global tolerance in doubles instead)
         tol = fused_encode.tolerance(x, n, cfg.error_bound)
-        qtable = (fused_encode.qtable_qmax(x, sf, cfg.error_bound)
+        qtable = (fused_encode.qtable_qmax(x, sf, cfg.error_bound,
+                                           relaxed=_relaxed(cfg))
                   if cfg.mode == "qt" else None)
         outs, planes, qtable = stream._encode_segment_dpk(x, n, sf, tol, cfg,
                                                           qtable)

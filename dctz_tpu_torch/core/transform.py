@@ -9,6 +9,11 @@ of the verify-repair on the non-DPK containers, which the JAX package leaves
 to XLA as well; on the card they run in full float32, never TF32. The
 remainder block of a length that is not a block multiple uses a rem-point
 basis, as the JAX package's XLA chain does for its containers.
+
+The forward transform takes CodecConfig.dct_precision: "highest" is the
+float32 product, "high" the relaxed analysis of the JAX package, three
+bfloat16 products with float32 accumulation (dot_bf16x3, the twin of
+dctz_tpu/ops/dpk_fuse.py:_dot_bf16x3). The inverse is always float32.
 """
 
 from __future__ import annotations
@@ -65,10 +70,41 @@ def _require_fp32_matmul(t: torch.Tensor) -> None:
         )
 
 
-def block_dct(blocks: torch.Tensor) -> torch.Tensor:
-    """Forward DCT-II of a batch of float32 blocks: (..., n) -> (..., n)."""
+PRECISIONS = ("highest", "high")
+
+
+def _split_bf16(a: torch.Tensor):
+    """(hi, lo) float32 tensors holding bfloat16 values: hi = a rounded to
+    bfloat16, lo = (a - hi) rounded to bfloat16, both to nearest even, as
+    JAX's astype(bfloat16) rounds (a - hi is exact in float32)."""
+    hi = a.to(torch.bfloat16).to(torch.float32)
+    return hi, (a - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def dot_bf16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the JAX package's relaxed analysis computes it
+    (dctz_tpu/ops/dpk_fuse.py:_dot_bf16x3, the meaning of
+    lax.Precision.HIGH on a TPU): each operand split into bfloat16 hi and
+    lo parts, then d(a_hi, b_lo) + d(a_lo, b_hi) + d(a_hi, b_hi), summed
+    left to right. Each d is a float32 matmul of the bfloat16 values: their
+    products are exact in float32, as preferred_element_type=float32 makes
+    them in the reference (a bfloat16 matmul would round its output)."""
+    _require_fp32_matmul(a)
+    a_hi, a_lo = _split_bf16(a)
+    b_hi, b_lo = _split_bf16(b)
+    return (torch.matmul(a_hi, b_lo) + torch.matmul(a_lo, b_hi)
+            + torch.matmul(a_hi, b_hi))
+
+
+def block_dct(blocks: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """Forward DCT-II of a batch of float32 blocks: (..., n) -> (..., n).
+    precision "high": the relaxed bfloat16x3 analysis (dot_bf16x3)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     _require_fp32_matmul(blocks)
     basis = dct2_basis(blocks.shape[-1], blocks.device)
+    if precision == "high":
+        return dot_bf16x3(blocks, basis.T)
     return torch.matmul(blocks, basis.T)
 
 
@@ -86,14 +122,15 @@ def split_blocks(x: torch.Tensor, block_size: int):
             x[n_full * block_size :])
 
 
-def forward(x: torch.Tensor, block_size: int):
+def forward(x: torch.Tensor, block_size: int, precision: str = "highest"):
     """Blockwise forward DCT of a flat array: (main (n_full, bs), tail
     (rem,)); the tail takes a rem-point basis, as the reference re-plans
-    its remainder block."""
+    its remainder block. precision as in block_dct."""
     main, tail = split_blocks(x, block_size)
     if tail.shape[0] > 0:
-        return block_dct(main), block_dct(tail[None, :])[0]
-    return block_dct(main), tail
+        return (block_dct(main, precision),
+                block_dct(tail[None, :], precision)[0])
+    return block_dct(main, precision), tail
 
 
 def inverse(main_c: torch.Tensor, tail_c: torch.Tensor) -> torch.Tensor:

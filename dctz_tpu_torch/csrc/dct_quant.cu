@@ -44,6 +44,17 @@
 // kernel L_ref's per-thread transform (common.cuh:forward_dct) is the
 // independent check of that header (L_ref = F -> pack_ids -> H). No TF32 and no
 // --use_fast_math: x/sf and (v - rmin)/w are IEEE divisions.
+//
+// template <bool RELAXED>: the relaxed analysis (dct_precision "high", the
+// TPU kernels' _make_kernel(relaxed) and _make_kernel_qt(relaxed),
+// fused_encode.py:92-103 and :148-173): the product is
+// dct_tile.cuh:tile_product_bf16x3, three bfloat16 products on the tensor
+// cores, whose coefficients each thread reads back from the coefficient tile
+// before the same epilogue; the bf16 basis tiles take the transposed basis's
+// space, the bf16 sample tiles the raw buffer's (the next tile's loads start
+// after the product) and the coefficients the transposed tile's, so the
+// shared memory and the 4 CTAs per SM stay. F and G RELAXED equal A's
+// RELAXED instantiations as F and G equal A.
 
 #include "dct_tile.cuh"
 
@@ -127,7 +138,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[4][4],
         make_uint4(pick(got, r), pick(got, r ^ 1), pick(got, r ^ 2), pick(got, r ^ 3));
 }
 
-template <bool QT>
+template <bool QT, bool RELAXED>
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     dct_quant_kernel(const float* __restrict__ x,
                      const float* __restrict__ basis,
@@ -141,6 +152,10 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   float* sRaw = sBT + TN;  // samples as loaded, block-major
   float* sT = sRaw + TN;   // xs transposed
   float* sQ = sT + TN;     // qtable (G)
+  // RELAXED: the bf16 basis tiles in sBT's space, the bf16 sample tiles in
+  // sRaw's, the coefficient tile in sT's
+  __nv_bfloat16* sBh = reinterpret_cast<__nv_bfloat16*>(sBT);
+  const __nv_bfloat16* sXh = reinterpret_cast<const __nv_bfloat16*>(sRaw);
 
   const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
   const long long tiles = (n_pad + TN - 1) / TN;
@@ -148,7 +163,10 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 
   long long t = blockIdx.x;
   load_tile_async(sRaw, x, t, n_pad, tid);
-  load_basis_transposed(sBT, basis, tid);
+  if constexpr (RELAXED)
+    load_basis_split(sBh, sBh + HT, basis, tid);
+  else
+    load_basis_transposed(sBT, basis, tid);
   if constexpr (QT) {
     if (tid < BS) sQ[tid] = qtable[tid];
   }
@@ -157,17 +175,24 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     const long long base = t * TN;
     cp_async_wait_all();
     __syncthreads();  // tile t landed; the last tile's readers are done
-    stage_scaled<false>(sRaw, sT, g.sf, hi, lo, nullptr);
-    __syncthreads();  // the tile is staged; sRaw is free
-    if (t + gridDim.x < tiles) load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
+    stage_scaled<false, RELAXED>(sRaw, sT, g.sf, hi, lo, nullptr);
+    __syncthreads();  // the tile is staged; sRaw is free (RELAXED: after the product)
+    if (!RELAXED && t + gridDim.x < tiles)
+      load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
 
     float acc[4][4];
-    tile_product<true>(sT, sBT, hi, lo, acc);
+    if constexpr (RELAXED) {
+      tile_product_bf16x3(sXh, sXh + HT, sBh, sBh + HT, sT, tid);
+      if (t + gridDim.x < tiles) load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
+      load_micro_tile(sT, hi, lo, acc);
+    } else {
+      tile_product<true>(sT, sBT, hi, lo, acc);
+    }
     store_tile<QT>(acc, base, hi, lo, n_pad, sQ, g, ids_out, dcac_out);
   }
 }
 
-template <bool QT>
+template <bool QT, bool RELAXED>
 int launch(const float* x, const float* basis, const float* sf,
            const float* qtable, float eb, float qtf, long long n_pad,
            float rmin, float rmax, float w, uint8_t* ids, float* dcac,
@@ -176,38 +201,49 @@ int launch(const float* x, const float* basis, const float* sf,
   const long long tiles = (n_pad + TN - 1) / TN;
   if (tiles == 0) return 0;
   const long long grid =
-      persistent_grid(dct_quant_kernel<QT>, SMEM_BYTES, tiles, cache);
+      persistent_grid(dct_quant_kernel<QT, RELAXED>, SMEM_BYTES, tiles, cache);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dct_quant_kernel<QT><<<static_cast<unsigned>(grid), THREADS, SMEM_BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(
+  dct_quant_kernel<QT, RELAXED><<<static_cast<unsigned>(grid), THREADS, SMEM_BYTES,
+                                  static_cast<cudaStream_t>(stream)>>>(
       x, basis, sf, qtable, eb, qtf, n_pad, rmin, rmax, w, ids, dcac);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x: n_pad (a multiple of 1024) floats on 16 bytes.
-extern "C" int dctz_dct_quant(const float* x, const float* basis,
-                              const float* sf, long long n_pad, float rmin,
-                              float rmax, float w, uint8_t* ids, float* dcac,
-                              void* stream) {
-  return launch<false>(x, basis, sf, nullptr, 0.f, 0.f, n_pad, rmin, rmax, w,
-                       ids, dcac, stream);
-}
+// The C entry points: F and G, each in its HIGHEST and RELAXED
+// instantiation. x: n_pad (a multiple of 1024) floats on 16 bytes.
+#define DCTZ_F_ENTRY(NAME, RELAXED)                                            \
+  extern "C" int NAME(const float* x, const float* basis, const float* sf,   \
+                      long long n_pad, float rmin, float rmax, float w,      \
+                      uint8_t* ids, float* dcac, void* stream) {             \
+    return launch<false, RELAXED>(x, basis, sf, nullptr, 0.f, 0.f, n_pad,    \
+                                  rmin, rmax, w, ids, dcac, stream);         \
+  }
+#define DCTZ_G_ENTRY(NAME, RELAXED)                                            \
+  extern "C" int NAME(const float* x, const float* basis, const float* sf,   \
+                      const float* qtable, float eb, float qtf,              \
+                      long long n_pad, float rmin, float rmax, float w,      \
+                      uint8_t* ids, float* dcac, void* stream) {             \
+    return launch<true, RELAXED>(x, basis, sf, qtable, eb, qtf, n_pad, rmin, \
+                                 rmax, w, ids, dcac, stream);                \
+  }
 
-extern "C" int dctz_dct_quant_qt(const float* x, const float* basis,
-                                 const float* sf, const float* qtable,
-                                 float eb, float qtf, long long n_pad,
-                                 float rmin, float rmax, float w, uint8_t* ids,
-                                 float* dcac, void* stream) {
-  return launch<true>(x, basis, sf, qtable, eb, qtf, n_pad, rmin, rmax, w,
-                      ids, dcac, stream);
-}
+DCTZ_F_ENTRY(dctz_dct_quant, false)
+DCTZ_F_ENTRY(dctz_dct_quant_relaxed, true)
+DCTZ_G_ENTRY(dctz_dct_quant_qt, false)
+DCTZ_G_ENTRY(dctz_dct_quant_qt_relaxed, true)
 
 // Resident CTAs per SM at the launch configuration.
 extern "C" int dctz_ctas_per_sm_dct_quant() {
-  return dctz::tile::tile_ctas_per_sm(dct_quant_kernel<false>, SMEM_BYTES);
+  return dctz::tile::tile_ctas_per_sm(dct_quant_kernel<false, false>, SMEM_BYTES);
 }
 extern "C" int dctz_ctas_per_sm_dct_quant_qt() {
-  return dctz::tile::tile_ctas_per_sm(dct_quant_kernel<true>, SMEM_BYTES);
+  return dctz::tile::tile_ctas_per_sm(dct_quant_kernel<true, false>, SMEM_BYTES);
+}
+extern "C" int dctz_ctas_per_sm_dct_quant_relaxed() {
+  return dctz::tile::tile_ctas_per_sm(dct_quant_kernel<false, true>, SMEM_BYTES);
+}
+extern "C" int dctz_ctas_per_sm_dct_quant_qt_relaxed() {
+  return dctz::tile::tile_ctas_per_sm(dct_quant_kernel<true, true>, SMEM_BYTES);
 }

@@ -51,6 +51,15 @@
 // not depend on the gating granularity. ok_tiles gets one flag per 64-block
 // tile. counters, when not null, accumulates (blocks the screen flagged,
 // blocks whose exact check failed and were repaired).
+//
+// template <bool RELAXED>: the TPU kernel's relaxed arm (dct_precision
+// "high", dpk_fuse.py:510-516 and :603-607). The coefficients come from
+// dct_tile.cuh:tile_product_bf16x3, three bfloat16 products on the tensor
+// cores, and the L2 screen's rounding budget widens from 32 to 1024 eps *
+// max|xs|; the exact check and the repair passes keep the fp32
+// reconstruction above, so the guarantee is that of the HIGHEST arm. Its
+// bf16 basis tiles take 16 KB more shared memory (71 KB), so the
+// instantiation asks for 3 resident CTAs per SM rather than 4.
 
 #include "dct_tile.cuh"
 
@@ -60,12 +69,18 @@ using namespace dctz;
 using namespace dctz::tile;
 
 constexpr int MIN_CTAS = 4;  // resident CTAs per SM that __launch_bounds__ asks
+constexpr int MIN_CTAS_RELAXED = 3;  // the same, of the RELAXED instantiations
 constexpr int LDI = 68;      // padded byte row of the id tile
 // shared memory: transposed basis, raw samples, the transposed sample tile
 // (then the coefficient tile), per-warp hat rows, qtable, per-block max|xs|,
-// the flagged-block list, ids
+// the flagged-block list, ids; RELAXED: the raw buffer holds the bf16 sample
+// tiles until the product is done, and the bf16 basis tiles follow
 constexpr size_t SMEM_BYTES = sizeof(float) * (3 * TN + WARPS * BS + BS + TB) +
                               sizeof(int) * TB + TB * LDI;
+constexpr size_t SMEM_BYTES_RELAXED = SMEM_BYTES + 2 * sizeof(__nv_bfloat16) * HT;
+
+template <bool RELAXED>
+constexpr size_t smem_bytes() { return RELAXED ? SMEM_BYTES_RELAXED : SMEM_BYTES; }
 
 // The decoder's coefficient at position k of a block: DC reads the
 // coefficient, an AC escape its stored value (EC: the coefficient; QT: the
@@ -126,8 +141,8 @@ __device__ __forceinline__ float block_error(
   return e;
 }
 
-template <bool QT>
-__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+template <bool QT, bool RELAXED>
+__global__ void __launch_bounds__(THREADS, RELAXED ? MIN_CTAS_RELAXED : MIN_CTAS)
     dct_quant_verify_kernel(const float* __restrict__ x,
                             const float* __restrict__ basis,
                             const float* __restrict__ sf_p,
@@ -148,6 +163,7 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   float* sMx = sQ + BS;                                         // max|xs|
   int* sList = reinterpret_cast<int*>(sMx + TB);                // flagged
   uint8_t* sI = reinterpret_cast<uint8_t*>(sList + TB);         // ids
+  __nv_bfloat16* sBh = reinterpret_cast<__nv_bfloat16*>(sI + TB * LDI);  // RELAXED
   __shared__ int sCount, sRepaired, sOk;
   // tol / sf of the L2 screen, kept here rather than in a register across
   // the tile loop (ptxas spilled it there)
@@ -161,6 +177,7 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   long long t = blockIdx.x;
   load_tile_async(sRaw, x, t, n_pad, tid);
   load_basis_transposed(sBT, basis, tid);
+  if constexpr (RELAXED) load_basis_split(sBh, sBh + HT, basis, tid);
   if constexpr (QT) {
     if (tid < BS) sQ[tid] = qtable[tid];
   }
@@ -172,18 +189,23 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     __syncthreads();  // tile t landed; the last tile's readers are done
 
     // xs = x / sf into the transposed tile, and each block's max |xs|
-    stage_scaled<true>(sRaw, sT, g.sf, hi, lo, sMx);
+    stage_scaled<true, RELAXED>(sRaw, sT, g.sf, hi, lo, sMx);
     if (tid == 0) {
       sCount = 0;
       sRepaired = 0;
       sOk = 1;
     }
-    __syncthreads();  // the tile is staged; sRaw is free
-    if (t + gridDim.x < tiles) load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
+    __syncthreads();  // the tile is staged; sRaw is free (RELAXED: after the product)
+    if (!RELAXED && t + gridDim.x < tiles)
+      load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
 
     // the forward DCT of the tile into the coefficient tile, then the bins of
     // the thread's own coefficients, one float4 at a time; DC escapes
-    {
+    if constexpr (RELAXED) {
+      const __nv_bfloat16* sXh = reinterpret_cast<const __nv_bfloat16*>(sRaw);
+      tile_product_bf16x3(sXh, sXh + HT, sBh, sBh + HT, sT, tid);
+      if (t + gridDim.x < tiles) load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
+    } else {
       float acc[4][4];
       tile_product<true>(sT, sBT, hi, lo, acc);
       __syncthreads();  // sT is read; it takes the coefficients
@@ -213,7 +235,8 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     if (verify) {
       // L2 screen, one thread per block: |IDCT(delta)_i| <= ||delta||_2 for
       // the orthonormal basis, minus a transform-rounding budget of
-      // 32 eps * max|xs|; d*d summed in k order
+      // 32 eps * max|xs| (RELAXED: 1024, the bf16x3 analysis rounding enters
+      // the stored escapes); d*d summed in k order
       if (tid < TB) {
         const int b = tid;
         const long long gblk = base + static_cast<long long>(b) * BS;
@@ -237,7 +260,7 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
             }
           }
           const float eps32 = 1.1920929e-07f;
-          const float thr = sTolSf - 32.0f * eps32 * sMx[b];
+          const float thr = sTolSf - (RELAXED ? 1024.0f : 32.0f) * eps32 * sMx[b];
           if (l2 > thr * thr || thr <= 0.f) sList[atomicAdd(&sCount, 1)] = b;
         }
       }
@@ -319,7 +342,7 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   }
 }
 
-template <bool QT>
+template <bool QT, bool RELAXED>
 int launch(const float* x, const float* basis, const float* sf,
            const float* tol, const float* qtable, float eb, float qtf,
            long long n_pad, long long n_valid, float rmin, float rmax, float w,
@@ -328,11 +351,12 @@ int launch(const float* x, const float* basis, const float* sf,
   static int cache[MAX_DEVICES] = {};
   const long long tiles = (n_pad + TN - 1) / TN;
   if (tiles == 0) return 0;
+  constexpr size_t smem = smem_bytes<RELAXED>();
   const long long grid =
-      persistent_grid(dct_quant_verify_kernel<QT>, SMEM_BYTES, tiles, cache);
+      persistent_grid(dct_quant_verify_kernel<QT, RELAXED>, smem, tiles, cache);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dct_quant_verify_kernel<QT>
-      <<<static_cast<unsigned>(grid), THREADS, SMEM_BYTES,
+  dct_quant_verify_kernel<QT, RELAXED>
+      <<<static_cast<unsigned>(grid), THREADS, smem,
          static_cast<cudaStream_t>(stream)>>>(x, basis, sf, tol, qtable, eb,
                                               qtf, n_pad, n_valid, rmin, rmax,
                                               w, verify, ids, vals, ok_tiles,
@@ -340,40 +364,48 @@ int launch(const float* x, const float* basis, const float* sf,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Resident CTAs per SM at the launch configuration.
+template <bool QT, bool RELAXED>
+int occupancy() {
+  return tile_ctas_per_sm(dct_quant_verify_kernel<QT, RELAXED>, smem_bytes<RELAXED>());
+}
+
 }  // namespace
 
-extern "C" int dctz_dct_quant_verify(const float* x, const float* basis,
-                                     const float* sf, const float* tol,
-                                     long long n_pad, long long n_valid,
-                                     float rmin, float rmax, float w,
-                                     int verify, uint8_t* ids, float* coef,
-                                     int* ok_tiles,
-                                     unsigned long long* counters,
-                                     void* stream) {
-  return launch<false>(x, basis, sf, tol, nullptr, 0.f, 0.f, n_pad, n_valid,
-                       rmin, rmax, w, verify, ids, coef, ok_tiles, counters,
-                       stream);
-}
+// The C entry points: A and A-QT, each in its HIGHEST and RELAXED
+// instantiation.
+#define DCTZ_A_ENTRY(NAME, RELAXED)                                            \
+  extern "C" int NAME(const float* x, const float* basis, const float* sf,   \
+                      const float* tol, long long n_pad, long long n_valid,   \
+                      float rmin, float rmax, float w, int verify,            \
+                      uint8_t* ids, float* coef, int* ok_tiles,              \
+                      unsigned long long* counters, void* stream) {          \
+    return launch<false, RELAXED>(x, basis, sf, tol, nullptr, 0.f, 0.f,      \
+                                  n_pad, n_valid, rmin, rmax, w, verify, ids, \
+                                  coef, ok_tiles, counters, stream);          \
+  }
+#define DCTZ_A_QT_ENTRY(NAME, RELAXED)                                         \
+  extern "C" int NAME(const float* x, const float* basis, const float* sf,   \
+                      const float* tol, const float* qtable, float eb,       \
+                      float qtf, long long n_pad, long long n_valid,         \
+                      float rmin, float rmax, float w, int verify,           \
+                      uint8_t* ids, float* vals, int* ok_tiles,              \
+                      unsigned long long* counters, void* stream) {          \
+    return launch<true, RELAXED>(x, basis, sf, tol, qtable, eb, qtf, n_pad,  \
+                                 n_valid, rmin, rmax, w, verify, ids, vals,  \
+                                 ok_tiles, counters, stream);                \
+  }
 
-extern "C" int dctz_dct_quant_verify_qt(const float* x, const float* basis,
-                                        const float* sf, const float* tol,
-                                        const float* qtable, float eb,
-                                        float qtf, long long n_pad,
-                                        long long n_valid, float rmin,
-                                        float rmax, float w, int verify,
-                                        uint8_t* ids, float* vals,
-                                        int* ok_tiles,
-                                        unsigned long long* counters,
-                                        void* stream) {
-  return launch<true>(x, basis, sf, tol, qtable, eb, qtf, n_pad, n_valid,
-                      rmin, rmax, w, verify, ids, vals, ok_tiles, counters,
-                      stream);
-}
+DCTZ_A_ENTRY(dctz_dct_quant_verify, false)
+DCTZ_A_ENTRY(dctz_dct_quant_verify_relaxed, true)
+DCTZ_A_QT_ENTRY(dctz_dct_quant_verify_qt, false)
+DCTZ_A_QT_ENTRY(dctz_dct_quant_verify_qt_relaxed, true)
 
-extern "C" int dctz_ctas_per_sm_dct_quant_verify() {
-  return dctz::tile::tile_ctas_per_sm(dct_quant_verify_kernel<false>, SMEM_BYTES);
+extern "C" int dctz_ctas_per_sm_dct_quant_verify() { return occupancy<false, false>(); }
+extern "C" int dctz_ctas_per_sm_dct_quant_verify_qt() { return occupancy<true, false>(); }
+extern "C" int dctz_ctas_per_sm_dct_quant_verify_relaxed() {
+  return occupancy<false, true>();
 }
-
-extern "C" int dctz_ctas_per_sm_dct_quant_verify_qt() {
-  return dctz::tile::tile_ctas_per_sm(dct_quant_verify_kernel<true>, SMEM_BYTES);
+extern "C" int dctz_ctas_per_sm_dct_quant_verify_qt_relaxed() {
+  return occupancy<true, true>();
 }

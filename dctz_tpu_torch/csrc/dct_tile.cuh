@@ -33,8 +33,34 @@
 //     the forward kernels' transposed basis (row = position m; read by a
 //     lane per m).
 //   D's basis is B[k][m] as it comes, row k read whole by the 16 lo-threads.
+//
+// The relaxed analysis (CodecConfig.dct_precision = "high"; the instantiations
+// of A, E, F and G with RELAXED set) takes the forward product through
+// tile_product_bf16x3 instead: xs and the basis are each split into bfloat16
+// hi and lo parts (split_bf16, round to nearest even both times, as
+// astype(bfloat16) in dctz_tpu/ops/dpk_fuse.py:_dot_bf16x3) and the three
+// products d(xs_hi, B_lo), d(xs_lo, B_hi), d(xs_hi, B_hi) run on the tensor
+// cores (mma.sync m16n8k16, bf16 in, float32 accumulators), each into its own
+// accumulator, summed in the reference's order (d1 + d2) + d3. Products of
+// bfloat16 values are exact in float32, so the result differs from the
+// reference's only by the order of the float32 accumulation inside each d.
+// The bf16 tiles (64 rows of 64 values, 8 KB): row r holds its 16-byte chunks
+// permuted by an XOR with (r & 7) (hcol), so that the 8 row reads of each
+// ldmatrix fall on distinct banks. xs is split at staging into two [block][m]
+// tiles in the raw buffer's own space (stage_scaled<.., true>), the basis
+// once per CTA into two [k][m] tiles (load_basis_split): the mma's A operand
+// is row-major blocks x m, its B operand column-major m x k, which is B[k][m]
+// row-major. The result goes to the coefficient tile (the transposed tile's
+// space) in the row layout as each warp finishes a half, so that no thread
+// holds more than 8 results; each thread then reads its 4 x 4 micro-tile
+// (load_micro_tile), as tile_product leaves it in acc, and the epilogues do
+// not change. The raw buffer takes the next tile's samples only after the
+// product (it holds the sample tiles until then): those loads overlap the
+// epilogue rather than the product.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -119,12 +145,68 @@ __device__ __forceinline__ void load_basis_transposed(
   }
 }
 
+// Column of c in row r of a bf16 tile: the 16-byte chunk of 8 values moved
+// by an XOR with (r & 7).
+__device__ __forceinline__ int hcol(int r, int c) {
+  return (((c >> 3) ^ (r & 7)) << 3) | (c & 7);
+}
+
+constexpr int HT = BS * BS;  // values of a bf16 tile
+
+// v into bfloat16 hi = v rounded to nearest even and lo = (v - hi) rounded
+// to nearest even (v - hi is exact in float32).
+__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16& hi,
+                                           __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(v);
+  lo = __float2bfloat16_rn(v - __bfloat162float(hi));
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(a)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(b)) << 16);
+}
+
+// v[bi][j]: block 4*hi + bi at position 4*lo + j, split into the bf16 tiles
+// sXh, sXl ([block][m], hcol), 8 bytes per block and tile.
+__device__ __forceinline__ void stage_split(__nv_bfloat16* __restrict__ sXh,
+                                            __nv_bfloat16* __restrict__ sXl,
+                                            int hi, int lo,
+                                            const float (&v)[4][4]) {
+#pragma unroll
+  for (int bi = 0; bi < 4; ++bi) {
+    const int b = 4 * hi + bi;
+    __nv_bfloat16 h[4], l[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_bf16(v[bi][j], h[j], l[j]);
+    const int o = b * BS + hcol(b, 4 * lo);
+    *reinterpret_cast<uint2*>(sXh + o) =
+        make_uint2(pack_bf16x2(h[0], h[1]), pack_bf16x2(h[2], h[3]));
+    *reinterpret_cast<uint2*>(sXl + o) =
+        make_uint2(pack_bf16x2(l[0], l[1]), pack_bf16x2(l[2], l[3]));
+  }
+}
+
+// The basis B[k][m] split into the bf16 tiles sBh, sBl: row k holds B[k][m]
+// at hcol(k, m). Once per CTA.
+__device__ __forceinline__ void load_basis_split(__nv_bfloat16* __restrict__ sBh,
+                                                 __nv_bfloat16* __restrict__ sBl,
+                                                 const float* __restrict__ basis,
+                                                 int tid) {
+  for (int i = tid; i < BS * BS; i += THREADS) {
+    const int k = i >> 6, m = i & 63;
+    split_bf16(basis[i], sBh[k * BS + hcol(k, m)], sBl[k * BS + hcol(k, m)]);
+  }
+}
+
 // xs = x / sf (a division, as the reference) of the thread's 4 x 4 samples
 // of the raw tile (blocks 4*hi + bi, positions 4*lo .. 4*lo+3), in place one
 // float4 of a block at a time (few values live across the divisions), then
 // into the transposed tile. BLOCK_MAX: also each block's max |xs| into
 // mx[b] (the 16 lo-threads of a half-warp per block; the whole warp calls).
-template <bool BLOCK_MAX>
+// SPLIT (the relaxed analysis): into the bf16 hi and lo tiles, which take the
+// raw buffer's own space (stage_split, after a barrier: a thread's tile
+// bytes lie over other threads' samples); sT is not written.
+template <bool BLOCK_MAX, bool SPLIT = false>
 __device__ __forceinline__ void stage_scaled(float* __restrict__ sRaw,
                                              float* __restrict__ sT, float sf,
                                              int hi, int lo,
@@ -152,7 +234,13 @@ __device__ __forceinline__ void stage_scaled(float* __restrict__ sRaw,
     v[bi][2] = s.z;
     v[bi][3] = s.w;
   }
-  stage_transposed(sT, hi, lo, v);
+  if constexpr (SPLIT) {
+    __syncthreads();  // every thread holds its samples
+    __nv_bfloat16* sXh = reinterpret_cast<__nv_bfloat16*>(sRaw);
+    stage_split(sXh, sXh + HT, hi, lo, v);
+  } else {
+    stage_transposed(sT, hi, lo, v);
+  }
 }
 
 // acc[bi][ci] = fmaf chain over r = 0..63 of T[r][4*hi + bi] * R[r][4*lo + ci],
@@ -177,6 +265,110 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ sT,
 #pragma unroll
       for (int ci = 0; ci < 4; ++ci)
         acc[bi][ci] = fmaf(tv[bi], rv[ci], acc[bi][ci]);
+  }
+}
+
+// Four (two) 8 x 8 bf16 matrices from shared memory (ldmatrix): lanes 8i ..
+// 8i+7 give the row addresses of matrix i, whose fragment lands in r[i].
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a)
+               : "memory");
+}
+
+// d += A (16 x 16, row-major) * B (16 x 8, column-major), bf16 in, float32
+// accumulators, on the tensor cores.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One bf16 product of the warp, from 0.f: d = the 16 x 8 tile of rows
+// r0 .. r0+15 of sA ([block][m]) times columns n0 .. n0+7 of the basis tile
+// sB ([k][m]), over m = 0..63 in four k16 steps (one n8 tile at a time:
+// eight accumulators live in the two products being summed).
+__device__ __forceinline__ void mma_pass(float (&d)[4],
+                                         const __nv_bfloat16* __restrict__ sA,
+                                         const __nv_bfloat16* __restrict__ sB,
+                                         int r0, int n0, int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] = 0.f;
+  // A: matrices (rows 0-7, m 0-7), (rows 8-15, m 0-7), (rows 0-7, m 8-15),
+  // (rows 8-15, m 8-15); B: (k 0-7, m 0-7), (k 0-7, m 8-15), its b0, b1
+  // (lanes 0-15 give the addresses)
+  const int ar = r0 + (lane & 7) + ((lane >> 3) & 1) * 8, ac = (lane >> 4) * 8;
+  const int br = n0 + (lane & 7), bc = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int ks = 0; ks < BS / 16; ++ks) {
+    unsigned a[4], b[2];
+    ldmatrix_x2(b, sB + br * BS + hcol(br, 16 * ks + bc));
+    ldmatrix_x4(a, sA + ar * BS + hcol(ar, 16 * ks + ac));
+    mma_bf16(d, a, b[0], b[1]);
+  }
+}
+
+// The forward product of the relaxed analysis: coef[b][k] = (d(xs_hi, B_lo)
+// + d(xs_lo, B_hi)) + d(xs_hi, B_hi), the reference's order
+// (dpk_fuse.py:469), each d its own accumulator. sXh, sXl: the staged
+// sample tiles; sBh, sBl: the split basis. Warp w takes blocks 16*(w & 3)
+// .. +15 and coefficients 32*(w >> 2) .. +31, one n8 tile at a time, and
+// stores each into sC (the row layout, rcol) as soon as it has it.
+// The whole CTA calls; it ends with a barrier, after which sC holds the tile
+// and the sample tiles are free.
+__device__ __forceinline__ void tile_product_bf16x3(
+    const __nv_bfloat16* __restrict__ sXh, const __nv_bfloat16* __restrict__ sXl,
+    const __nv_bfloat16* __restrict__ sBh, const __nv_bfloat16* __restrict__ sBl,
+    float* __restrict__ sC, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int r0 = 16 * (warp & 3);
+  // accumulator i of a thread: row g (i < 2) or g + 8, column 2*tg + (i & 1)
+  const int g = lane >> 2, tg = lane & 3;
+#pragma unroll 1
+  for (int t = 0; t < 4; ++t) {
+    const int n0 = 32 * (warp >> 2) + 8 * t;
+    float s[4], p[4];
+    mma_pass(s, sXh, sBl, r0, n0, lane);
+    mma_pass(p, sXl, sBh, r0, n0, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i] = s[i] + p[i];
+    mma_pass(p, sXh, sBh, r0, n0, lane);
+    const int c = n0 + 2 * tg;
+    const int ra = r0 + g, rb = ra + 8;
+    *reinterpret_cast<float2*>(sC + ra * BS + rcol(ra, c)) =
+        make_float2(s[0] + p[0], s[1] + p[1]);
+    *reinterpret_cast<float2*>(sC + rb * BS + rcol(rb, c)) =
+        make_float2(s[2] + p[2], s[3] + p[3]);
+  }
+  __syncthreads();
+}
+
+// acc[bi][ci] = coefficient 4*lo + ci of block 4*hi + bi from the coefficient
+// tile sC (row layout): the thread's micro-tile, as tile_product leaves it.
+__device__ __forceinline__ void load_micro_tile(const float* __restrict__ sC,
+                                                int hi, int lo,
+                                                float (&acc)[4][4]) {
+#pragma unroll
+  for (int bi = 0; bi < 4; ++bi) {
+    const int b = 4 * hi + bi;
+    const float4 v = ld4(sC + b * BS + rcol(b, 4 * lo));
+    acc[bi][0] = v.x;
+    acc[bi][1] = v.y;
+    acc[bi][2] = v.z;
+    acc[bi][3] = v.w;
   }
 }
 

@@ -32,6 +32,16 @@
 // padding past n_pad (load_tile_async fills zeros) bins in range and adds
 // nothing. The clamp to >= 1.0 is glue in the wrapper
 // (ops/fused_encode.qtable_qmax).
+//
+// template <bool RELAXED>: the relaxed analysis (dct_precision "high", the
+// TPU kernel's _make_kernel_qmax(relaxed), fused_encode.py:122-131): the
+// product is dct_tile.cuh:tile_product_bf16x3, three bfloat16 products on
+// the tensor cores, whose coefficients each thread reads back from the
+// coefficient tile; the bf16 basis tiles take the transposed basis's space,
+// the bf16 sample tiles the raw buffer's (the next tile's loads start after
+// the product) and the coefficients the transposed tile's, so the shared
+// memory and the 4 CTAs per SM stay. The maxima are again those of the
+// coefficients A's RELAXED instantiation bins.
 
 #include "dct_tile.cuh"
 
@@ -61,6 +71,7 @@ __device__ __forceinline__ void fold_escapes(const float (&acc)[4][4], int lo,
     }
 }
 
+template <bool RELAXED>
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     qtable_qmax_kernel(const float* __restrict__ x,
                        const float* __restrict__ basis,
@@ -71,6 +82,10 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   float* sRaw = sBT + TN;  // samples as loaded, block-major
   float* sT = sRaw + TN;   // xs transposed
   int* sM = reinterpret_cast<int*>(sT + TN);  // per-position max, float bits
+  // RELAXED: the bf16 basis tiles in sBT's space, the bf16 sample tiles in
+  // sRaw's, the coefficient tile in sT's
+  __nv_bfloat16* sBh = reinterpret_cast<__nv_bfloat16*>(sBT);
+  const __nv_bfloat16* sXh = reinterpret_cast<const __nv_bfloat16*>(sRaw);
 
   const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
   const long long tiles = (n_pad + TN - 1) / TN;
@@ -78,19 +93,29 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 
   long long t = blockIdx.x;
   load_tile_async(sRaw, x, t, n_pad, tid);
-  load_basis_transposed(sBT, basis, tid);
+  if constexpr (RELAXED)
+    load_basis_split(sBh, sBh + HT, basis, tid);
+  else
+    load_basis_transposed(sBT, basis, tid);
   if (tid < BS) sM[tid] = 0;
 
   int mb[4] = {0, 0, 0, 0};
   for (; t < tiles; t += gridDim.x) {
     cp_async_wait_all();
     __syncthreads();  // tile t landed; the last tile's readers are done
-    stage_scaled<false>(sRaw, sT, sf, hi, lo, nullptr);
-    __syncthreads();  // the tile is staged; sRaw is free
-    if (t + gridDim.x < tiles) load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
+    stage_scaled<false, RELAXED>(sRaw, sT, sf, hi, lo, nullptr);
+    __syncthreads();  // the tile is staged; sRaw is free (RELAXED: after the product)
+    if (!RELAXED && t + gridDim.x < tiles)
+      load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
 
     float acc[4][4];
-    tile_product<true>(sT, sBT, hi, lo, acc);
+    if constexpr (RELAXED) {
+      tile_product_bf16x3(sXh, sXh + HT, sBh, sBh + HT, sT, tid);
+      if (t + gridDim.x < tiles) load_tile_async(sRaw, x, t + gridDim.x, n_pad, tid);
+      load_micro_tile(sT, hi, lo, acc);
+    } else {
+      tile_product<true>(sT, sBT, hi, lo, acc);
+    }
     fold_escapes(acc, lo, rmin, rmax, mb);
   }
 
@@ -106,6 +131,21 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   if (tid < BS && sM[tid] != 0) atomicMax(&qmax_bits[tid], sM[tid]);
 }
 
+template <bool RELAXED>
+int launch(const float* x, const float* basis, const float* sf, long long n,
+           float rmin, float rmax, int* qmax_bits, void* stream) {
+  static int cache[MAX_DEVICES] = {};
+  const long long tiles = (n + TN - 1) / TN;
+  if (tiles == 0) return 0;
+  const long long grid =
+      persistent_grid(qtable_qmax_kernel<RELAXED>, SMEM_BYTES, tiles, cache);
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  qtable_qmax_kernel<RELAXED><<<static_cast<unsigned>(grid), THREADS, SMEM_BYTES,
+                                static_cast<cudaStream_t>(stream)>>>(
+      x, basis, sf, n, rmin, rmax, qmax_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // qmax_bits: (64,) int32 zeroed by the caller; holds the float bits of the
@@ -114,19 +154,20 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 extern "C" int dctz_qtable_qmax(const float* x, const float* basis,
                                 const float* sf, long long n, float rmin,
                                 float rmax, int* qmax_bits, void* stream) {
-  static int cache[MAX_DEVICES] = {};
-  const long long tiles = (n + TN - 1) / TN;
-  if (tiles == 0) return 0;
-  const long long grid =
-      persistent_grid(qtable_qmax_kernel, SMEM_BYTES, tiles, cache);
-  if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  qtable_qmax_kernel<<<static_cast<unsigned>(grid), THREADS, SMEM_BYTES,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, basis, sf, n, rmin, rmax, qmax_bits);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(x, basis, sf, n, rmin, rmax, qmax_bits, stream);
+}
+
+extern "C" int dctz_qtable_qmax_relaxed(const float* x, const float* basis,
+                                        const float* sf, long long n,
+                                        float rmin, float rmax, int* qmax_bits,
+                                        void* stream) {
+  return launch<true>(x, basis, sf, n, rmin, rmax, qmax_bits, stream);
 }
 
 // Resident CTAs per SM at the launch configuration.
 extern "C" int dctz_ctas_per_sm_qtable_qmax() {
-  return dctz::tile::tile_ctas_per_sm(qtable_qmax_kernel, SMEM_BYTES);
+  return dctz::tile::tile_ctas_per_sm(qtable_qmax_kernel<false>, SMEM_BYTES);
+}
+extern "C" int dctz_ctas_per_sm_qtable_qmax_relaxed() {
+  return dctz::tile::tile_ctas_per_sm(qtable_qmax_kernel<true>, SMEM_BYTES);
 }

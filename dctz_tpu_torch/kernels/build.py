@@ -93,6 +93,12 @@ SIGNATURES = {
     # b, cw: 1 where M takes its word walk, 0 where its lane walk
     "dctz_fused_decode_dpk_word_walk": [I32, I32],
 }
+#: the RELAXED instantiations of A, A-QT, E, F and G (dct_precision "high":
+#: the bf16x3 analysis on the tensor cores, csrc/dct_tile.cuh): the same
+#: arguments as their HIGHEST instantiations
+RELAXED = ("dct_quant_verify", "dct_quant_verify_qt", "qtable_qmax", "dct_quant",
+           "dct_quant_qt")
+SIGNATURES.update({f"dctz_{k}_relaxed": SIGNATURES[f"dctz_{k}"] for k in RELAXED})
 #: the card-only references of L and M (csrc/*_ref.cu): the same arguments
 #: as the kernels they check; only ops/research/_ref.py calls them
 REFERENCES = ("fused_encode_dpk_ref", "fused_decode_dpk_ref")
@@ -104,7 +110,8 @@ OCCUPANCY = ("qtable_qmax", "dct_quant_verify", "dct_quant_verify_qt",
              "dpk_pack_compact", "dpk_unpack_expand", "dequant_idct",
              "dequant_idct_qt", "dct_quant", "dct_quant_qt", "chunk_compact",
              "chunk_expand", "chunk_compact_unified", "chunk_compact_bytes",
-             "fused_encode_dpk", "fused_decode_dpk")
+             "fused_encode_dpk", "fused_decode_dpk") + tuple(
+                 f"{k}_relaxed" for k in RELAXED)
 #: the lane walks of H, J and K (csrc/chunk_shuffle.cu), their second
 #: instantiations, whose resident CTAs per SM the library reports too
 LANE_WALKS = ("chunk_compact_lanes", "chunk_compact_unified_lanes",

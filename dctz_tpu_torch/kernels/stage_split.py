@@ -1,4 +1,4 @@
-"""Where kernels B, C, E, F, H, J, K, L and M spend their time: each timed
+"""Where kernels A, B, C, E, F, H, J, K, L and M spend their time: each timed
 whole and with one stage cut out at a time.
 
     python -m dctz_tpu_torch.kernels.stage_split [--csrc DIR] [--out FILE]
@@ -8,7 +8,8 @@ unpacked from `git archive`. Each variant copies DIR, applies the text edits
 of one cut to one kernel's source, builds that source alone into a library
 of its own (one nvcc per variant, all at once) and times it with CUDA
 events, in rounds over all variants, on the inputs the main path gives it:
-32Mi samples of the bench array, EC at eb 1e-3, cw 512. B takes the ids and
+32Mi samples of the bench array, EC at eb 1e-3, cw 512. A takes the bench
+array with verify on (the main path's call). B takes the ids and
 values of kernel A's plain version at exception capacity 128; C takes B's
 plain streams cut to the decode's capacity tiers; E takes the bench array
 with every 977th sample x30 (the QT input of chip_smoke.py), F and L the bench
@@ -18,9 +19,12 @@ the exception bytes of F's plain ids coded at tile 64 with their AC values
 at capacity 128 (pack_ids_with_ac's call in chip_smoke.py), K the exception
 mask and id bytes of the same ids coded at tile 256 at capacity 128
 (chip_smoke.py's dpk_onepass call). The kernels
-come in groups (B and C; E and F; H and J; K; L and M), each with its cut
+come in groups (A; B and C; E and F; H and J; K; L and M), each with its cut
 sets, oldest first; a group's cuts are those of its first set whose every
-edit finds its text. A cut variant computes wrong results on purpose, and
+edit finds its text. A, E and F are also timed in their RELAXED
+instantiations (dct_precision="high": the bf16x3 product on the tensor
+cores), whole and transform_only, by an edit that points the HIGHEST entry
+point at the RELAXED instantiation ("A relaxed", "E relaxed", "F relaxed"). A cut variant computes wrong results on purpose, and
 only its time is read; a design alternative (alt_ in its name) computes
 the kernel's result, which is checked, and is timed beside it. Prints one
 JSON line per kernel and variant. Needs a CUDA card and nvcc.
@@ -44,6 +48,7 @@ CAPE = 128
 LAUNCHES = 20
 ROUNDS = 3
 
+A_SRC = "dct_quant_verify.cu"
 B_SRC, C_SRC = "dpk_pack_compact.cu", "dpk_unpack_expand.cu"
 E_SRC, F_SRC = "qtable_qmax.cu", "dct_quant.cu"
 L_SRC, M_SRC = "fused_encode_dpk.cu", "fused_decode_dpk.cu"
@@ -187,6 +192,42 @@ EF_CUTS = {
              "    *reinterpret_cast<uint4*>(ids_out + gi)")]),
     },
 }
+#: "tiled_relaxed": the "tiled" cuts and the RELAXED instantiations, whole
+#: and transform_only (an edit points the HIGHEST entry point at the
+#: RELAXED instantiation); "tiled" now carries a marker of the sources
+#: before their RELAXED instantiations (a no-op edit of text only they have)
+_TILED = EF_CUTS["tiled"]
+_TILED_MARK = {E_SRC: "      persistent_grid(qtable_qmax_kernel, SMEM_BYTES, tiles, cache);",
+               F_SRC: "      persistent_grid(dct_quant_kernel<QT>, SMEM_BYTES, tiles, cache);"}
+EF_CUTS["tiled"] = {v: (src, edits + [(_TILED_MARK[src], _TILED_MARK[src])])
+                    for v, (src, edits) in _TILED.items()}
+E_RELAXED = ("  return launch<false>(x, basis, sf, n, rmin, rmax, qmax_bits, stream);",
+             "  return launch<true>(x, basis, sf, n, rmin, rmax, qmax_bits, stream);")
+F_RELAXED = ("DCTZ_F_ENTRY(dctz_dct_quant, false)", "DCTZ_F_ENTRY(dctz_dct_quant, true)")
+EF_CUTS["tiled_relaxed"] = _TILED | {
+    "E relaxed": (E_SRC, [E_RELAXED]),
+    "E relaxed transform_only": (E_SRC, [E_RELAXED] + _TILED["E transform_only"][1]),
+    "F relaxed": (F_SRC, [F_RELAXED]),
+    "F relaxed transform_only": (F_SRC, [F_RELAXED] + _TILED["F transform_only"][1]),
+}
+#: A's cut sets: transform_only (staging and the product into the
+#: coefficient tile; no bins, screen, repair or stores); "tiled": A before
+#: its RELAXED instantiations, "tiled_relaxed": in both arms
+A_TRANSFORM_ONLY = (
+    "            make_float4(acc[bi][0], acc[bi][1], acc[bi][2], acc[bi][3]));\n"
+    "      }\n    }\n#pragma unroll\n",
+    "            make_float4(acc[bi][0], acc[bi][1], acc[bi][2], acc[bi][3]));\n"
+    "      }\n    }\n    if (tiles > 0) continue;\n#pragma unroll\n")
+A_RELAXED = ("DCTZ_A_ENTRY(dctz_dct_quant_verify, false)",
+             "DCTZ_A_ENTRY(dctz_dct_quant_verify, true)")
+_A_MARK = ("template <bool QT>\n__global__ void __launch_bounds__(THREADS, MIN_CTAS)\n"
+           "    dct_quant_verify_kernel(")
+A_CUTS = {"tiled": {"A transform_only": (A_SRC, [A_TRANSFORM_ONLY, (_A_MARK, _A_MARK)])},
+          "tiled_relaxed": {
+    "A transform_only": (A_SRC, [A_TRANSFORM_ONLY]),
+    "A relaxed": (A_SRC, [A_RELAXED]),
+    "A relaxed transform_only": (A_SRC, [A_RELAXED, A_TRANSFORM_ONLY]),
+}}
 #: L and M's cut sets. "per_thread": one thread per DCT block on
 #: common.cuh's transforms (the kernels the card-only references keep),
 #: their transforms cut; "tiled": the kernels on dct_tile.cuh,
@@ -421,7 +462,8 @@ K_CUTS["exceptions"] |= {
         "      }\n"))]),
 }
 #: the kernel groups: group -> (the sources timed whole, the cut sets)
-GROUPS = {"B, C": ((B_SRC, C_SRC), BC_CUTS), "E, F": ((E_SRC, F_SRC), EF_CUTS),
+GROUPS = {"A": ((A_SRC,), A_CUTS), "B, C": ((B_SRC, C_SRC), BC_CUTS),
+          "E, F": ((E_SRC, F_SRC), EF_CUTS),
           "H, J": ((HJ_SRC, HJ_SRC), HJ_CUTS), "K": ((HJ_SRC,), K_CUTS),
           "L, M": ((L_SRC, M_SRC), LM_CUTS)}
 
@@ -472,7 +514,7 @@ def _build(csrc: pathlib.Path, sets: dict, root: pathlib.Path) -> dict:
 
 
 def _inputs(torch):
-    """Kernel B's, C's, E's, F's, H's, J's, K's, L's and M's arguments at
+    """Kernel A's, B's, C's, E's, F's, H's, J's, K's, L's and M's arguments at
     the main path's shapes (B, C, H, J, K and M from the plain versions on
     the card), by kernel letter. H, J and K's end in the word_walk flag
     (1). Also the outputs of each kernel with design alternatives (J's
@@ -492,6 +534,10 @@ def _inputs(torch):
     tol = fused_encode.tolerance(x, N, cfg.error_bound)
     ids, vals, _ok = fk._dct_quant_verify_plain(x, sf, tol, N, cfg, True)
     nblk = N // 64
+    ids_a = torch.empty((nblk, 64), dtype=torch.uint8, device=dev)
+    vals_a = torch.empty((nblk, 64), dtype=torch.float32, device=dev)
+    ok_a = torch.empty((-(-N // fk.CTA_N),), dtype=torch.int32, device=dev)
+    tol1 = tol.reshape(1).to(torch.float32).contiguous()
     width, packed, exc, exc_n, ac, ac_n, dc_b = fk._dpk_pack_compact_plain(ids, vals, N, CAPE)
     tier = lambda peak: next(c for c in (32, 64, 128, CW) if c >= min(peak, CW))  # noqa: E731
     cape, capc = tier(int(exc_n.max())), tier(int(ac_n.max()))
@@ -521,6 +567,8 @@ def _inputs(torch):
     dcac_f = torch.empty((nblk, 64), dtype=torch.float32, device=dev)
     f_args = (x.data_ptr(), basis.data_ptr(), sf1.data_ptr(), N, rmin, rmax, w,
               ids_f.data_ptr(), dcac_f.data_ptr())
+    a_args = (x.data_ptr(), basis.data_ptr(), sf1.data_ptr(), tol1.data_ptr(), N, N, rmin,
+              rmax, w, 1, ids_a.data_ptr(), vals_a.data_ptr(), ok_a.data_ptr(), None)
     outs_l = [torch.empty_like(o) for o in outs_b]
     l_args = (x.data_ptr(), basis.data_ptr(), sf1.data_ptr(), N, rmin, rmax, w,
               *(o.data_ptr() for o in outs_l))
@@ -546,10 +594,11 @@ def _inputs(torch):
     mask_k, byt_k = mask_256.view(torch.uint8), ids_256.to(torch.uint8)
     rows_k = torch.empty((nc, CAPE), dtype=torch.uint8, device=dev)
     k_args = (mask_k.data_ptr(), byt_k.data_ptr(), nc, CW, CAPE, rows_k.data_ptr(), 1)
-    keep = (ids, vals, width, packed, exc_t, ac_t, dc_b, outs_b, ids_c, acv_c, basis, xq,
+    keep = (ids_a, vals_a, ok_a, tol1, ids, vals, width, packed, exc_t, ac_t, dc_b, outs_b, ids_c, acv_c, basis, xq,
             sf1, sf_q1, bits, ids_f, dcac_f, outs_l, out_m, ids_fp, dcac_fp, mask_h, rows_h,
             cnt_h, mask_j, idb_j, exc_j, ac_j, mask_k, byt_k, rows_k)
-    return {"B": ("dctz_dpk_pack_compact", b_args),
+    return {"A": ("dctz_dct_quant_verify", a_args),
+            "B": ("dctz_dpk_pack_compact", b_args),
             "C": ("dctz_dpk_unpack_expand", c_args),
             "E": ("dctz_qtable_qmax", e_args),
             "F": ("dctz_dct_quant", f_args),

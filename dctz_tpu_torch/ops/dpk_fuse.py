@@ -16,6 +16,13 @@ qtable and hands B the stored values, D inverts the renormalization. B and C
 do not depend on the mode. The qtable itself comes from kernel E
 (ops/fused_encode.qtable_qmax).
 
+relaxed=True (CodecConfig.dct_precision "high") launches A's RELAXED
+instantiations (dct_quant_verify_relaxed, dct_quant_verify_qt_relaxed): the
+analysis is three bfloat16 products on the tensor cores and the L2 screen's
+budget is 1024 eps * max|xs| (the TPU kernel's relaxed arm); the
+reconstructions stay float32. Their plain version runs
+transform.block_dct(.., "high").
+
 Every kernel has a wrapper here that takes the plain PyTorch version for
 tensors on the CPU, and launches the kernel (csrc/*.cu, built at first use by
 kernels/build.py) for CUDA tensors, or raises. It never falls back. The
@@ -48,6 +55,9 @@ TILE_N = TILE_B * BS  # elements per tile
 #: (csrc/dct_tile.cuh); A reports one verify flag per such tile
 CTA_N = 64 * BS
 EPS32 = 2.0**-23
+#: kernel A's L2-screen rounding budget, in eps * max|xs| of the block: the
+#: HIGHEST analysis, and the relaxed one (dpk_fuse.py:603-607)
+SCREEN_BUDGET = {False: 32.0, True: 1024.0}
 
 #: launches of each kernel by its wrapper (plain versions do not count)
 LAUNCHES = {
@@ -68,6 +78,12 @@ LAUNCHES = {
     "chunk_compact_bytes": 0,
     "fused_encode_dpk": 0,
     "fused_decode_dpk": 0,
+    # the RELAXED instantiations (dct_precision "high") of A, A-QT, E, F, G
+    "dct_quant_verify_relaxed": 0,
+    "dct_quant_verify_qt_relaxed": 0,
+    "qtable_qmax_relaxed": 0,
+    "dct_quant_relaxed": 0,
+    "dct_quant_qt_relaxed": 0,
 }
 
 
@@ -119,6 +135,17 @@ def _launch(name: str, *args, instantiation: str | None = None) -> None:
         INSTANTIATIONS[instantiation] += 1
 
 
+def _precision(relaxed: bool) -> str:
+    """The transform's precision name (core/transform.py) of an arm."""
+    return "high" if relaxed else "highest"
+
+
+def _arm(relaxed: bool) -> str:
+    """The suffix of a kernel's RELAXED instantiation in LAUNCHES and in the
+    library's entry points."""
+    return "_relaxed" if relaxed else ""
+
+
 def _ceil_lanes(c: int) -> int:
     return -(-c // 128) * 128
 
@@ -145,17 +172,20 @@ def _qtable32(qtable: torch.Tensor) -> torch.Tensor:
     return qtable.to(torch.float32).contiguous()
 
 
-def _screen_counts(x, coef, ids, sf, tol, n_valid, cfg, qtable):
+def _screen_counts(x, coef, ids, sf, tol, n_valid, cfg, qtable,
+                   relaxed: bool = False):
     """(blocks kernel A's L2 screen sends to the exact check, blocks whose
     reconstruction misses tol before the repair), as A's counters count
-    them; sums and transforms in torch's order, so a block at the screen's
-    edge may count differently."""
+    them, with the screen's budget of the analysis (SCREEN_BUDGET); sums
+    and transforms in torch's order, so a block at the screen's edge may
+    count differently."""
     n_pad = x.shape[0]
     acm = qz.ac_mask(ids.shape[0], BS, n_pad, x.device)
     dense = repair.stored_dense(coef, ids, acm, cfg, qtable)
     hat = qz.decode_dense(ids, coef[:, 0], dense, n_pad, cfg, qtable)
     l2 = ((hat - coef) ** 2).sum(1)
-    thr = tol / sf - 32 * EPS32 * (x / sf).reshape(-1, BS).abs().amax(1)
+    thr = tol / sf - SCREEN_BUDGET[relaxed] * EPS32 * (x / sf).reshape(
+        -1, BS).abs().amax(1)
     flagged = (l2 > thr * thr) | (thr <= 0)
     err = ((transform.block_idct(hat) * sf).reshape(-1) - x).abs()
     err = torch.where(torch.arange(n_pad, device=x.device) < n_valid, err,
@@ -165,10 +195,10 @@ def _screen_counts(x, coef, ids, sf, tol, n_valid, cfg, qtable):
 
 
 def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable=None,
-                            counters=None):
+                            counters=None, relaxed: bool = False):
     n_pad = x.shape[0]
     xs = x / sf  # divide: reference semantics
-    coef = transform.block_dct(xs.reshape(-1, BS))
+    coef = transform.block_dct(xs.reshape(-1, BS), _precision(relaxed))
     if qtable is None:
         ids = qz.encode_ids(coef, n_pad, cfg)
     else:
@@ -177,7 +207,8 @@ def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable=None,
     if verify:
         if counters is not None:
             counters += torch.tensor(
-                _screen_counts(x, coef, ids, sf, tol, n_valid, cfg, qtable),
+                _screen_counts(x, coef, ids, sf, tol, n_valid, cfg, qtable,
+                               relaxed),
                 dtype=counters.dtype, device=counters.device)
         ids, ok = repair.verify_repair(
             x, coef, sf, ids, coef[:, 0], n_pad, n_valid, cfg, tol, qtable
@@ -190,9 +221,12 @@ def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable=None,
 
 def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
                      qtable: torch.Tensor | None = None,
-                     counters: torch.Tensor | None = None):
+                     counters: torch.Tensor | None = None, *,
+                     relaxed: bool = False):
     """Kernel A. Replaces the transform and verify half of
-    dctz_tpu/ops/dpk_fuse.py:_make_encode_x_kernel (lines 494-647).
+    dctz_tpu/ops/dpk_fuse.py:_make_encode_x_kernel (lines 494-647), in its
+    HIGHEST arm or, relaxed, in its relaxed one (the instantiations named
+    with _relaxed).
 
     x: flat float32 (n_pad,), n_pad a multiple of 1024; sf, tol: float32
     scalars on x's device; qtable: the (64,) quantizer table for QT mode
@@ -212,7 +246,7 @@ def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
             raise ValueError(f"counters must be (2,), got {tuple(counters.shape)}")
     if not _on_cuda(*args):
         return _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable,
-                                       counters)
+                                       counters, relaxed)
     _check(x, torch.float32, "x")
     if x.dim() != 1 or n_pad % 1024:
         raise ValueError(f"x must be flat with a length that is a multiple "
@@ -231,11 +265,12 @@ def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
     tail = (n_pad, n_valid, rmin, rmax, w, int(bool(verify)), ids.data_ptr(),
             vals.data_ptr(), ok_tiles.data_ptr(),
             None if counters is None else counters.data_ptr())
+    arm = _arm(relaxed)
     if qtable is None:
-        _launch("dct_quant_verify", *head, *tail)
+        _launch("dct_quant_verify" + arm, *head, *tail)
     else:
         q32 = _qtable32(qtable)
-        _launch("dct_quant_verify_qt", *head, q32.data_ptr(),
+        _launch("dct_quant_verify_qt" + arm, *head, q32.data_ptr(),
                 float(cfg.error_bound), float(cfg.qt_factor), *tail)
     return ids, vals, torch.all(ok_tiles != 0)
 
@@ -305,14 +340,16 @@ def encode_fused(ids2d, dcac2d, n_valid: int, b: int, cape: int, cw: int):
 
 
 def encode_x_fused(x, sf, tol, n_valid: int, cfg_eb: float, cape: int,
-                   cw: int, verify: bool, qtable: torch.Tensor | None = None):
+                   cw: int, verify: bool, qtable: torch.Tensor | None = None,
+                   *, relaxed: bool = False):
     """Whole EC/QT encode from raw samples: kernel A then kernel B. Same
     contract as dctz_tpu/ops/dpk_fuse.py:encode_x_fused; a qtable selects QT
-    mode. Returns (width, packed, exc_rows, exc_counts, ac_rows, ac_counts,
-    dc, overflow, ok)."""
+    mode, relaxed the relaxed analysis (its dct_precision="high"). Returns
+    (width, packed, exc_rows, exc_counts, ac_rows, ac_counts, dc, overflow,
+    ok)."""
     n_pad = x.shape[0]
     ids, vals, ok = dct_quant_verify(x, sf, tol, n_valid, cfg_eb, verify,
-                                     qtable)
+                                     qtable, relaxed=relaxed)
     return encode_fused(ids, vals, n_pad, TILE_B, cape, cw) + (ok,)
 
 

@@ -11,6 +11,12 @@ into the quantizer table, and pass 2 (kernel G, or kernels A + B on the DPK
 path) renormalizes the escapes through it. The pipelines put kernel H
 (ops/shuffle.py, through core/quantize.repack) behind F and G: the whole
 device encode of a v1 or host-coded v2 container without verify.
+
+relaxed=True (CodecConfig.dct_precision "high") launches the RELAXED
+instantiations of E, F and G (qtable_qmax_relaxed, dct_quant_relaxed,
+dct_quant_qt_relaxed): the analysis is three bfloat16 products on the tensor
+cores, as the TPU kernels' relaxed arms compute it (fused_encode.py:_fwd_dot);
+their plain versions run transform.block_dct(.., "high").
 """
 
 from __future__ import annotations
@@ -40,11 +46,13 @@ def tolerance(x: torch.Tensor, n_true: int, error_bound: float) -> torch.Tensor:
     )
 
 
-def _qtable_qmax_plain(x: torch.Tensor, sf: torch.Tensor, cfg: CodecConfig):
+def _qtable_qmax_plain(x: torch.Tensor, sf: torch.Tensor, cfg: CodecConfig,
+                       relaxed: bool = False):
     """Kernel E's plain version: the per-position max |coefficient| over
     the out-of-range AC positions of DCT(x / sf), unclamped; slot 0 is 0."""
     _, rmin, rmax = qz._geometry(cfg)
-    coef = transform.block_dct((x / sf).reshape(-1, BS))
+    coef = transform.block_dct((x / sf).reshape(-1, BS),
+                               dpk_fuse._precision(relaxed))
     dev = x.device
     escape = ~((coef >= _f32(rmin, dev)) & (coef <= _f32(rmax, dev)))
     escape[:, 0] = False
@@ -52,8 +60,8 @@ def _qtable_qmax_plain(x: torch.Tensor, sf: torch.Tensor, cfg: CodecConfig):
     return mag.amax(dim=0)
 
 
-def qtable_qmax(x: torch.Tensor, sf: torch.Tensor,
-                error_bound: float) -> torch.Tensor:
+def qtable_qmax(x: torch.Tensor, sf: torch.Tensor, error_bound: float, *,
+                relaxed: bool = False) -> torch.Tensor:
     """Kernel E (csrc/qtable_qmax.cu). Replaces the TPU kernel
     dctz_tpu/ops/fused_encode.py:_qtable_pass (line 203) behind qtable_qmax
     (line 229): QT pass 1 alone, the per-position max |escaped AC
@@ -65,11 +73,12 @@ def qtable_qmax(x: torch.Tensor, sf: torch.Tensor,
 
     x: flat float32 (n_pad,), n_pad a multiple of 1024 (zero padding adds
     nothing: zero blocks have no escapes); sf: float32 scalar tensor on x's
-    device. Returns the (64,) float32 qtable on x's device."""
+    device; relaxed: the relaxed analysis (instantiation
+    qtable_qmax_relaxed). Returns the (64,) float32 qtable on x's device."""
     cfg = CodecConfig(mode="qt", error_bound=error_bound)
     n_pad = x.shape[0]
     if not dpk_fuse._on_cuda(x, sf):
-        qmax = _qtable_qmax_plain(x, sf, cfg)
+        qmax = _qtable_qmax_plain(x, sf, cfg, relaxed)
     else:
         dpk_fuse._check(x, torch.float32, "x")
         if x.dim() != 1 or n_pad % 1024:
@@ -80,18 +89,20 @@ def qtable_qmax(x: torch.Tensor, sf: torch.Tensor,
         bits = torch.zeros((BS,), dtype=torch.int32, device=x.device)
         sf32 = sf.reshape(1).to(torch.float32).contiguous()
         basis = transform.dct2_basis(BS, x.device)
-        dpk_fuse._launch("qtable_qmax", x.data_ptr(), basis.data_ptr(),
+        dpk_fuse._launch("qtable_qmax" + dpk_fuse._arm(relaxed), x.data_ptr(),
+                         basis.data_ptr(),
                          sf32.data_ptr(), n_pad, rmin, rmax, bits.data_ptr())
         qmax = bits.view(torch.float32)
     return torch.clamp_min(qmax, 1.0)
 
 
 def _dct_quant_plain(x: torch.Tensor, sf: torch.Tensor, cfg: CodecConfig,
-                     qtable: torch.Tensor | None = None):
+                     qtable: torch.Tensor | None = None, relaxed: bool = False):
     """Kernels F and G's plain version: transform.block_dct composed with
     the fused kernels' contract (see dct_quant)."""
     _, rmin, rmax = qz._geometry(cfg)
-    coef = transform.block_dct((x / sf).reshape(-1, BS))
+    coef = transform.block_dct((x / sf).reshape(-1, BS),
+                               dpk_fuse._precision(relaxed))
     nblk = coef.shape[0]
     if qtable is None:
         ids = qz.encode_ids(coef, nblk * BS, cfg)
@@ -113,14 +124,16 @@ def _dct_quant_plain(x: torch.Tensor, sf: torch.Tensor, cfg: CodecConfig,
 
 
 def dct_quant(x: torch.Tensor, sf: torch.Tensor, error_bound: float,
-              qtable: torch.Tensor | None = None):
+              qtable: torch.Tensor | None = None, *, relaxed: bool = False):
     """Kernel F (qtable None) or G (csrc/dct_quant.cu). F replaces the TPU
     kernel dctz_tpu/ops/fused_encode.py:fused_encode_ec (line 363), G the
     pass-2 kernel of fused_encode_qt (line 294).
 
     x: flat float32 (n_pad,), n_pad a multiple of 1024, zero-padded; sf:
     float32 scalar tensor on x's device; qtable: the (64,) quantizer table
-    (kernel E's; slot 0 is not read). Returns (ids u8 (n_pad/64, 64):
+    (kernel E's; slot 0 is not read); relaxed: the relaxed analysis
+    (instantiations dct_quant_relaxed, dct_quant_qt_relaxed). Returns (ids
+    u8 (n_pad/64, 64):
     ESCAPE at DC and at what stays out of range, padding binned like data;
     dcac f32 (n_pad/64, 64): the DC at column 0, the stored value at AC
     escapes, 0 elsewhere)."""
@@ -128,7 +141,7 @@ def dct_quant(x: torch.Tensor, sf: torch.Tensor, error_bound: float,
                       error_bound=error_bound)
     args = (x, sf) + (() if qtable is None else (qtable,))
     if not dpk_fuse._on_cuda(*args):
-        return _dct_quant_plain(x, sf, cfg, qtable)
+        return _dct_quant_plain(x, sf, cfg, qtable, relaxed)
     dpk_fuse._check(x, torch.float32, "x")
     n_pad = x.shape[0]
     if x.dim() != 1 or n_pad % 1024:
@@ -140,31 +153,34 @@ def dct_quant(x: torch.Tensor, sf: torch.Tensor, error_bound: float,
     dcac = torch.empty((n_pad // BS, BS), dtype=torch.float32, device=x.device)
     sf32 = sf.reshape(1).to(torch.float32).contiguous()
     basis = transform.dct2_basis(BS, x.device)
+    arm = dpk_fuse._arm(relaxed)
     if qtable is None:
-        dpk_fuse._launch("dct_quant", x.data_ptr(), basis.data_ptr(),
+        dpk_fuse._launch("dct_quant" + arm, x.data_ptr(), basis.data_ptr(),
                          sf32.data_ptr(), n_pad, rmin, rmax, w,
                          ids.data_ptr(), dcac.data_ptr())
     else:
         q32 = dpk_fuse._qtable32(qtable)
-        dpk_fuse._launch("dct_quant_qt", x.data_ptr(), basis.data_ptr(),
+        dpk_fuse._launch("dct_quant_qt" + arm, x.data_ptr(), basis.data_ptr(),
                          sf32.data_ptr(), q32.data_ptr(),
                          float(cfg.error_bound), float(cfg.qt_factor), n_pad,
                          rmin, rmax, w, ids.data_ptr(), dcac.data_ptr())
     return ids, dcac
 
 
-def fused_encode_ec(x: torch.Tensor, sf: torch.Tensor, error_bound: float):
+def fused_encode_ec(x: torch.Tensor, sf: torch.Tensor, error_bound: float, *,
+                    relaxed: bool = False):
     """Kernel F: (ids (nblk, 64) u8, dcac (nblk, 64) f32), the contract of
-    dctz_tpu's fused_encode_ec."""
-    return dct_quant(x, sf, error_bound)
+    dctz_tpu's fused_encode_ec (relaxed: its dct_precision="high")."""
+    return dct_quant(x, sf, error_bound, relaxed=relaxed)
 
 
-def fused_encode_qt(x: torch.Tensor, sf: torch.Tensor, error_bound: float):
+def fused_encode_qt(x: torch.Tensor, sf: torch.Tensor, error_bound: float, *,
+                    relaxed: bool = False):
     """Kernel E, then kernel G with its qtable: (ids, dcac, qtable), the
     contract of dctz_tpu's fused_encode_qt (the qtable's slot 0 as E leaves
-    it; the pipeline patches it)."""
-    qtable = qtable_qmax(x, sf, error_bound)
-    return dct_quant(x, sf, error_bound, qtable) + (qtable,)
+    it; the pipeline patches it; relaxed: its dct_precision="high")."""
+    qtable = qtable_qmax(x, sf, error_bound, relaxed=relaxed)
+    return dct_quant(x, sf, error_bound, qtable, relaxed=relaxed) + (qtable,)
 
 
 def _compact(ids, dcac, error_bound: float, qtable=None) -> qz.Quantized:
@@ -172,8 +188,8 @@ def _compact(ids, dcac, error_bound: float, qtable=None) -> qz.Quantized:
                      CodecConfig(error_bound=error_bound))
 
 
-def fused_encode_pipeline(x: torch.Tensor, sf: torch.Tensor,
-                          error_bound: float) -> qz.Quantized:
+def fused_encode_pipeline(x: torch.Tensor, sf: torch.Tensor, error_bound: float,
+                          *, relaxed: bool = False) -> qz.Quantized:
     """Kernel F, then kernel H over the AC escapes: the whole EC device
     encode of a v1 or host-coded v2 container without verify. The fields of
     the returned Quantized are those of
@@ -181,17 +197,18 @@ def fused_encode_pipeline(x: torch.Tensor, sf: torch.Tensor,
     (nc, capc), counts (nc,), then qtable None and the overflow flag),
     except that an overflow of the default capacity is already recompacted
     at full chunk width (H alone is rerun; `overflowed` says it was)."""
-    ids, dcac = fused_encode_ec(x, sf, error_bound)
+    ids, dcac = fused_encode_ec(x, sf, error_bound, relaxed=relaxed)
     return _compact(ids, dcac, error_bound)
 
 
 def fused_encode_pipeline_qt(x: torch.Tensor, sf: torch.Tensor,
-                             error_bound: float) -> qz.Quantized:
+                             error_bound: float, *,
+                             relaxed: bool = False) -> qz.Quantized:
     """Kernels E and G, then H: the QT twin of fused_encode_pipeline, with
     the (64,) qtable whose slot 0 holds the last block's DC, as the JAX
     pipeline sets it (the container stores the last REAL block's instead:
     patch_slot0)."""
-    ids, dcac, qtable = fused_encode_qt(x, sf, error_bound)
+    ids, dcac, qtable = fused_encode_qt(x, sf, error_bound, relaxed=relaxed)
     qtable = qtable.clone()
     qtable[0] = dcac[-1, 0]
     return _compact(ids, dcac, error_bound, qtable)
@@ -208,7 +225,8 @@ def patch_slot0(qtable: torch.Tensor, dc: torch.Tensor, n_true: int):
 
 def fused_encode_pipeline_dpk_qt_v2(x: torch.Tensor, sf: torch.Tensor,
                                     error_bound: float, cape: int,
-                                    n_true: int, verify: bool):
+                                    n_true: int, verify: bool, *,
+                                    relaxed: bool = False):
     """The reference's QT pipeline, kept for parity with it (api and
     stream run the same steps through stream._encode_segment_dpk): kernel
     E reduces the qtable (pass 1), then kernels A + B renormalize, verify
@@ -217,9 +235,10 @@ def fused_encode_pipeline_dpk_qt_v2(x: torch.Tensor, sf: torch.Tensor,
     ac_counts, dc, overflow, ok, qtable), the qtable's slot 0 already
     patched with the last real block's DC."""
     cw = qz.chunk_width(x.shape[0], C.BLK_SZ)
-    qtable = qtable_qmax(x, sf, error_bound)
+    qtable = qtable_qmax(x, sf, error_bound, relaxed=relaxed)
     tol = tolerance(x, n_true, error_bound)
     out = dpk_fuse.encode_x_fused(
-        x, sf, tol, n_true, error_bound, min(cape, cw), cw, verify, qtable
+        x, sf, tol, n_true, error_bound, min(cape, cw), cw, verify, qtable,
+        relaxed=relaxed,
     )
     return out + (patch_slot0(qtable, out[6], n_true),)

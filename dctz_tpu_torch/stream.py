@@ -62,15 +62,19 @@ _PAD_QUANTUM = 1024  # the fused encode pads to whole (8, 128) tiles
 def _stats_stream_device(x: torch.Tensor):
     """Global statistics of a device-resident array, reduced on its device:
     (max|x|, sum, max, min) as tensors. max|x| = max(|max|, |min|) exactly;
-    the sum accumulates in float64, as the host branch does."""
+    the sum is a float32 sum, as the JAX package's device branch takes it
+    (dctz_tpu/stream.py:_stats_stream_device), equal to it up to the order
+    of the float32 additions."""
     vmin, vmax = torch.aminmax(x)
     amax = torch.maximum(torch.abs(vmax), torch.abs(vmin))
-    return amax, torch.sum(x, dtype=torch.float64), vmax, vmin
+    return amax, torch.sum(x), vmax, vmin
 
 
 def _stats_stream_host(x: np.ndarray, segment_elems: int):
     """The same statistics of a host array, one segment at a time (python
-    floats): the array is never copied whole."""
+    floats): the array is never copied whole. The sum adds float64 segment
+    sums, as the JAX package's host branch does (dctz_tpu/stream.py:187-192),
+    so the two write the same mean."""
     amax, total, vmax, vmin = 0.0, 0.0, -np.inf, np.inf
     for seg in _segments(x, segment_elems):
         amax = max(amax, float(np.abs(seg).max()))
@@ -190,9 +194,11 @@ def compress_stream(
 
     sf_t = scaling_factor(amax, cfg.sf_adj)
     sf = float(sf_t)
-    # the header's mean is rounded to float32, as the monolithic path stores
-    # it, so that host and device statistics write the same bytes
-    mean = float(np.float32(total / n))
+    # the header's mean is total / n in doubles, unrounded, as the JAX
+    # writer stores it (dctz_tpu/stream.py:200); total is a float32 sum on
+    # the device route and a float64 sum of segment sums on the host route,
+    # so the two routes store different means, as the JAX package's do
+    mean = total / n
     # the verify tolerance is GLOBAL (eb times the range of the whole
     # array), computed in python doubles and rounded once to float32, as
     # the JAX stream writer does
@@ -205,7 +211,8 @@ def compress_stream(
     qt_ext = None
     if cfg.mode == "qt":
         for seg in _segments(x, segment_elems):
-            q1 = fe.qtable_qmax(_on_device(seg, device), sf_t, cfg.error_bound)
+            q1 = fe.qtable_qmax(_on_device(seg, device), sf_t, cfg.error_bound,
+                                relaxed=api._relaxed(cfg))
             qt_ext = q1 if qt_ext is None else torch.maximum(qt_ext, q1)
 
     def write_frame(blob: bytes) -> int:
@@ -256,7 +263,8 @@ def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
                         tol_t: torch.Tensor, cfg: CodecConfig, qt_ext):
     """Device stage of one DPK array: kernels A + B with the given sf,
     tolerance and qtable, retried once at full chunk width on exception
-    overflow (the qtable does not depend on the width, so E is not rerun).
+    overflow (the qtable does not depend on the width, so E is not rerun);
+    cfg.dct_precision "high" takes A's RELAXED instantiation.
     xs: the array on its device, zero-padded to the 1024 tile quantum
     (_on_device), n of its samples real. The float32 DC/AC streams are
     split into byte planes on the device (api._plane_split2) so the host
@@ -271,7 +279,8 @@ def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
 
     def encode(cape):
         return dpk_fuse.encode_x_fused(xs, sf_t, tol_t, n, cfg.error_bound,
-                                       min(cape, cw), cw, cfg.verify, qt_ext)
+                                       min(cape, cw), cw, cfg.verify, qt_ext,
+                                       relaxed=api._relaxed(cfg))
 
     outs = encode(idpack.CAPE)
     if bool(outs[7]):

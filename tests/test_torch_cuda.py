@@ -1159,3 +1159,305 @@ def test_kernels_l_m_occupancy(dev):
     spills = _ptxas_spills(build.PTXAS_LOG.read_text())
     for k in ("fused_encode_dpk", "fused_decode_dpk", "fused_decode_dpk_lanes"):
         assert spills.get(k) == 0, (k, spills.get(k))
+
+
+# ---------------------------------------------------------------------------
+# The relaxed analysis (CodecConfig.dct_precision="high"): the RELAXED
+# instantiations of A, A-QT, E, F and G, three bfloat16 products on the
+# tensor cores (csrc/dct_tile.cuh:tile_product_bf16x3)
+# ---------------------------------------------------------------------------
+
+#: a RELAXED kernel's coefficients against its plain version
+#: (transform.dot_bf16x3), in eps32 * max|x/sf| of the block. Both take the
+#: same bfloat16 parts, whose products are exact in float32, so they differ
+#: only by the order of the float32 accumulation inside each of the three
+#: products (the tensor cores' against cuBLAS'), as the HIGHEST kernels
+#: differ from theirs; the bfloat16 representation error is the same on
+#: both sides and is not in the budget.
+RELAXED_BUDGET = 32
+RELAXED = {"dct_quant_verify_relaxed", "dct_quant_verify_qt_relaxed",
+           "qtable_qmax_relaxed", "dct_quant_relaxed", "dct_quant_qt_relaxed"}
+#: the HIGHEST forward kernels, which a relaxed configuration never launches
+HIGHEST_FORWARD = {k.removesuffix("_relaxed") for k in RELAXED}
+
+
+def _budget(xp, sf, blocks=64):
+    return RELAXED_BUDGET * 2.0**-23 * (xp / sf).reshape(-1, blocks).abs().amax(
+        1, keepdim=True)
+
+
+def near_edge(coef, budget, cfg, qtable=None):
+    """Where a coefficient within `budget` of coef can take another bin id:
+    coef within the budget (plus 4 ulp of the division by w) of a bin edge
+    rmin + j*w or of the range's ends, or, QT, an out-of-range coef whose
+    renormalized value lies within budget * eb * qt_factor / q[k] of one."""
+    from dctz_tpu_torch.core import quantize as qz
+
+    w, rmin, rmax = qz._geometry(cfg)
+    eps = 2.0**-23
+
+    def edge(v):
+        u = (v - rmin) / w
+        return torch.minimum((u - torch.round(u)).abs() * w,
+                             torch.minimum((v - rmin).abs(), (v - rmax).abs()))
+
+    near = edge(coef) <= budget + 4 * eps * (coef.abs() + abs(rmin))
+    if qtable is not None:
+        norm = qz.qt_renorm(coef, qtable, cfg)
+        scale = cfg.error_bound * cfg.qt_factor / qtable.abs()[None, :]
+        near |= (edge(norm) <= budget * scale + 4 * eps * (norm.abs() + abs(rmin))) & (
+            (coef < rmin) | (coef > rmax))
+    return near
+
+
+def _ids_differ_only_near_edges(ik, ip, coef_p, budget, cfg, q=None):
+    """The ids differ only where the plain coefficient is near an edge
+    (near_edge), at DC never, and at most at 1e-4 of the positions."""
+    near = near_edge(coef_p, budget, cfg, q)
+    near[:, 0] = False
+    differ = ik != ip
+    assert not bool((differ & ~near).any())
+    assert differ.float().mean().item() <= 1e-4
+    return int(differ.sum()), int(near.sum())
+
+
+def _one_sample_blocks(n, seed):
+    """One nonzero sample per block, at a random position and amplitude."""
+    rng = np.random.default_rng(seed)
+    nb = -(-n // 64)
+    x = np.zeros(nb * 64, np.float32)
+    pos = rng.integers(0, 64, nb)
+    x[np.arange(nb) * 64 + pos] = (rng.standard_normal(nb) * 30.0).astype(np.float32)
+    return x[:n]
+
+
+@pytest.mark.parametrize("n", [5 * TILE_N - 11] + TILE_EDGES)
+def test_relaxed_split_is_bit_exact(dev, n):
+    """With one nonzero sample per block each of the three bf16 products has
+    one nonzero term, so no accumulation order rounds it: the RELAXED
+    coefficients of A and F (and E's maxima over them) then depend on the
+    bfloat16 split of xs and of the basis alone, and equal the plain
+    version's (torch's round-to-nearest-even conversions, which
+    tests/test_torch_precision.py holds bit-equal to JAX's astype), on the
+    card and on the CPU."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.config import CodecConfig
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+
+    xp = _padded_on(dev, _one_sample_blocks(n, n))
+    sf, _ = api._stats_device(xp, n, 1)
+    cfg = CodecConfig(error_bound=1e-3)
+    _ia, ca, _ok = fk.dct_quant_verify(xp, sf, sf, n, 1e-3, False, relaxed=True)
+    _if, df = fe.dct_quant(xp, sf, 1e-3, relaxed=True)
+    _ip, cp_dev, _okp = fk._dct_quant_verify_plain(xp, sf, sf, n, cfg, False, relaxed=True)
+    _ip, cp_cpu, _okp = fk._dct_quant_verify_plain(xp.cpu(), sf.cpu(), sf.cpu(), n, cfg,
+                                                   False, relaxed=True)
+    assert torch.equal(ca, cp_dev) and torch.equal(ca.cpu(), cp_cpu)
+    esc = (_if == 255) & (torch.arange(64, device=dev) > 0)
+    assert torch.equal(df[:, 0], ca[:, 0]) and torch.equal(df[esc], ca[esc])
+    hi = fk._dct_quant_verify_plain(xp, sf, sf, n, cfg, False)[1]
+    assert not torch.equal(ca, hi)  # the split is not the float32 product
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("verify", [False, True])
+@pytest.mark.parametrize("n_valid", [5 * TILE_N - 11, 3 * CTA_N + 2048 - 11])
+def test_relaxed_kernel_a_matches_plain(dev, mode, verify, n_valid):
+    """A-relaxed and A-QT-relaxed against their plain version on the card:
+    one launch of the RELAXED instantiation and none of the HIGHEST one;
+    coefficients (EC) within RELAXED_BUDGET; verify off: the ids differ only
+    near a bin edge (near_edge); verify on (a narrow signal that gives the
+    repair work): the ids of at most 2 + nblk/100 blocks differ, the same
+    verified flag, the decode of A's output within the tolerance where A
+    says so, and the screen (1024 eps) flags at least the blocks it repairs,
+    about as many as the plain version's. The HIGHEST arm's coefficients
+    lie beyond the budget somewhere: the launch took the relaxed arm."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.config import CodecConfig
+    from dctz_tpu_torch.core import transform
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+
+    x = _signal(n_valid, n_valid + 3, narrow=verify)
+    if mode == "qt" and not verify:
+        x = _qt_input(n_valid, n_valid + 3)
+    xp = _padded_on(dev, x)
+    sf, _ = api._stats_device(xp, n_valid, 1)
+    q = fe.qtable_qmax(xp, sf, 1e-3, relaxed=True) if mode == "qt" else None
+    tol = fe.tolerance(xp, n_valid, 1e-3)
+    cfg = CodecConfig(mode=mode, error_bound=1e-3)
+    ck = torch.zeros(2, dtype=torch.int64, device=dev)
+    cp_ = torch.zeros(2, dtype=torch.int64, device=dev)
+    fk.reset_launches()
+    ik, vk, okk = fk.dct_quant_verify(xp, sf, tol, n_valid, 1e-3, verify, q, ck,
+                                      relaxed=True)
+    name = "dct_quant_verify_qt" if q is not None else "dct_quant_verify"
+    assert fk.LAUNCHES[name + "_relaxed"] == 1 and fk.LAUNCHES[name] == 0
+    ip, vp, okp = fk._dct_quant_verify_plain(xp, sf, tol, n_valid, cfg, verify, q, cp_,
+                                             relaxed=True)
+    budget = _budget(xp, sf)
+    if not verify:
+        coef_p = transform.block_dct((xp / sf).reshape(-1, 64), "high")
+        _ids_differ_only_near_edges(ik, ip, coef_p, budget, cfg, q)
+        if q is None:
+            assert torch.all((vk - vp).abs() <= budget)
+            hi = fk.dct_quant_verify(xp, sf, tol, n_valid, 1e-3, False)[1]
+            assert bool(((vk - hi).abs() > budget).any())
+        return
+    assert int((ik != ip).any(1).sum()) <= 2 + ik.shape[0] // 100
+    assert bool(okk) == bool(okp)
+    ids_d = ik.clone()
+    ids_d[:, 0] = 255
+    esc = (ids_d == 255) & (torch.arange(64, device=dev) > 0)
+    rec = fk.dequant_idct(ids_d, torch.where(esc, vk, torch.zeros_like(vk)),
+                          vk[:, 0].contiguous(), sf, cfg, xp.numel(), q)
+    if bool(okk):
+        assert (rec - xp)[:n_valid].abs().max().item() <= tol.item()
+    if q is None:
+        assert torch.all((vk - vp).abs() <= budget)
+    flagged, repaired = ck.tolist()
+    flagged_p, missed_p = cp_.tolist()
+    assert 0 < repaired <= flagged <= xp.numel() // 64
+    assert abs(flagged - flagged_p) <= 1 + 0.02 * flagged_p
+    assert abs(repaired - missed_p) <= 1 + 0.02 * missed_p
+
+
+@pytest.mark.parametrize("n", [3 * 1024, 5 * TILE_N - 11] + TILE_EDGES)
+def test_relaxed_kernel_e(dev, n):
+    """E-relaxed: one launch of its RELAXED instantiation; the clamped
+    maximum over the escaping coefficients of A-relaxed (EC, verify off:
+    the coefficients A-QT-relaxed bins), bit for bit; within
+    RELAXED_BUDGET of the block maxima of its plain version."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.config import CodecConfig
+    from dctz_tpu_torch.core import quantize as qz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+
+    xp = _padded_on(dev, _qt_input(n, n + 11))
+    sf, _ = api._stats_device(xp, n, 1)
+    fk.reset_launches()
+    got = fe.qtable_qmax(xp, sf, 1e-3, relaxed=True)
+    assert fk.LAUNCHES["qtable_qmax_relaxed"] == 1 and fk.LAUNCHES["qtable_qmax"] == 0
+    assert (got[1:] > 1.0).any() or n < TILE_N  # the shortest input has no spike escape
+    _ids, coef, _ok = fk.dct_quant_verify(xp, sf, sf, n, 1e-3, False, relaxed=True)
+    _w, rmin, rmax = qz._geometry(CodecConfig(error_bound=1e-3))
+    esc = ~((coef >= rmin) & (coef <= rmax)) & (torch.arange(64, device=dev) > 0)
+    from_a = torch.where(esc, coef.abs(), torch.zeros_like(coef)).amax(0)
+    assert torch.equal(got, torch.clamp_min(from_a, 1.0))
+    plain = torch.clamp_min(fe._qtable_qmax_plain(
+        xp, sf, CodecConfig(mode="qt", error_bound=1e-3), relaxed=True), 1.0)
+    assert torch.all((got - plain).abs() <= _budget(xp, sf).max())
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("n,kind", [(3 * TILE_N, "aligned"), (5 * TILE_N - 11, "aligned")]
+                         + [(n, "aligned") for n in TILE_EDGES]
+                         + [(5 * TILE_N - 11, "misaligned")])
+def test_relaxed_kernels_f_g(dev, mode, n, kind):
+    """F-relaxed and G-relaxed: one launch of the RELAXED instantiation;
+    against their plain version, the ids differ only near a bin edge, DC
+    and stored values within RELAXED_BUDGET (QT escapes: times
+    eb*qt_factor/q[k], plus 4 ulp); against A-relaxed and A-QT-relaxed
+    (verify off), the same ids at every AC position and the same values at
+    DC and at the escapes, bit for bit (one routine, tile_product_bf16x3).
+    Also on a misaligned view of the input."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.config import CodecConfig
+    from dctz_tpu_torch.core import transform
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+
+    x = _qt_input(n, n + 13) if mode == "qt" else _signal(n, n + 13)
+    xp = _padded_on(dev, x)
+    sf, _ = api._stats_device(xp, n, 1)
+    q = fe.qtable_qmax(xp, sf, 1e-3, relaxed=True) if mode == "qt" else None
+    fk.reset_launches()
+    ik, dk = fe.dct_quant(_off16(xp) if kind == "misaligned" else xp, sf, 1e-3, q,
+                          relaxed=True)
+    name = "dct_quant_qt" if q is not None else "dct_quant"
+    assert fk.LAUNCHES[name + "_relaxed"] == 1 and fk.LAUNCHES[name] == 0
+    cfg = CodecConfig(mode=mode, error_bound=1e-3)
+    ip, dp = fe._dct_quant_plain(xp, sf, cfg, q, relaxed=True)
+    budget = _budget(xp, sf)
+    coef_p = transform.block_dct((xp / sf).reshape(-1, 64), "high")
+    _ids_differ_only_near_edges(ik, ip, coef_p, budget, cfg, q)
+    col = torch.arange(64, device=dev)
+    esc = (ik == 255) & (col > 0)
+    lim = budget.expand_as(dp)
+    if q is not None:
+        lim = torch.where(esc, budget * 1e-2 / q + 4 * 2.0**-23 * dp.abs(), lim)
+    assert torch.all(((dk - dp).abs() <= lim)[ik == ip])
+    ia, va, _ok = fk.dct_quant_verify(xp, sf, torch.ones((), device=dev), n, 1e-3,
+                                      False, q, relaxed=True)
+    assert esc.any() and torch.equal(ia[:, 1:], ik[:, 1:])
+    assert torch.equal(va[esc].view(torch.int32), dk[esc].view(torch.int32))
+    assert torch.equal(va[:, 0].view(torch.int32), dk[:, 0].view(torch.int32))
+
+
+#: the routes of dct_precision="high" through the public API: (config
+#: keywords, n, the relaxed kernels the compress must launch)
+RELAXED_ROUTES = {
+    "dpk_ec": (dict(container="v2", ids_codec="device", verify=True, segment_elems=0),
+               5 * TILE_N - 11, {"dct_quant_verify_relaxed"}),
+    "dpk_qt": (dict(mode="qt", container="v2", ids_codec="device", verify=True,
+                    segment_elems=0), 5 * TILE_N - 11,
+               {"qtable_qmax_relaxed", "dct_quant_verify_qt_relaxed"}),
+    "dpk_ec_dtzs": (dict(container="v2", ids_codec="device", verify=True,
+                         segment_elems=2 * TILE_N), 5 * TILE_N - 11,
+                    {"dct_quant_verify_relaxed"}),
+    "dpk_qt_verify_off": (dict(mode="qt", container="v2", ids_codec="device",
+                               segment_elems=0), 3 * TILE_N,
+                          {"qtable_qmax_relaxed", "dct_quant_verify_qt_relaxed"}),
+    "v1_ec": (dict(verify=True), 3 * TILE_N, {"dct_quant_relaxed"}),
+    "v1_qt": (dict(mode="qt", verify=True), 3 * TILE_N,
+              {"qtable_qmax_relaxed", "dct_quant_qt_relaxed"}),
+    "v1_ec_verify_off": (dict(), 3 * TILE_N, {"dct_quant_relaxed"}),
+    "v1_generic": (dict(verify=True), 7777, set()),
+    "v2_deflate": (dict(container="v2", ids_codec="deflate", verify=True, segment_elems=0),
+                   3 * TILE_N + 128, {"dct_quant_relaxed"}),
+}
+
+
+@pytest.mark.parametrize("route", list(RELAXED_ROUTES))
+def test_relaxed_round_trip_on_card(dev, route):
+    """dz.compress with dct_precision="high" on every route: it launches the
+    route's RELAXED kernels and none of the HIGHEST forward ones (the generic
+    chain's product is transform.dot_bf16x3), holds the bound, matches the
+    plain path's ratio within 0.1%, and the card and the plain path decode
+    each other's containers within the bound."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    kw, n, want = RELAXED_ROUTES[route]
+    x = _qt_input(n, n + 17)
+    cfg = dz.CodecConfig(error_bound=1e-3, dct_precision="high", **kw)
+    fk.reset_launches()
+    blob = dz.compress(x, config=cfg, device="cuda")
+    launched = {k for k, v in fk.LAUNCHES.items() if v}
+    assert want <= launched and not (launched & HIGHEST_FORWARD)
+    assert not (launched & RELAXED) - want
+    y = dz.decompress(blob, device="cuda")
+    assert dz.evaluate(x, y, 1e-3)["bound_satisfied"]
+    blob_cpu = dz.compress(x, config=cfg, device="cpu")
+    assert abs(len(blob) / len(blob_cpu) - 1.0) <= 1e-3
+    tol = 1e-3 * float(x.max() - x.min())
+    assert np.abs(dz.decompress(blob_cpu, device="cuda") - x).max() <= tol
+    assert np.abs(dz.decompress(blob, device="cpu") - x).max() <= tol
+
+
+def test_relaxed_kernels_occupancy(dev):
+    """The RELAXED instantiations do not spill; A's and A-QT's (71 KB of
+    shared memory) fit 3 resident CTAs per SM, E's, F's and G's 4, as their
+    HIGHEST instantiations do."""
+    from dctz_tpu_torch.kernels import build
+
+    build.lib()
+    for k in ("dct_quant_verify", "dct_quant_verify_qt"):
+        assert build.ctas_per_sm(k + "_relaxed") >= 3, k
+    for k in ("qtable_qmax", "dct_quant", "dct_quant_qt"):
+        assert build.ctas_per_sm(k + "_relaxed") >= 4, k
+    spills = _ptxas_spills(build.PTXAS_LOG.read_text())
+    for k in ("dct_quant_verify", "qtable_qmax", "dct_quant"):  # every instantiation
+        assert spills.get(k) == 0, (k, spills.get(k))

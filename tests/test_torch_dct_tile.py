@@ -155,7 +155,7 @@ def test_fused_encode_at_ragged_lengths(oracle, mode, n_valid):
     assert np.all((np.abs(dcac_g - dcac_r) <= lim)[ids_g == ids_r])
 
 
-@pytest.mark.parametrize("group", ["B, C", "E, F", "L, M", "H, J", "K"])
+@pytest.mark.parametrize("group", ["A", "B, C", "E, F", "L, M", "H, J", "K"])
 def test_stage_split_cuts_find_their_text(group):
     """The stage-timing tool takes, for each kernel group, the first cut set
     whose every edit finds its text: in this checkout that is the newest

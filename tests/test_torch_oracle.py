@@ -19,6 +19,11 @@ torch.set_num_threads(2)
 EB = 1e-3
 EPS32 = 2.0 ** -23
 TILE_N = 16384
+#: the headers' mean, a float32 sum divided by n, agrees within MEAN_ULPS
+#: ulp of the mean |x|: XLA and torch add the float32 samples in other
+#: orders, and the rounding of a reordered sum scales with the summands'
+#: magnitudes, not with the (cancelling) total
+MEAN_ULPS = 4
 
 
 @pytest.fixture(scope="module")
@@ -67,6 +72,12 @@ def slice_cfg(pkg, **kw):
                 verify=True, segment_elems=0)
     base.update(kw)
     return pkg.CodecConfig(**base)
+
+
+def assert_mean_close(h_port, h_ref, x: np.ndarray) -> None:
+    """The headers' means within MEAN_ULPS ulp of float32(mean |x|)."""
+    lim = MEAN_ULPS * float(np.spacing(np.float32(np.abs(x).mean())))
+    assert abs(h_port.mean - h_ref.mean) <= lim, (h_port.mean, h_ref.mean, lim)
 
 
 def signal(n: int, seed: int) -> np.ndarray:

@@ -24,7 +24,8 @@ import torch
 import jax.numpy as jnp
 
 from test_torch_oracle import (  # noqa: F401
-    EB, EPS32, TILE_N, bound, combine_planes, oracle, signal, slice_cfg,
+    EB, EPS32, TILE_N, assert_mean_close, bound, combine_planes, oracle, signal,
+    slice_cfg,
 )
 
 torch.set_num_threads(2)
@@ -219,6 +220,7 @@ def test_qt_containers_decode_both_ways(oracle, n):
     sf = ct.parse_v2(ref_blob)[0].scaling_factor
     assert np.abs(got - ref).max() <= 32 * EPS32 * sf
     assert abs(len(port_blob) / len(ref_blob) - 1.0) <= 0.005
+    assert_mean_close(ct.parse_v2(port_blob)[0], ct.parse_v2(ref_blob)[0], x)
 
 
 def test_qt_decode_fused_matches(oracle):

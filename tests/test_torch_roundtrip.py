@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_oracle import EPS32, TILE_N, bound, oracle, signal, slice_cfg  # noqa: F401
+from test_torch_oracle import (  # noqa: F401
+    EPS32, TILE_N, assert_mean_close, bound, oracle, signal, slice_cfg,
+)
 
 torch.set_num_threads(2)
 
@@ -88,10 +90,15 @@ def test_ratio_matches_reference(oracle, verify):
     import dctz_tpu_torch as dz
     from dctz_tpu_torch.utils.bench_data import climate_formula_np
 
+    from dctz_tpu_torch.core import container as ct
+
     x = climate_formula_np(4 * TILE_N + 300)
-    ref = len(dctz_tpu.compress(x, config=slice_cfg(dctz_tpu, verify=verify)))
-    got = len(dz.compress(x, config=slice_cfg(dz, verify=verify), device="cpu"))
+    ref_blob = dctz_tpu.compress(x, config=slice_cfg(dctz_tpu, verify=verify))
+    port_blob = dz.compress(x, config=slice_cfg(dz, verify=verify), device="cpu")
+    ref, got = len(ref_blob), len(port_blob)
     assert abs(got / ref - 1.0) <= 0.005, (got, ref)
+    # the header's mean: a float32 sum in another order
+    assert_mean_close(ct.parse_v2(port_blob)[0], ct.parse_v2(ref_blob)[0], x)
 
 
 def test_overflow_retry_round_trip():
@@ -120,7 +127,7 @@ def test_overflow_retry_round_trip():
     (dict(mode="qt", ids_codec="deflate", segment_elems=4096), "8"),
     (dict(ids_codec="rans", segment_elems=4096), "8"),
     (dict(rate="auto"), "9"),
-    (dict(dct_precision="high"), "9"),
+    (dict(truncate=False), "9"),
     (dict(dc_delta=True), "9"),
     (dict(segment_elems=4096, ids_codec="deflate"), "8"),
 ])

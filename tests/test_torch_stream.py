@@ -2,9 +2,12 @@
 dctz_tpu/stream.py, EC and QT, at n = 4 * 16384 + 1025 in segments of
 2 * 16384 (three frames, the last one padded): streams decode both ways,
 the port's streamed decode is bit-equal to its monolithic decode, the frame
-headers match the reference's (n and sf exact, the qtable within 4 ulp),
-QT's slot 0 holds each frame's last real block's DC, broken streams raise,
-and numpy and tensor inputs write the same bytes."""
+headers match the reference's (n and sf exact, the qtable within 4 ulp, the
+mean exact from a numpy input and within the ulp budget of
+test_torch_oracle.MEAN_ULPS from a tensor), QT's slot 0 holds each frame's
+last real block's DC, broken streams raise, and numpy and tensor inputs
+write the same sections, each route with the reference's mean of that
+route."""
 
 import io
 
@@ -12,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_oracle import EPS32, TILE_N, bound, oracle, slice_cfg  # noqa: F401
+from test_torch_oracle import (  # noqa: F401
+    EPS32, TILE_N, assert_mean_close, bound, oracle, slice_cfg,
+)
 from test_torch_qt import qt_signal
 
 torch.set_num_threads(2)
@@ -20,6 +25,10 @@ torch.set_num_threads(2)
 N = 4 * TILE_N + 1025
 SEG = 2 * TILE_N
 MODES = ["ec", "qt"]
+#: the writer's two routes for the global statistics: a numpy input sums
+#: float64 segment sums on the host, a tensor (the JAX package: a device
+#: array) takes a float32 sum on its device
+ROUTES = ["host", "device"]
 
 
 def _x():
@@ -53,17 +62,26 @@ def _frames(raw: bytes):
 
 @pytest.fixture(scope="module")
 def ref_streams(oracle):
-    """dctz_tpu's streams of the same input (the fused DPK segment path)."""
+    """dctz_tpu's streams of the same input (the fused DPK segment path),
+    by mode and by the route of its statistics: out[mode] from the numpy
+    input, out[mode, "device"] from a JAX array."""
     import dctz_tpu
+    import jax.numpy as jnp
     from dctz_tpu import stream as jstream
 
     out = {}
     for mode in MODES:
-        buf = io.BytesIO()
-        jstream.compress_stream(_x(), buf, config=slice_cfg(dctz_tpu, mode=mode),
-                                segment_elems=SEG)
-        out[mode] = buf.getvalue()
+        for route, x in (("host", _x()), ("device", jnp.asarray(_x()))):
+            buf = io.BytesIO()
+            jstream.compress_stream(x, buf, config=slice_cfg(dctz_tpu, mode=mode),
+                                    segment_elems=SEG)
+            out[mode if route == "host" else (mode, route)] = buf.getvalue()
     return out
+
+
+def _port_stream_of(mode, route):
+    x = _x()
+    return _port_stream(mode, x if route == "host" else torch.from_numpy(x))
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -101,17 +119,27 @@ def test_streamed_decode_equals_monolithic(mode):
     assert y_stream.tobytes() == dz.decompress(mono, device="cpu").tobytes()
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("mode", MODES)
-def test_frame_headers_match_reference(ref_streams, mode):
+def test_frame_headers_match_reference(ref_streams, mode, route):
+    """n, sf, mode and the DPK flag exact, the qtable within 4 ulp; the
+    mean, total / n unrounded as the reference stores it: exact on the host
+    route (the same float64 segment sums), within the ulp budget on the
+    device route (a float32 sum in another order)."""
     from dctz_tpu_torch.core import container as ct
 
-    got, ref = _frames(_port_stream(mode)), _frames(ref_streams[mode])
+    key = mode if route == "host" else (mode, route)
+    got, ref = _frames(_port_stream_of(mode, route)), _frames(ref_streams[key])
     assert len(got) == len(ref) == 3
     for g, r in zip(got, ref):
         hg, _s, qg, _c = ct.parse_v2(g)
         hr, _s, qr, _c = ct.parse_v2(r)
         assert (hg.num_elements, hg.scaling_factor, hg.mode, hg.dpk) == (
             hr.num_elements, hr.scaling_factor, hr.mode, hr.dpk)
+        if route == "host":
+            assert hg.mean == hr.mean
+        else:
+            assert_mean_close(hg, hr, _x())
         assert (qg is None) == (qr is None) == (mode == "ec")
         if qg is not None:
             ulps = np.abs(qg[1:] - qr[1:]) / np.spacing(np.abs(qr[1:]))
@@ -164,9 +192,24 @@ def test_broken_streams_raise(what, match):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_numpy_and_tensor_inputs_write_the_same_stream(mode):
-    x = _x()
-    assert _port_stream(mode, x) == _port_stream(mode, torch.from_numpy(x))
+def test_numpy_and_tensor_inputs_write_the_same_stream(ref_streams, mode):
+    """A numpy input and a tensor input write the same sections in every
+    frame; their headers' means differ as the reference's two routes do:
+    each frame's mean is that of the reference's stream of the same route
+    (exact from numpy; from a tensor within the ulp budget, and the
+    reference's own two routes differ)."""
+    from dctz_tpu_torch.core import container as ct
+
+    host, dev = _frames(_port_stream(mode)), _frames(_port_stream_of(mode, "device"))
+    ref_h, ref_d = _frames(ref_streams[mode]), _frames(ref_streams[mode, "device"])
+    assert len(host) == len(dev) == 3
+    for h, d, rh, rd in zip(host, dev, ref_h, ref_d):
+        (hh, sh, qh, _c), (hd, sd, qd, _c) = ct.parse_v2(h), ct.parse_v2(d)
+        assert [bytes(b"".join(c)) for c in sh] == [bytes(b"".join(c)) for c in sd]
+        assert (qh is None) == (qd is None) and (qh is None or qh.tobytes() == qd.tobytes())
+        assert hh.mean == ct.parse_v2(rh)[0].mean
+        assert_mean_close(hd, ct.parse_v2(rd)[0], _x())
+    assert ct.parse_v2(ref_h[0])[0].mean != ct.parse_v2(ref_d[0])[0].mean
 
 
 def test_compress_routes_to_the_stream(monkeypatch):
@@ -179,7 +222,8 @@ def test_compress_routes_to_the_stream(monkeypatch):
 
     x = _x()
     explicit = dz.compress(x, config=slice_cfg(dz, segment_elems=SEG), device="cpu")
-    assert explicit == _port_stream("ec")
+    # compress() hands the stream writer a tensor: the device route's mean
+    assert explicit == _port_stream_of("ec", "device")
     monkeypatch.setattr(stream, "AUTO_THRESHOLD", N)
     monkeypatch.setattr(stream, "DEFAULT_SEGMENT", SEG)
     timer = StageTimer()

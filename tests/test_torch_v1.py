@@ -25,7 +25,7 @@ import torch
 import jax.numpy as jnp
 
 from test_torch_oracle import (  # noqa: F401
-    EB, EPS32, TILE_N, bound, oracle, oracle_shuffle, signal,
+    EB, EPS32, TILE_N, assert_mean_close, bound, oracle, oracle_shuffle, signal,
 )
 from test_torch_qt import qt_signal
 
@@ -154,15 +154,17 @@ def _headers(blob):
 
 
 def _cross_check(x, port_blob, ref_blob):
-    """Headers agree, each package decodes the other's container within
-    the bound, and the two decodes of the reference container agree within
-    32 ulp of sf."""
+    """Headers agree (the mean within the ulp budget of
+    test_torch_oracle.MEAN_ULPS: a float32 sum in another order), each
+    package decodes the other's container within the bound, and the two
+    decodes of the reference container agree within 32 ulp of sf."""
     import dctz_tpu
     import dctz_tpu_torch as dz
 
     hp, hr = _headers(port_blob), _headers(ref_blob)
     assert (hp.num_elements, hp.mode, hp.scaling_factor) == (
         hr.num_elements, hr.mode, hr.scaling_factor)
+    assert_mean_close(hp, hr, x)
     assert abs(hp.ac_count - hr.ac_count) <= AC_SLACK
     assert np.abs(np.asarray(dctz_tpu.decompress(port_blob)) - x).max() <= bound(x)
     got = dz.decompress(ref_blob, device="cpu")
