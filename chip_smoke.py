@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out build/chip_smoke.json]
 
-Drives the port's paths once each at full size and checks them. Sixteen
+Drives the port's paths once each at full size and checks them. Twenty
 paths, on 32Mi float32 elements (128 MB) unless named otherwise:
 
   DPK v2, the bench.py configuration (eb 1e-3, v2 container, DPK ids, verify
@@ -28,6 +28,17 @@ paths, on 32Mi float32 elements (128 MB) unless named otherwise:
   16Mi frame), qt_high (DPK QT, monolithic: E-relaxed, A-QT-relaxed),
   v1_ec_high (v1 EC, verify on: F-relaxed and the HIGHEST repair) and
   v1_qt_high (v1 QT, verify on: E-relaxed, G-relaxed).
+  Host-coded DTZS frames (the generic segment path: the transform, bins and
+  repair as torch ops, kernel H per frame, I and D per frame on decode):
+  v2_deflate_dtzs (ids_codec="deflate", segment_elems="auto", verify on:
+  two 16Mi frames), v2_qt_x30_dtzs (the same in QT on the x30 input: the
+  global column max over both segments, and H's full-width retry in each
+  frame where a chunk row holds more than 128 escapes) and v1_seg
+  (CodecConfig(segment_elems=1 << 24), the package's v1 defaults, which
+  write host-coded v2 frames, their ids in native rANS where the library
+  builds). And ec_dcd_dtzs: bench.py's configuration with dc_delta=True
+  (the DC delta on the device before the byte-plane split), whose decode
+  must equal ec_dtzs's bit for bit.
 
 Phases, each printed as one JSON line:
 
@@ -100,21 +111,26 @@ Phases, each printed as one JSON line:
      L's exception rows)
   4. end to end, per path: compress and decompress through the public API on
      the card with the launch counters reset just before and read just after
-     (every kernel of the path > 0; H, J and K in their word walks, as
-     dpk_fuse.INSTANTIATIONS counts them), the container family expected, the
-     pointwise bound satisfied, the ratio within 0.1% of the plain (CPU)
-     path's, each path's output decoded by the other within the bound, and a
-     DTZS decode bit-equal to the monolithic decode of the same data (the
-     relaxed paths: none of the HIGHEST forward kernels launched, and a
-     "relaxed_vs_highest" line, the ratio and error beside the HIGHEST path
-     of the same mode)
+     (every kernel of the path > 0, on a DTZS path at least once a frame; H,
+     J and K in their word walks, as dpk_fuse.INSTANTIATIONS counts them),
+     the container family expected, the pointwise bound satisfied, the ratio
+     within 0.1% of the plain (CPU) path's, each path's output decoded by
+     the other within the bound, and a DPK DTZS decode bit-equal to the
+     monolithic decode of the same data (ec_dcd_dtzs: to ec_dtzs's; every
+     frame of it carries the dcd flag); host-coded DTZS frames, which run
+     the generic chain, get a "generic_vs_monolithic" line instead (ratio
+     and decode beside the monolithic path of their configuration); each
+     end_to_end line names the frames, their ids codec, their dcd flags and
+     how many frames retried H at full width (the relaxed paths: none of
+     the HIGHEST forward kernels launched, and a "relaxed_vs_highest" line,
+     the ratio and error beside the HIGHEST path of the same mode)
      (dpk_onepass: both decodes within the bound, every kernel > 0, K's rows
      equal to L's exception rows)
   5. times, per path: compress and decompress GB/s (median of warm runs) and
      their split into stages; a torch.profiler pass over one call of each
-     direction of ec, ec_dtzs and v1_ec (device busy and idle share); one
-     traced run of each direction of the bench-array DTZS paths (the
-     stream's per-segment spans); each kernel's time beside its plain
+     direction of ec, ec_dtzs, v1_ec and v2_deflate_dtzs (device busy and
+     idle share); one traced run of each direction of the bench-array DTZS
+     paths (the stream's per-segment spans); each kernel's time beside its plain
      version's (CUDA events), its bound (B's counts the ids, the DC values
      and the escapes it keeps, not the whole coefficient array; the RELAXED
      instantiations' operations are bf16 tensor-core FLOPs) and, for H,
@@ -236,6 +252,7 @@ QT_HIGH_KERNELS = ("qtable_qmax_relaxed", "dct_quant_verify_qt_relaxed") + QT_KE
 V1_EC_HIGH_KERNELS = ("dct_quant_relaxed",) + V1_EC_KERNELS[1:]
 V1_QT_HIGH_KERNELS = ("qtable_qmax_relaxed", "dct_quant_qt_relaxed") + V1_QT_KERNELS[2:]
 GENERIC_KERNELS = ("chunk_compact", "chunk_expand", "dequant_idct")
+GENERIC_QT_KERNELS = ("chunk_compact", "chunk_expand", "dequant_idct_qt")
 #: the one-pass DPK path (its own block in phase 4, not a PATHS entry: it
 #: runs through the research entry points and pack_ids_with_ac, not
 #: dz.compress); kernel F runs in it too
@@ -267,13 +284,29 @@ PATHS = {
     "v1_ec_high": (dict(verify=True, dct_precision="high"), "bench", V1_EC_HIGH_KERNELS),
     "v1_qt_high": (dict(mode="qt", verify=True, dct_precision="high"), "bench",
                    V1_QT_HIGH_KERNELS),
+    # host-coded DTZS frames (the generic segment path), and the DC delta
+    "v2_deflate_dtzs": (dict(container="v2", ids_codec="deflate", segment_elems="auto",
+                             verify=True), "bench", GENERIC_KERNELS),
+    "v2_qt_x30_dtzs": (dict(container="v2", ids_codec="deflate", segment_elems="auto",
+                            verify=True, mode="qt"), "x30", GENERIC_QT_KERNELS),
+    "v1_seg": (dict(segment_elems=1 << 24), "bench", GENERIC_KERNELS),
+    "ec_dcd_dtzs": (dict(DPK, mode="ec", segment_elems="auto", dc_delta=True), "bench",
+                    EC_KERNELS),
 }
 #: each relaxed path and the HIGHEST path of the same mode and container
 #: whose ratio it is printed beside
 HIGH_VS_HIGHEST = {"ec_high_dtzs": "ec_dtzs", "qt_high": "qt",
                    "v1_ec_high": "v1_ec_verify", "v1_qt_high": "v1_qt"}
 #: the monolithic path whose decode a DTZS path's must equal bit for bit
-DTZS_TWIN = {"ec_dtzs": "ec", "qt_dtzs": "qt", "qt_x30_dtzs": "qt_x30"}
+#: (ec_dcd_dtzs: the same stream without the delta, which is lossless)
+DTZS_TWIN = {"ec_dtzs": "ec", "qt_dtzs": "qt", "qt_x30_dtzs": "qt_x30",
+             "ec_dcd_dtzs": "ec_dtzs"}
+#: the monolithic path of a host-coded DTZS path's configuration, whose
+#: ratio and decode it is printed beside: the frames run the generic chain
+#: (torch.matmul transform, shuffle + deflate sections), the monolithic
+#: containers kernel F and PLC sections, so neither the bytes nor the
+#: decodes are equal
+GENERIC_TWIN = {"v2_deflate_dtzs": "v2_deflate", "v1_seg": "v1_ec"}
 #: the path whose launch counts the kernel table reports (bench.py's
 #: configuration for the DPK EC kernels, its QT twin for the QT ones, the
 #: package's default, v1 EC, for the non-DPK kernels)
@@ -461,7 +494,7 @@ def profile_once(dz, x_np, cfg, blob, card, path) -> dict:
     return out
 
 
-def pipeline_trace(dz, x_np, cfg, blob, card, path) -> dict:
+def pipeline_trace(dz, x_np, cfg, blob, card, path, seg: int) -> dict:
     """One traced run of each direction of a DTZS path: the per-segment
     spans of the stream writer ("device", "pull", "pack") and reader
     ("prep", "device"), in ms from the call's start, and the wall time."""
@@ -479,7 +512,7 @@ def pipeline_trace(dz, x_np, cfg, blob, card, path) -> dict:
         t0 = time.perf_counter()
         if op == "compress":
             stream.compress_stream(xd, io.BytesIO(), config=cfg,
-                                   segment_elems=stream.DEFAULT_SEGMENT,
+                                   segment_elems=seg,
                                    trace=trace, device="cuda")
         else:
             stream.decompress_stream_all(stream.MemReader(blob), trace=trace,
@@ -519,6 +552,31 @@ def profiled_kernel_ms(fn, symbol: str, reps: int) -> dict:
     return {"profiler_kernel_ms": sum(mine) / 1e3 / len(mine) if mine else None,
             "profiler_device_ms_per_call": every / 1e3 / reps if evs else None,
             "profiler_launches": len(mine), "calls": reps, "sessions": attempt}
+
+
+def dtzs_frames(blob: bytes) -> list:
+    """The containers of a DTZS stream, in order (the stream layout of
+    dctz_tpu_torch/stream.py), or [blob] for a single container."""
+    import struct
+
+    if blob[:4] != b"DTZS":
+        return [blob]
+    off, out = 16, []
+    while True:
+        (flen,) = struct.unpack_from("<Q", blob, off)
+        off += 8
+        if not flen:
+            return out
+        out.append(blob[off : off + flen])
+        off += flen
+
+
+def ids_codec_of(header, fmt: str) -> str:
+    """The coder that took a container's ids: zlib for v1, the device (DPK)
+    coder, native rANS or deflate for v2."""
+    if fmt == "v1":
+        return "zlib (v1)"
+    return "device" if header.dpk else "rans" if header.rans else "deflate"
 
 
 def max_abs_diff(pairs) -> float:
@@ -1309,7 +1367,6 @@ def main() -> int:
     launches, walks_e2e, blobs, decoded, e2e = {}, {}, {}, {}, {}
     for path, (kw, inp, needed) in PATHS.items():
         pcfg = cfg_of(path)
-        seg = (kw or {}).get("segment_elems")
         x = inputs[inp]
         fk.reset_launches()
         blob = dz.compress(x, config=pcfg, device="cuda")
@@ -1320,24 +1377,51 @@ def main() -> int:
         ev = dz.evaluate(x, y, cfg.error_bound)
         ratio = x.nbytes / len(blob)
         dtzs = blob[:4] == b"DTZS"
-        fmt = "dtzs" if dtzs else ct.detect_format(blob)
-        if fmt == "v2":
-            fmt += " dpk" if ct.parse_v2(blob)[0].dpk else " host-coded"
+        frames = dtzs_frames(blob)
+        fmt0 = ct.detect_format(frames[0])
+        heads = [ct.parse_v1(f)[0] if fmt0 == "v1" else ct.parse_v2(f)[0] for f in frames]
+        fmt = fmt0 + ("" if fmt0 == "v1" else " dpk" if heads[0].dpk else " host-coded")
+        ids_codecs = sorted({ids_codec_of(h, fmt0) for h in heads})
+        # H's launches beyond one a frame: the frames whose compaction was
+        # retried at full chunk width (a chunk row held more than 128 escapes)
+        retried = (launches[path]["chunk_compact"] - len(frames)
+                   if "chunk_compact" in needed else None)
         emit("end_to_end", path=path, input=inp, n=x.size, bytes_in=x.nbytes,
-             bytes_out=len(blob), container=fmt,
+             bytes_out=len(blob), container=("dtzs " + fmt) if dtzs else fmt,
+             frames=len(frames), ids_codec=ids_codecs, dcd=[bool(h.dcd) for h in heads]
+             if fmt0 == "v2" else None, compaction_retried=retried,
              ratio=ratio, dtzs=dtzs, launches=launches[path],
              instantiations=walks_e2e[path], psnr_db=ev["psnr_db"],
              max_rel_err=ev["max_rel_err"], bound_satisfied=ev["bound_satisfied"])
         missing = [k for k in needed if launches[path][k] == 0]
         require(not missing, f"{path}: kernels not launched: {missing}")
+        if dtzs:
+            short = [k for k in needed if launches[path][k] < len(frames)]
+            require(not short, f"{path}: kernels launched fewer times than the "
+                               f"{len(frames)} frames: {short}")
         if "chunk_compact" in needed:
             require(set(walks_e2e[path]) == {"chunk_compact"},
                     f"{path}: H took {walks_e2e[path]}, not its word walk alone")
         require(ev["bound_satisfied"], f"{path}: pointwise bound violated")
-        want = ("dtzs" if seg == "auto" else "v1" if kw is None or "container" not in kw
-                else "v2 dpk" if kw["ids_codec"] == "device" else "v2 host-coded")
-        require(fmt == want, f"{path}: wrote {fmt}, not {want}")
-        if dtzs:
+        want = ("dtzs " if api._resolve_segment(pcfg or dz.CodecConfig(), x.size) else "") + (
+            "v1" if kw is None or "container" not in kw and "segment_elems" not in kw
+            else "v2 dpk" if kw.get("ids_codec") == "device" else "v2 host-coded")
+        got = ("dtzs " + fmt) if dtzs else fmt
+        require(got == want, f"{path}: wrote {got}, not {want}")
+        if (kw or {}).get("dc_delta"):
+            require(all(h.dcd for h in heads), f"{path}: a frame without the dcd flag")
+        if dtzs and fmt0 == "v2" and not heads[0].dpk:
+            # host-coded frames: beside the monolithic path of the same
+            # configuration where PATHS has one (no bit-equality: see
+            # GENERIC_TWIN)
+            mono = GENERIC_TWIN.get(path)
+            if mono:
+                emit("generic_vs_monolithic", card=card, path=path, ratio=ratio,
+                     monolithic=mono, monolithic_ratio=e2e[mono]["ratio"],
+                     ratio_rel_diff=ratio / e2e[mono]["ratio"] - 1.0,
+                     decode_max_abs_diff=float(np.abs(y - decoded[mono]).max()),
+                     bound=tolx[inp])
+        elif dtzs:
             # the monolithic path of the same configuration, or (a relaxed
             # path, which has none among PATHS) its container made here
             twin = DTZS_TWIN.get(path)
@@ -1429,7 +1513,7 @@ def main() -> int:
     report["throughput"], report["stages"], report["profile"] = {}, {}, {}
     for path, (kw, inp, _needed) in PATHS.items():
         pcfg, x, blob = cfg_of(path), inputs[inp], blobs[path]
-        seg = (kw or {}).get("segment_elems")
+        seg = api._resolve_segment(pcfg or dz.CodecConfig(), x.size)
         t_c = wall_s(lambda: dz.compress(x, config=pcfg, device="cuda"), REPS)
         t_d = wall_s(lambda: dz.decompress(blob, device="cuda"), REPS)
         gbs_c, gbs_d = x.nbytes / t_c / 1e9, x.nbytes / t_d / 1e9
@@ -1446,11 +1530,11 @@ def main() -> int:
                                       "card": card}
         report["stages"][path] = {"compress": tc.report(x.nbytes),
                                   "decompress": td.report(x.nbytes)}
-        if path in ("ec", "ec_dtzs", "v1_ec"):
+        if path in ("ec", "ec_dtzs", "v1_ec", "v2_deflate_dtzs"):
             report["profile"][path] = profile_once(dz, x, pcfg, blob, card, path)
-        if seg == "auto" and inp == "bench":
+        if seg and inp == "bench":
             report.setdefault("pipeline_trace", {})[path] = pipeline_trace(
-                dz, x, pcfg, blob, card, path)
+                dz, x, pcfg, blob, card, path, seg)
 
     # each kernel's time against its plain version, its bound and, where
     # one PyTorch call computes the same function, that call: bytes are

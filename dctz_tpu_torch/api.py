@@ -8,23 +8,26 @@ container families, dispatched as the JAX package dispatches on its TPU:
     arrays of stream.AUTO_THRESHOLD elements or more):
       compress:   stats -> tolerance -> [QT: kernel E] -> kernels A + B
                   (retried at full chunk width on exception overflow) ->
-                  byte planes on the device -> host assembly (_pack_dpk_v2);
-                  the monolithic container is the stream writer's
-                  one-segment case
+                  [dc_delta: the DC delta] -> byte planes on the device ->
+                  host assembly (_pack_dpk_v2); the monolithic container is
+                  the stream writer's one-segment case
       decompress: parse -> host re-pad (_dpk_decode_prep) -> kernels C + D
   v1, the reference's own format and the default (CodecConfig() and
     compress(x) with no config), and host-coded v2 (ids_codec "deflate" or
-    "rans", monolithic):
+    "rans"), monolithic or segmented (DTZS frames of the generic chain,
+    stream._encode_segment, which are host-coded v2 containers whatever the
+    config's container):
       compress, fused branch (v2 always, v1 when n % 1024 == 0;
                   _fused_eligible): pad to 1024 -> stats -> [QT: kernel E]
                   -> kernel F or G -> [verify: _repair_fused, torch ops]
                   -> kernel H (full chunk width on overflow) -> host
                   streams (deflate, ids4/rANS for v2) -> container
-      compress, generic chain (v1 with n % 1024 != 0): stats -> DCT with a
-                  rem-point tail -> bins (QT: column-max qtable) -> [verify]
-                  -> kernel H; the transform, bins and repair are torch ops
-                  on the device in full float32, as dctz_tpu leaves them to
-                  XLA (_compress_generic)
+      compress, generic chain (v1 with n % 1024 != 0, and every host-coded
+                  DTZS frame): stats -> DCT with a rem-point tail -> bins
+                  (QT: column-max qtable) -> [verify] -> kernel H; the
+                  transform, bins and repair are torch ops on the device in
+                  full float32, as dctz_tpu leaves them to XLA
+                  (stream._encode_segment)
       decompress: parse -> inflate -> DC marks on a partial last block ->
                   per-chunk AC counts from the ids -> rows -> kernel I ->
                   kernel D (rem-point tail in-kernel) -> the first n samples
@@ -36,9 +39,14 @@ transform.dot_bf16x3 in the generic chain; the verify-repair of the fused
 non-DPK branch recomputes its coefficients at HIGHEST, as dctz_tpu's
 _repair_fused does, and every reconstruction stays float32.
 
+CodecConfig.dc_delta writes the DC stream of v2 float32 containers (and of
+every host-coded DTZS frame) as the order-preserving u32 delta
+(entropy.f32_delta; _f32_delta_dev on the device before the byte-plane
+split), as dctz_tpu does; v1 keeps raw DC.
+
 Everything else raises NotImplementedError naming the ROADMAP item that
-will port it (host-coded DTZS frames: item 8; float64, brsf != 1 and the
-other codec options: item 9); nothing falls back silently.
+will port it (float64, brsf != 1 and the other codec options: item 9);
+nothing falls back silently.
 
 `device` is explicit ("cuda" by default; the CPU tests pass "cpu"). On a
 CUDA device every kernel of the path launches; on the CPU each kernel's
@@ -77,8 +85,6 @@ def _check_slice(cfg: CodecConfig) -> None:
     families are checked where they are dispatched)."""
     if cfg.rate != "fixed" or cfg.brsf != 1.0:
         raise _todo("rate='auto' / brsf != 1", "9")
-    if cfg.dc_delta:
-        raise _todo("dc_delta on compress", "9")
     if cfg.block_size != C.BLK_SZ or cfg.nbins != C.NBINS or not cfg.truncate:
         raise _todo("non-default block/bin geometry or truncate=False", "9")
     if cfg.internal_dtype not in ("auto", "float32"):
@@ -154,15 +160,18 @@ def _stats_device(x_padded: torch.Tensor, n_real: int, sf_adj: int):
     return scaling_factor(amax, sf_adj), mean
 
 
-def _plane_split2(dc: torch.Tensor, ac: torch.Tensor):
+def _plane_split2(dc: torch.Tensor, ac: torch.Tensor, dcd: bool = False):
     """Byte planes of the float32 DC/AC streams on the device: plane k is the
-    k-th little-endian byte of each item (entropy.shuffle_bytes' layout)."""
+    k-th little-endian byte of each item (entropy.shuffle_bytes' layout).
+    dcd: delta-code the DC stream first (_f32_delta_dev), as
+    dctz_tpu/api.py:_plane_split2 does; the host packer sets the header's
+    dcd flag (_float_sections_planes)."""
 
     def split(a):
         u = a.contiguous().view(torch.int32)
         return torch.stack([((u >> (8 * k)) & 255).to(torch.uint8) for k in range(4)])
 
-    return split(dc), split(ac)
+    return split(_f32_delta_dev(dc) if dcd else dc), split(ac)
 
 
 def _combine_planes(pl: torch.Tensor) -> torch.Tensor:
@@ -173,18 +182,42 @@ def _combine_planes(pl: torch.Tensor) -> torch.Tensor:
     return u.view(torch.float32)
 
 
+def _u32_of(a: torch.Tensor) -> torch.Tensor:
+    """The bits of a float32 tensor as u32 values in int64."""
+    return a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _f32_of(u: torch.Tensor) -> torch.Tensor:
+    """Inverse of _u32_of: int64 u32 values -> float32 of those bits."""
+    u = torch.where(u >= (1 << 31), u - (1 << 32), u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def _restart_rows(u: torch.Tensor) -> torch.Tensor:
+    """(k, DC_RESTART) rows of u, the last one zero-padded: the delta
+    restarts at every row."""
+    r = entropy.DC_RESTART
+    k = -(-u.shape[0] // r)
+    return torch.nn.functional.pad(u, (0, k * r - u.shape[0])).reshape(k, r)
+
+
+def _f32_delta_dev(dc: torch.Tensor) -> torch.Tensor:
+    """Device twin of entropy.f32_delta (exact u32 arithmetic, carried in
+    int64, as dctz_tpu/api.py:_f32_delta_dev computes it in uint32): each
+    item's order-preserving u32 code minus the previous one, wrapping,
+    restarting every DC_RESTART items."""
+    u = _u32_of(dc)
+    m2 = _restart_rows(torch.where((u >> 31) != 0, (~u) & 0xFFFFFFFF, u | 0x80000000))
+    d = torch.cat([m2[:, :1], (m2[:, 1:] - m2[:, :-1]) & 0xFFFFFFFF], dim=1)
+    return _f32_of(d.reshape(-1)[:dc.shape[0]])
+
+
 def _f32_delta_inv_dev(dc: torch.Tensor) -> torch.Tensor:
     """Device twin of entropy.f32_delta_inv (exact u32 arithmetic, carried in
     int64). Item 0 sits on a restart boundary."""
-    a = dc.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    n = a.shape[0]
-    r = entropy.DC_RESTART
-    k = -(-n // r)
-    m2 = torch.nn.functional.pad(a, (0, k * r - n)).reshape(k, r)
-    m = (torch.cumsum(m2, dim=1) & 0xFFFFFFFF).reshape(-1)[:n]
-    u = torch.where((m >> 31) != 0, m & 0x7FFFFFFF, (~m) & 0xFFFFFFFF)
-    u = torch.where(u >= (1 << 31), u - (1 << 32), u)
-    return u.to(torch.int32).view(torch.float32)
+    m2 = _restart_rows(_u32_of(dc))
+    m = (torch.cumsum(m2, dim=1) & 0xFFFFFFFF).reshape(-1)[:dc.shape[0]]
+    return _f32_of(torch.where((m >> 31) != 0, m & 0x7FFFFFFF, (~m) & 0xFFFFFFFF))
 
 
 def _dcd_on(cfg: CodecConfig, header: ct.Header) -> bool:
@@ -378,9 +411,10 @@ def compress(
     bytes. The signature of dctz_tpu.compress plus `device`: with no config
     it writes CodecConfig(mode=mode, error_bound=error_bound), a v1
     container. A v2 config writes a DPK container (ids_codec "device" or
-    "auto"), or a DTZS stream of them when the array is segmented
-    (cfg.segment_elems, _resolve_segment), or a host-coded v2 container
-    (ids_codec "deflate" or "rans")."""
+    "auto") or a host-coded v2 container (ids_codec "deflate" or "rans").
+    A segmented array (cfg.segment_elems, _resolve_segment) becomes a DTZS
+    stream: of DPK frames with the device ids, else of host-coded v2
+    frames (v1 configurations included)."""
     from .utils.timing import StageTimer
 
     timer = timer or StageTimer()
@@ -502,32 +536,42 @@ def _forward_padded(xs: torch.Tensor, bs: int,
 def _compress_generic(arr: torch.Tensor, n: int, cfg: CodecConfig,
                       timer) -> bytes:
     """The generic chain (dctz_tpu/api.py:1870-1978, _encode_device), taken
-    by v1 containers with n % 1024 != 0: stats over the n samples, the DCT
-    with a rem-point tail, bins (QT: the column-max qtable, slot 0 the last
-    block's DC, unclamped), verify-repair when asked, and the compaction
-    (kernel H). The ids of the n real positions make the stream. The
-    forward transform takes cfg.dct_precision (transform.prec_of in
-    dctz_tpu/api.py:88-90): "high" is transform.dot_bf16x3, fp32 matmuls of
-    the bfloat16 parts, as XLA runs Precision.HIGH on a TPU."""
+    by v1 containers with n % 1024 != 0: stats over the n samples, then the
+    device stage of a host-coded DTZS frame (stream._encode_segment) with
+    this array's own sf, tolerance and qtable. The ids of the n real
+    positions make the stream."""
+    from . import stream
     from .core.stats import amax_mean, scaling_factor
     from .ops import fused_encode as fe
-    from .ops import repair
 
-    bs = cfg.block_size
     with timer.stage("device"):
         amax, mean = amax_mean(arr, n)
         sf = scaling_factor(amax, cfg.sf_adj)
-        coeffs = _forward_padded(arr / sf, bs, cfg.dct_precision)
-        ids, dc, vals, qtable = qz.quantize(coeffs, n, cfg)
-        ok = None
-        if cfg.verify:
-            tol = fe.tolerance(arr, n, cfg.error_bound)
-            ids, ok = repair.verify_repair(arr, coeffs, sf, ids, dc, n, n, cfg,
-                                           tol, qtable)
-            acm = qz.ac_mask(coeffs.shape[0], bs, n, arr.device)
-            vals = repair.stored_dense(coeffs, ids, acm, cfg, qtable)
-        q = qz.repack(ids, vals, dc, qtable, n, cfg)
-    return _pack_host_coded(q, qtable, ok, sf, mean, n, n, cfg, timer)
+        tol = fe.tolerance(arr, n, cfg.error_bound) if cfg.verify else None
+        q, ok = stream._encode_segment(arr, n, sf, tol, cfg)
+    return _pack_host_coded(q, q.qtable, ok, sf, mean, n, n, cfg, timer)
+
+
+def _header(cfg: CodecConfig, n: int, ac_count: int, sf: float,
+            mean: float) -> ct.Header:
+    """The header of a float32 container of n elements, its section sizes
+    and flags still to be filled."""
+    return ct.Header(
+        dtype=np.dtype(np.float32),
+        num_elements=n,
+        error_bound=cfg.error_bound,
+        ac_count=ac_count,
+        scaling_factor=sf,
+        mean=mean,
+        bindex_nbytes=0,
+        dc_nbytes=0,
+        ac_nbytes=0,
+        mode=cfg.mode,
+        block_size=cfg.block_size,
+        nbins=cfg.nbins,
+        truncate=cfg.truncate,
+        brsf=cfg.brsf,
+    )
 
 
 def _pack_host_coded(q, qtable, ok, sf, mean, n: int, stream_len: int,
@@ -543,22 +587,7 @@ def _pack_host_coded(q, qtable, ok, sf, mean, n: int, stream_len: int,
         sf, mean = float(sf), float(mean)
     if ok is not None and not bool(ok):
         _warn_bound()
-    header = ct.Header(
-        dtype=np.dtype(np.float32),
-        num_elements=n,
-        error_bound=cfg.error_bound,
-        ac_count=int(counts.sum()),
-        scaling_factor=sf,
-        mean=mean,
-        bindex_nbytes=0,
-        dc_nbytes=0,
-        ac_nbytes=0,
-        mode=cfg.mode,
-        block_size=cfg.block_size,
-        nbins=cfg.nbins,
-        truncate=cfg.truncate,
-        brsf=cfg.brsf,
-    )
+    header = _header(cfg, n, int(counts.sum()), sf, mean)
     with timer.stage("zlib"):
         ac = entropy.take_row_prefixes(ac_rows, counts)
         flat_ids = ids.reshape(-1)[:stream_len].tobytes()
@@ -580,8 +609,10 @@ def _ids_streams(ids_bytes: bytes, cfg: CodecConfig, header: ct.Header):
     """The bin-index section(s) of a host-coded v2 container: (packed,
     exceptions) with the IDS4 nibble filter, the packed nibbles in native
     rANS for ids_codec="rans" else Huffman-only deflate; or the raw stream
-    deflated (a copy of dctz_tpu.api._ids_streams; "auto" never reaches
-    here, _resolve_ids_codec makes it "device")."""
+    deflated (a copy of dctz_tpu.api._ids_streams). ids_codec="auto"
+    reaches here from a DTZS frame of a v1 configuration: rANS when the
+    native library is available, else deflate, the reference's own choice
+    (dctz_tpu/api.py:691-697); the header's rans flag records it."""
     if not cfg.ids4:
         level = cfg.ids_zlib_level or cfg.zlib_level
         return (entropy.chunked_deflate(ids_bytes, cfg.chunk_bytes, level),)
@@ -593,9 +624,9 @@ def _ids_streams(ids_bytes: bytes, cfg: CodecConfig, header: ct.Header):
         if header.zst
         else entropy.chunked_deflate(exc, cfg.chunk_bytes, cfg.ids_zlib_level or 1)
     )
-    if cfg.ids_codec == "rans":
-        from . import native
+    from . import native
 
+    if cfg.ids_codec == "rans" or (cfg.ids_codec == "auto" and native.available()):
         header.rans = True
         return ([native.rans_compress(packed)], exc_sec)
     return (
@@ -809,19 +840,6 @@ def _require_f32(header: ct.Header) -> None:
                     "among them)", "9")
 
 
-def _parse_dpk(blob):
-    """(header, streams, qtable) of a DTZS frame, which the port reads only
-    as a DPK v2 float32 container: a host-coded frame raises."""
-    if ct.detect_format(blob) != "v2":
-        raise _todo("a DTZS frame that is a v1 container", "8")
-    header, streams, qtable, _cb = ct.parse_v2(blob)
-    if not header.dpk:
-        raise _todo("a DTZS frame without the DPK id stream (host-coded "
-                    "DTZS frames)", "8")
-    _require_f32(header)
-    return header, streams, qtable
-
-
 def _to_device(host_arrays, header: ct.Header, qtable, device):
     """The host stage's arrays, the scaling factor and the qtable on
     `device`."""
@@ -831,22 +849,6 @@ def _to_device(host_arrays, header: ct.Header, qtable, device):
     qt = (torch.from_numpy(np.asarray(qtable, np.float32)).to(device)
           if qtable is not None else None)
     return dev, sf, qt
-
-
-def _decompress_dpk(header: ct.Header, streams, qtable, timer,
-                    device) -> np.ndarray:
-    with timer.stage("host"):
-        host_arrays, (n_stream, tile_b, cw, cfg) = _dpk_decode_prep(header,
-                                                                    streams)
-        n = header.num_elements
-    with timer.stage("transfer"):
-        dev, sf, qt = _to_device(host_arrays, header, qtable, device)
-    with timer.stage("device"):
-        x = _decode_device_dpk(*dev, n_stream, cfg, tile_b, cw, sf, header.dcd,
-                               qt)
-    with timer.stage("transfer"):
-        out = x.cpu().numpy()
-    return out[:n]
 
 
 def _inflate_v2_streams(header: ct.Header, streams):
@@ -924,33 +926,52 @@ def _host_coded_prep(header: ct.Header, bindex, dc_raw, ac_raw):
     return (flat_ids.reshape(nblk, bs), dc, ac_rows), n_stream, cfg
 
 
-def _decompress_host_coded(header: ct.Header, bindex, dc_raw, ac_raw, qtable,
-                           timer, device) -> np.ndarray:
-    """Decode of a v1 or host-coded v2 container: the host stage
-    (_host_coded_prep), then kernel I puts the AC rows back at the escapes
-    and kernel D dequantizes and runs the IDCT (the rem-point basis for a
-    partial last block); the first n samples are the result."""
+def _host_stage(blob):
+    """Host stage of the decode of one float32 container (v1, DPK v2 or
+    host-coded v2; a DTZS frame is one of these): parse, inflate and re-pad
+    (_dpk_decode_prep, or _inflate_v2_streams / entropy.inflate_streams and
+    _host_coded_prep). Returns (header, qtable, host_arrays, decode):
+    decode(dev_arrays, sf, qtable) runs the device stage on the arrays moved
+    by _to_device, kernels C + D for DPK and I + D for the others, and
+    returns a float32 tensor whose first header.num_elements samples are
+    the data."""
     from .ops import dpk_fuse
 
-    with timer.stage("host"):
-        host_arrays, n_stream, cfg = _host_coded_prep(header, bindex, dc_raw,
-                                                      ac_raw)
-    with timer.stage("transfer"):
-        (ids_d, dc_d, ac_d), sf, qt = _to_device(host_arrays, header, qtable,
-                                                 device)
-    with timer.stage("device"):
-        acv = qz.expand_ac(ids_d, ac_d, n_stream)
-        x = dpk_fuse.dequant_idct(ids_d, acv, dc_d, sf, cfg, n_stream, qt)
-    with timer.stage("transfer"):
-        out = x[:header.num_elements].cpu().numpy()
-    return out
+    if ct.detect_format(blob) == "v2":
+        header, streams, qtable, _cb = ct.parse_v2(blob)
+        _require_f32(header)
+        if header.dpk:
+            host_arrays, (n_stream, tile_b, cw, cfg) = _dpk_decode_prep(header,
+                                                                        streams)
+
+            def decode_dpk(dev, sf, qt):
+                return _decode_device_dpk(*dev, n_stream, cfg, tile_b, cw, sf,
+                                          header.dcd, qt)
+
+            return header, qtable, host_arrays, decode_dpk
+        bindex, dc_raw, ac_raw = _inflate_v2_streams(header, streams)
+    else:
+        header, bz, dz, az, qtable = ct.parse_v1(blob)
+        _require_f32(header)
+        bindex, dc_raw, ac_raw = entropy.inflate_streams([bz, dz, az])
+    host_arrays, n_stream, cfg = _host_coded_prep(header, bindex, dc_raw, ac_raw)
+
+    def decode_host_coded(dev, sf, qt):
+        # kernel I puts the AC rows back at the escapes, kernel D
+        # dequantizes and runs the IDCT (the rem-point basis for a partial
+        # last block)
+        ids, dc, ac = dev
+        acv = qz.expand_ac(ids, ac, n_stream)
+        return dpk_fuse.dequant_idct(ids, acv, dc, sf, cfg, n_stream, qt)
+
+    return header, qtable, host_arrays, decode_host_coded
 
 
 def decompress(blob: bytes | memoryview, *, timer=None,
                device: str | torch.device = "cuda") -> np.ndarray:
     """Decompress a container of either format (v1, v2 with DPK or
-    host-coded ids) or a DTZS stream of DPK v2 containers back to a flat
-    float32 numpy array."""
+    host-coded ids) or a DTZS stream of them back to a flat float32 numpy
+    array."""
     from .utils.timing import StageTimer
 
     timer = timer or StageTimer()
@@ -966,18 +987,10 @@ def decompress(blob: bytes | memoryview, *, timer=None,
             return stream.decompress_stream_all(stream.MemReader(blob),
                                                 device=device)
     with timer.stage("host"):
-        dpk = False
-        if ct.detect_format(blob) == "v2":
-            header, streams, qtable, _cb = ct.parse_v2(blob)
-            _require_f32(header)
-            dpk = header.dpk
-            if not dpk:
-                bindex, dc_raw, ac_raw = _inflate_v2_streams(header, streams)
-        else:
-            header, bz, dz, az, qtable = ct.parse_v1(blob)
-            _require_f32(header)
-            bindex, dc_raw, ac_raw = entropy.inflate_streams([bz, dz, az])
-    if dpk:
-        return _decompress_dpk(header, streams, qtable, timer, device)
-    return _decompress_host_coded(header, bindex, dc_raw, ac_raw, qtable,
-                                  timer, device)
+        header, qtable, host_arrays, decode = _host_stage(blob)
+    with timer.stage("transfer"):
+        dev, sf, qt = _to_device(host_arrays, header, qtable, device)
+    with timer.stage("device"):
+        x = decode(dev, sf, qt)
+    with timer.stage("transfer"):
+        return x[:header.num_elements].cpu().numpy()

@@ -22,14 +22,15 @@ class CodecConfig:
     as dctz_tpu.config.CodecConfig, whose docstring describes each field.
 
     The port runs this slice of the space (api.py): float32 input, mode
-    "ec" or "qt", verify on or off; the v1 container (the default) at any
-    length; v2 with the device-packed ids (ids_codec "device", or "auto",
-    which means it for v2), monolithic or as a DTZS stream; and host-coded
-    v2 (ids_codec "deflate" or "rans", ids4 on or off), monolithic.
-    compress() raises NotImplementedError, naming the ROADMAP item, for the
-    rest: host-coded DTZS frames (item 8); rate="auto", brsf != 1,
-    dc_delta, dct_precision="high", float64 and non-default geometry
-    (item 9).
+    "ec" or "qt", verify on or off, dct_precision "highest" or "high",
+    dc_delta on or off; the v1 container (the default) at any length; v2
+    with the device-packed ids (ids_codec "device", or "auto", which means
+    it for v2); and host-coded v2 (ids_codec "deflate" or "rans", ids4 on
+    or off); each monolithic or as a DTZS stream (segment_elems), whose
+    frames are DPK v2 containers for the device ids and host-coded v2
+    containers otherwise. compress() raises NotImplementedError, naming
+    ROADMAP item 9, for the rest: rate="auto", brsf != 1, float64,
+    truncate=False and non-default geometry.
     """
 
     mode: Mode = "ec"

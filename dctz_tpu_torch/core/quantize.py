@@ -144,32 +144,44 @@ class Quantized(NamedTuple):
     overflowed: torch.Tensor  # bool scalar
 
 
-def qtable_colmax(coeffs: torch.Tensor, n: int, cfg: CodecConfig):
-    """The generic chain's qtable (dctz_tpu/core/quantize.py:192-205): the
-    per-position max |escaped AC coefficient| over the real positions,
-    clamped to >= 1.0, with slot 0 = the DC of the last block, unclamped
-    (the reference quirk; the decoder never reads it)."""
+def escape_colmax(coeffs: torch.Tensor, n: int, cfg: CodecConfig):
+    """QT pass 1: the per-position max |escaped AC coefficient| over the
+    real positions, unclamped; slot 0 is 0 (the DC slot is never an AC
+    escape). The DTZS writer max-reduces these over its segments
+    (dctz_tpu/stream.py:_qtable_colmax_segment)."""
     nblk, bs = coeffs.shape
     in_range, _ = assign_bins(coeffs, cfg)
     escape = ac_mask(nblk, bs, n, coeffs.device) & ~in_range
-    col_max = torch.where(escape, torch.abs(coeffs),
-                          torch.zeros_like(coeffs)).amax(dim=0)
-    qtable = torch.clamp_min(col_max, 1.0)
+    return torch.where(escape, torch.abs(coeffs),
+                       torch.zeros_like(coeffs)).amax(dim=0)
+
+
+def qtable_colmax(coeffs: torch.Tensor, n: int, cfg: CodecConfig,
+                  ext_qtable: torch.Tensor | None = None):
+    """The generic chain's qtable (dctz_tpu/core/quantize.py:186-205): the
+    column max (this array's escape_colmax, or ext_qtable, the writer's
+    global one) clamped to >= 1.0, with slot 0 = the DC of the last block,
+    unclamped (the reference quirk; the decoder never reads it)."""
+    col_max = escape_colmax(coeffs, n, cfg) if ext_qtable is None else ext_qtable
+    qtable = torch.clamp_min(col_max.to(torch.float32), 1.0)
     qtable[0] = coeffs[-1, 0]
     return qtable
 
 
-def quantize(coeffs: torch.Tensor, n: int, cfg: CodecConfig):
+def quantize(coeffs: torch.Tensor, n: int, cfg: CodecConfig,
+             ext_qtable: torch.Tensor | None = None):
     """Pass 1 and pass 2 of the generic chain on padded block coefficients
     (nblk, bs), n the true element count: (bin ids int32 (nblk, bs), dc
     (nblk,), stored values (nblk, bs), qtable or None). The stored value of
-    an escape is the coefficient (EC) or its renormalization (QT).
+    an escape is the coefficient (EC) or its renormalization (QT) through
+    the qtable of these coefficients or, given ext_qtable (the DTZS
+    writer's global column max), through that one (qtable_colmax).
     dctz_tpu's quantize.encode is this followed by the compaction (repack
     here); the caller verifies in between when asked to."""
     dc = coeffs[:, 0]
     if cfg.mode != "qt":
         return encode_ids(coeffs, n, cfg), dc, coeffs, None
-    qtable = qtable_colmax(coeffs, n, cfg)
+    qtable = qtable_colmax(coeffs, n, cfg, ext_qtable)
     in_range, _ = assign_bins(coeffs, cfg)
     vals = torch.where(in_range, coeffs, qt_renorm(coeffs, qtable, cfg))
     return encode_ids_qt(coeffs, n, cfg, qtable), dc, vals, qtable

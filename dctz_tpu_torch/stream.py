@@ -1,5 +1,5 @@
 """Segmented compression into the DTZS stream container (port of
-dctz_tpu/stream.py, the DPK segment path).
+dctz_tpu/stream.py).
 
 A stream is a sequence of independent v2 containers behind a small frame
 header:
@@ -10,28 +10,31 @@ header:
 
 A first pass computes the GLOBAL statistics (the scaling factor must see the
 whole array; the verify tolerance is eb times the whole array's range), and
-in QT mode the GLOBAL quantizer table (kernel E over every segment,
-max-reduced). Each segment is then encoded with those fixed values by the
-same kernels as the monolithic path (A + B, ops/dpk_fuse.encode_x_fused) and
-packed by the same host code (api._pack_dpk_v2). Segments are block
-multiples, so DCT blocks never cross a frame, and a stream decodes
-bit-identically to the monolithic container of the same data whenever the
-segment size is a multiple of the 1024-element pad quantum (the default
-DEFAULT_SEGMENT is).
+in QT mode the GLOBAL quantizer table (the per-position column max over
+every segment, max-reduced). Each segment is then encoded with those fixed
+values. Segments are block multiples, so DCT blocks never cross a frame.
+Two segment paths, chosen as the JAX package chooses them (its dpk_seg):
+
+  DPK (ids_codec "device", or "auto", which means it for v2): the same
+    kernels as the monolithic path (A + B, ops/dpk_fuse.encode_x_fused; E
+    for the qtable) and the same host packer (api._pack_dpk_v2). A stream
+    decodes bit-identically to the monolithic container of the same data
+    whenever the segment size is a multiple of the 1024-element pad quantum
+    (the default DEFAULT_SEGMENT is).
+  generic (every other configuration: v1 with an int segment_elems, the ids
+    codecs "deflate", "rans" and, for v1, "auto"): the generic chain
+    (_encode_segment: the transform, bins and verify-repair as torch ops,
+    the compaction in kernel H; _qtable_colmax_segment for the qtable) and
+    a host-coded v2 frame (_pack_segment), whatever the config's container.
+    These frames decode through kernels I and D.
 
 Both directions run a two-stage pipeline: the writer's host worker pulls and
 packs segment k (its device-to-host copies run on a side CUDA stream) while
 the device encodes segment k + 1; the reader's host worker re-inflates frame
 k + 1 while the device decodes frame k. Besides the input, the device holds
 at most two segments in flight.
-
-Only DPK v2 frames (ids_codec="device", or "auto", which means it for v2)
-are ported. Host-coded DTZS frames, the generic segment path of the JAX
-package (stream._encode_segment, _qtable_colmax_segment, _pack_segment:
-v1 configurations and the ids codecs "deflate" and "rans"), raise
-NotImplementedError naming ROADMAP item 8 on both sides; the same
-containers are ported monolithic (api.py).
 """
+
 
 from __future__ import annotations
 
@@ -90,16 +93,16 @@ def _segments(x, segment_elems: int) -> Iterator:
         yield x[off : off + segment_elems]
 
 
-def _on_device(seg, device: torch.device) -> torch.Tensor:
+def _on_device(seg, device: torch.device, pad: bool = True) -> torch.Tensor:
     """A segment as a float32 tensor on `device`, zero-padded to the tile
-    quantum."""
+    quantum unless pad is False (the generic chain takes it unpadded)."""
     if isinstance(seg, np.ndarray):
         if not seg.flags.writeable:
             seg = seg.copy()
         seg = torch.from_numpy(seg)
     seg = seg.to(device)
-    pad = (-seg.shape[0]) % _PAD_QUANTUM
-    return torch.nn.functional.pad(seg, (0, pad)) if pad else seg
+    extra = (-seg.shape[0]) % _PAD_QUANTUM if pad else 0
+    return torch.nn.functional.pad(seg, (0, extra)) if extra else seg
 
 
 def _start_pull(tensors):
@@ -143,9 +146,10 @@ def compress_stream(
     trace: list | None = None,
     device: str | torch.device = "cuda",
 ) -> int:
-    """Compress the flat float32 array `x` into `out` as a DTZS stream of DPK
-    v2 frames of segment_elems elements (rounded down to a block multiple);
-    returns the bytes written.
+    """Compress the flat float32 array `x` into `out` as a DTZS stream of
+    frames of segment_elems elements (rounded down to a block multiple):
+    DPK v2 frames for ids_codec "device", host-coded v2 frames of the
+    generic chain otherwise. Returns the bytes written.
 
     x: a numpy array (statistics on the host, one segment at a time; each
     segment then goes to `device`) or a tensor (moved to `device` once;
@@ -175,9 +179,10 @@ def compress_stream(
         raise ValueError("cannot compress an empty array")
     cfg = api._resolve_ids_codec(cfg)
     api._check_slice(cfg)
-    if cfg.container != "v2" or cfg.ids_codec != "device":
-        raise api._todo(f"host-coded DTZS frames (container {cfg.container!r}, "
-                        f"ids_codec {cfg.ids_codec!r})", "8")
+    # the JAX writer's dpk_seg (dctz_tpu/stream.py:227-238): its other
+    # conditions (float32, the default geometry, truncate) are what
+    # _check_slice and the dtype check above admit
+    dpk_seg = cfg.ids_codec == "device"
     bs = cfg.block_size
     segment_elems = max(bs, segment_elems - segment_elems % bs)
 
@@ -205,14 +210,19 @@ def compress_stream(
     tol_t = torch.tensor(np.float32((vmax - vmin) * cfg.error_bound * _SLACK),
                          device=device)
 
-    # QT: the global qtable, kernel E over every segment first, max-reduced
-    # (max is associative: equal to the whole-array pass); frames store it
-    # with slot 0 patched to their own last block's DC
+    # QT: the global column max over every segment first, max-reduced (max
+    # is associative: equal to the whole-array pass): kernel E on DPK
+    # segments, _qtable_colmax_segment on generic ones; frames store it
+    # clamped, with slot 0 patched to their own last block's DC
     qt_ext = None
     if cfg.mode == "qt":
         for seg in _segments(x, segment_elems):
-            q1 = fe.qtable_qmax(_on_device(seg, device), sf_t, cfg.error_bound,
-                                relaxed=api._relaxed(cfg))
+            if dpk_seg:
+                q1 = fe.qtable_qmax(_on_device(seg, device), sf_t, cfg.error_bound,
+                                    relaxed=api._relaxed(cfg))
+            else:
+                q1 = _qtable_colmax_segment(_on_device(seg, device, pad=False),
+                                            int(seg.shape[0]), sf_t, cfg)
             qt_ext = q1 if qt_ext is None else torch.maximum(qt_ext, q1)
 
     def write_frame(blob: bytes) -> int:
@@ -227,21 +237,27 @@ def compress_stream(
         pending = None
         for si, seg in enumerate(_segments(x, segment_elems)):
             t0 = time.perf_counter()
-            # blocks on the overflow flag, so this interval covers the
-            # segment's device work
-            xs = _on_device(seg, device)
-            outs, planes, qt_seg = _encode_segment_dpk(
-                xs, int(seg.shape[0]), sf_t, tol_t, cfg, qt_ext
-            )
+            n_seg = int(seg.shape[0])
+            # each segment's device stage blocks on its overflow flag, so
+            # this interval covers the segment's device work
+            if dpk_seg:
+                xs = _on_device(seg, device)
+                outs, planes, qt_seg = _encode_segment_dpk(xs, n_seg, sf_t, tol_t,
+                                                           cfg, qt_ext)
+                pull = _start_pull(_pull_list(outs, planes, qt_seg, cfg))
+                pack = (_pack_segment_dpk, pull, planes is not None, n_seg,
+                        int(xs.shape[0]), sf, mean, cfg)
+            else:
+                q, ok = _encode_segment(_on_device(seg, device, pad=False), n_seg,
+                                        sf_t, tol_t, cfg, qt_ext)
+                pull = _start_pull([q.bin_ids, q.dc, q.ac_buf, q.ac_count,
+                                    q.qtable, ok])
+                pack = (_pack_segment, pull, n_seg, sf, mean, cfg)
             if trace is not None:
                 trace.append(("device", si, t0, time.perf_counter()))
-            pull = _start_pull(_pull_list(outs, planes, qt_seg, cfg))
             if pending is not None:
                 written += write_frame(pending.result())
-            pending = host_worker.submit(
-                _pack_segment_dpk, pull, planes is not None, int(seg.shape[0]),
-                int(xs.shape[0]), sf, mean, cfg, bound_bad, si, trace,
-            )
+            pending = host_worker.submit(*pack, bound_bad, si, trace)
         written += write_frame(pending.result())
     out.write(_FRAME.pack(0))
     _warn_bound(bound_bad)
@@ -268,9 +284,11 @@ def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
     xs: the array on its device, zero-padded to the 1024 tile quantum
     (_on_device), n of its samples real. The float32 DC/AC streams are
     split into byte planes on the device (api._plane_split2) so the host
-    packer skips its shuffle. qt_seg: the qtable with slot 0 set to the last
-    REAL block's DC. Returns (outs, planes, qt_seg). The monolithic
-    container is the one-segment case (api._compress_fused)."""
+    packer skips its shuffle; with cfg.dc_delta on a v2 config the DC
+    stream is delta-coded first (dctz_tpu/stream.py:393-397). qt_seg: the
+    qtable with slot 0 set to the last REAL block's DC, un-delta'd. Returns
+    (outs, planes, qt_seg). The monolithic container is the one-segment
+    case (api._compress_fused)."""
     from . import api
     from .ops import dpk_fuse, idpack
     from .ops.fused_encode import patch_slot0
@@ -286,7 +304,8 @@ def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
     if bool(outs[7]):
         outs = encode(cw)
     qt_seg = patch_slot0(qt_ext, outs[6], n) if qt_ext is not None else None
-    planes = (api._plane_split2(outs[6], outs[4])
+    planes = (api._plane_split2(outs[6], outs[4],
+                                cfg.dc_delta and cfg.container == "v2")
               if api._plane_mode(cfg, outs[6]) else None)
     return outs, planes, qt_seg
 
@@ -316,22 +335,7 @@ def _pack_segment_dpk(pull, plane_mode: bool, n: int, n_pad: int, sf: float,
      qtable) = pull()
     if ok is not None and bound_bad is not None and not bool(ok):
         bound_bad.append(seg_index)
-    header = ct.Header(
-        dtype=np.dtype(np.float32),
-        num_elements=n,
-        error_bound=cfg.error_bound,
-        ac_count=int(counts.sum()),
-        scaling_factor=sf,
-        mean=mean,
-        bindex_nbytes=0,
-        dc_nbytes=0,
-        ac_nbytes=0,
-        mode=cfg.mode,
-        block_size=cfg.block_size,
-        nbins=cfg.nbins,
-        truncate=cfg.truncate,
-        brsf=cfg.brsf,
-    )
+    header = api._header(cfg, n, int(counts.sum()), sf, mean)
     tp1 = time.perf_counter()
     planes = dict(dc_planes=dc_s, ac_planes=ac_s) if plane_mode else {}
     blob = api._pack_dpk_v2(
@@ -339,6 +343,89 @@ def _pack_segment_dpk(pull, plane_mode: bool, n: int, n_pad: int, sf: float,
         None if plane_mode else ac_s, None if plane_mode else dc_s, n_pad,
         cfg, qtable, **planes,
     )
+    if trace is not None:
+        trace.append(("pull", seg_index, tp0, tp1))
+        trace.append(("pack", seg_index, tp1, time.perf_counter()))
+    return blob
+
+
+def _qtable_colmax_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
+                           cfg: CodecConfig) -> torch.Tensor:
+    """QT pass 1 of one generic segment (dctz_tpu/stream.py:97-119): the
+    per-position max |escaped AC coefficient| of the forward transform at
+    cfg.dct_precision, unclamped, slot 0 zero (qz.escape_colmax). xs: the
+    segment on its device, unpadded, n its length. Torch ops, as the JAX
+    package leaves this to XLA."""
+    from . import api
+
+    coeffs = api._forward_padded(xs / sf_t, cfg.block_size, cfg.dct_precision)
+    return qz.escape_colmax(coeffs, n, cfg)
+
+
+def _encode_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor, tol_t,
+                    cfg: CodecConfig, qt_ext: torch.Tensor | None = None):
+    """Device stage of one array on the generic chain
+    (dctz_tpu/stream.py:65-94, and api._encode_device for a whole array):
+    x / sf, the forward transform at cfg.dct_precision (a rem-point tail
+    when the array ends mid-block), bins (QT: the qtable of qt_ext, the
+    writer's global column max, else of these coefficients), the
+    verify-repair against tol_t when cfg.verify, and the compaction
+    (qz.repack: kernel H on the card). On a row overflow only the
+    compaction is rerun at full chunk width, where the JAX writer reruns
+    the whole segment: the width changes nothing but the compaction, so
+    the streams are the same. xs: the array on its device, unpadded, n its
+    length; tol_t: the float32 tolerance tensor (None without verify).
+    The transform, bins and repair are torch ops, as the JAX package leaves
+    them to XLA. Returns (qz.Quantized, ok or None)."""
+    from . import api
+    from .ops import repair
+
+    bs = cfg.block_size
+    coeffs = api._forward_padded(xs / sf_t, bs, cfg.dct_precision)
+    ids, dc, vals, qtable = qz.quantize(coeffs, n, cfg, qt_ext)
+    ok = None
+    if cfg.verify:
+        ids, ok = repair.verify_repair(xs, coeffs, sf_t, ids, dc, n, n, cfg,
+                                       tol_t, qtable)
+        acm = qz.ac_mask(coeffs.shape[0], bs, n, xs.device)
+        vals = repair.stored_dense(coeffs, ids, acm, cfg, qtable)
+    return qz.repack(ids, vals, dc, qtable, n, cfg), ok
+
+
+def _pack_segment(pull, n: int, sf: float, mean: float, cfg: CodecConfig,
+                  bound_bad: list | None = None, seg_index: int = 0,
+                  trace=None) -> bytes:
+    """Host stage of one generic segment (dctz_tpu/stream.py:467-516, byte
+    for byte): a host-coded v2 frame whatever cfg.container says. The id
+    sections of the n real ids (api._ids_streams); DC and AC always
+    shuffled (cfg.shuffle) and chunk-deflated, never plane-coded; the DC
+    delta (cfg.dc_delta) on the host, since the frame is a v2 float32
+    container; the qtable stored in QT mode only."""
+    from . import api
+    from .core import entropy
+
+    tp0 = time.perf_counter()
+    ids, dc, ac_rows, counts, qtable, ok = pull()
+    if ok is not None and bound_bad is not None and not bool(ok):
+        bound_bad.append(seg_index)
+    tp1 = time.perf_counter()
+    header = api._header(cfg, n, int(counts.sum()), sf, mean)
+    ac = entropy.take_row_prefixes(ac_rows, counts)
+    header.shuffle = cfg.shuffle
+    if cfg.dc_delta:
+        # frames restart at their own item 0, so each decodes on its own
+        dc = entropy.f32_delta(dc)
+        header.dcd = True
+    dcb, acb = dc.tobytes(), ac.tobytes()
+    if cfg.shuffle:
+        dcb = entropy.shuffle_bytes(dcb, 4)
+        acb = entropy.shuffle_bytes(acb, 4)
+    streams = api._ids_streams(ids.reshape(-1)[:n].tobytes(), cfg, header) + (
+        entropy.chunked_deflate(dcb, cfg.chunk_bytes, cfg.zlib_level),
+        entropy.chunked_deflate(acb, cfg.chunk_bytes, cfg.zlib_level),
+    )
+    blob = ct.pack_v2(header, streams, qtable if cfg.mode == "qt" else None,
+                      cfg.chunk_bytes)
     if trace is not None:
         trace.append(("pull", seg_index, tp0, tp1))
         trace.append(("pack", seg_index, tp1, time.perf_counter()))
@@ -406,13 +493,10 @@ def _frame_stages(f, trace, device: torch.device):
         return body
 
     def prep(blob, fi):
-        """Host stage of one frame. A frame that is not a DPK v2 float32
-        container raises (host-coded frames: ROADMAP item 8)."""
+        """Host stage of one frame (api._host_stage: a DPK v2, host-coded
+        v2 or v1 float32 container)."""
         t0 = time.perf_counter()
-        header, streams, qtable = api._parse_dpk(blob)
-        host_arrays, (n_stream, tile_b, cw, cfg) = api._dpk_decode_prep(
-            header, streams
-        )
+        header, qtable, host_arrays, decode = api._host_stage(blob)
         n = header.num_elements
         if trace is not None:
             trace.append(("prep", fi, t0, time.perf_counter()))
@@ -420,8 +504,7 @@ def _frame_stages(f, trace, device: torch.device):
         def run(dst: np.ndarray) -> np.ndarray:
             t1 = time.perf_counter()
             dev, sf, qt = api._to_device(host_arrays, header, qtable, device)
-            x = api._decode_device_dpk(*dev, n_stream, cfg, tile_b, cw, sf,
-                                       header.dcd, qt)
+            x = decode(dev, sf, qt)
             torch.from_numpy(dst).copy_(x[:n])  # straight into the output
             if trace is not None:
                 trace.append(("device", fi, t1, time.perf_counter()))

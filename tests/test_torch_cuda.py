@@ -468,6 +468,90 @@ def test_dtzs_round_trip_on_card(dev, mode):
     assert np.abs(dz.decompress(blob_cpu, device="cuda") - x).max() <= 1e-3 * float(x.max() - x.min())
 
 
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1000, 4 * TILE_N + 17])
+def test_f32_delta_dev_on_card(dev, n):
+    """The device DC delta and its inverse on the card equal the host's
+    entropy.f32_delta bit for bit (negatives, -0.0 and subnormals among
+    the values)."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.core import entropy
+
+    rng = np.random.default_rng(n)
+    a = (rng.standard_normal(n) * 1e3).astype(np.float32)
+    a[::7] = -0.0
+    a[::11] = np.float32(1e-40)
+    a[::13] = -np.float32(3e-42)
+    d = api._f32_delta_dev(torch.from_numpy(a).to(dev))
+    assert d.cpu().numpy().tobytes() == entropy.f32_delta(a).tobytes()
+    assert api._f32_delta_inv_dev(d).cpu().numpy().tobytes() == a.tobytes()
+
+
+#: host-coded DTZS configurations on the card: (config keywords, the
+#: kernels a round trip launches: kernel H in each frame's compaction,
+#: I and D or D-QT in each frame's decode; the generic chain's transform,
+#: bins and repair are torch ops)
+GENERIC_DTZS = {
+    "ec_deflate": (dict(mode="ec", container="v2", ids_codec="deflate"),
+                   {"chunk_compact", "chunk_expand", "dequant_idct"}),
+    "qt_deflate": (dict(mode="qt", container="v2", ids_codec="deflate"),
+                   {"chunk_compact", "chunk_expand", "dequant_idct_qt"}),
+    "v1": (dict(mode="ec"), {"chunk_compact", "chunk_expand", "dequant_idct"}),
+    "qt_v1_dcd": (dict(mode="qt", dc_delta=True),
+                  {"chunk_compact", "chunk_expand", "dequant_idct_qt"}),
+}
+
+
+@pytest.mark.parametrize("case", list(GENERIC_DTZS))
+def test_generic_dtzs_round_trip_on_card(dev, case):
+    """A DTZS stream of host-coded frames written on the card (three frames,
+    the last ending mid-block), verify on, launches H, I and D (D-QT) and no
+    other kernel, holds the bound, and each path decodes the other's stream
+    within the bound: on the x30 signal, where the stream's ratio is held
+    to the plain path's, and on a narrow one, where the repair forces
+    escapes in many blocks. There the two float32 matmul orders (cuBLAS,
+    the CPU's) meet the tolerance in different blocks, so its ratio is not
+    compared."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    kw, want = GENERIC_DTZS[case]
+    n = 4 * TILE_N + 1025
+    cfg = dz.CodecConfig(verify=True, segment_elems=2 * TILE_N, **kw)
+    for x, same_ratio in ((_qt_input(n, 11), True), (_signal(n, 11, narrow=True), False)):
+        fk.reset_launches()
+        blob = dz.compress(x, config=cfg, device="cuda")
+        y = dz.decompress(blob, device="cuda")
+        assert blob[:4] == b"DTZS"
+        assert {k for k, v in fk.LAUNCHES.items() if v} == want
+        assert dz.evaluate(x, y, 1e-3)["bound_satisfied"]
+        blob_cpu = dz.compress(x, config=cfg, device="cpu")
+        if same_ratio:
+            assert abs(len(blob) / len(blob_cpu) - 1.0) <= 1e-3
+        tol = 1e-3 * float(x.max() - x.min())
+        assert np.abs(dz.decompress(blob_cpu, device="cuda") - x).max() <= tol
+        assert np.abs(dz.decompress(blob, device="cpu") - x).max() <= tol
+
+
+@pytest.mark.parametrize("segment_elems", [0, 2 * TILE_N])
+def test_dc_delta_dpk_on_card(dev, segment_elems):
+    """dc_delta on the DPK routes on the card: A, B, C and D launch, and the
+    decode is bit-equal to that of the same configuration without the
+    delta."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    x = _signal(4 * TILE_N + 1025, 12)
+    kw = dict(mode="ec", container="v2", ids_codec="device", verify=True,
+              segment_elems=segment_elems)
+    fk.reset_launches()
+    y = dz.decompress(dz.compress(x, config=dz.CodecConfig(dc_delta=True, **kw),
+                                  device="cuda"), device="cuda")
+    assert {k for k, v in fk.LAUNCHES.items() if v} == EC_KERNELS
+    plain = dz.decompress(dz.compress(x, config=dz.CodecConfig(**kw), device="cuda"),
+                          device="cuda")
+    assert y.tobytes() == plain.tobytes()
+
+
 V1_KERNELS = {"dct_quant", "chunk_compact", "chunk_expand", "dequant_idct"}
 
 

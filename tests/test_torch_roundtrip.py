@@ -1,8 +1,9 @@
 """The DPK EC path end to end on the CPU: round trips, containers decoded
-both ways between the port and dctz_tpu, the DPK EC goldens, the ratio, and
-the configurations that are not ported yet (QT mode and DTZS streams:
-test_torch_qt.py, test_torch_stream.py; v1 and host-coded v2:
-test_torch_v1.py)."""
+both ways between the port and dctz_tpu, the DPK EC goldens, the ratio, the
+configurations that are not ported yet, and those that were ported last
+(host-coded DTZS frames and dc_delta; QT mode and DTZS streams:
+test_torch_qt.py, test_torch_stream.py, test_torch_stream_generic.py; v1
+and host-coded v2: test_torch_v1.py; dc_delta: test_torch_dc_delta.py)."""
 
 import json
 import pathlib
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 from test_torch_oracle import (  # noqa: F401
-    EPS32, TILE_N, assert_mean_close, bound, oracle, signal, slice_cfg,
+    EPS32, TILE_N, assert_mean_close, bound, oracle, oracle_shuffle, signal,
+    slice_cfg,
 )
 
 torch.set_num_threads(2)
@@ -120,23 +122,55 @@ def test_overflow_retry_round_trip():
     assert exc_rows.shape[1] > idpack.CAPE  # some chunk row overflowed
 
 
-@pytest.mark.parametrize("kw,item", [
-    # v1, qt + deflate and rans are ported monolithic (test_torch_v1.py);
-    # as DTZS frames they are host-coded frames, still item 8
-    (dict(container="v1", segment_elems=4096), "8"),
-    (dict(mode="qt", ids_codec="deflate", segment_elems=4096), "8"),
-    (dict(ids_codec="rans", segment_elems=4096), "8"),
-    (dict(rate="auto"), "9"),
-    (dict(truncate=False), "9"),
-    (dict(dc_delta=True), "9"),
-    (dict(segment_elems=4096, ids_codec="deflate"), "8"),
-])
-def test_outside_the_slice_raises(kw, item):
+#: what stays outside the ported slice: the rate and codec options of
+#: ROADMAP item 9 (float64: test_float64_and_foreign_containers_raise)
+OUTSIDE = {
+    "rate_auto": dict(rate="auto"),
+    "brsf": dict(brsf=2.0),
+    "truncate_off": dict(truncate=False),
+    "nbins": dict(nbins=127),
+    "block_size": dict(block_size=32),
+}
+
+
+@pytest.mark.parametrize("kw", list(OUTSIDE.values()), ids=list(OUTSIDE))
+def test_outside_the_slice_raises(kw):
     import dctz_tpu_torch as dz
 
     x = signal(3 * 4096, 0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         dz.compress(x, config=slice_cfg(dz, **kw), device="cpu")
+
+
+#: the configurations that raised ROADMAP item 8 (host-coded DTZS frames)
+#: or item 9 (dc_delta) until both were ported, and more of their kind
+PORTED = {
+    "v1_dtzs": dict(container="v1", segment_elems=4096),
+    "v1_qt_dtzs": dict(container="v1", mode="qt", segment_elems=4096),
+    "qt_deflate_dtzs": dict(mode="qt", ids_codec="deflate", segment_elems=4096),
+    "rans_dtzs": dict(ids_codec="rans", segment_elems=4096),
+    "deflate_dtzs": dict(segment_elems=4096, ids_codec="deflate"),
+    "dc_delta": dict(dc_delta=True),
+    "dc_delta_dtzs": dict(dc_delta=True, segment_elems=4096),
+    "dc_delta_deflate": dict(dc_delta=True, ids_codec="deflate"),
+    "dc_delta_v1_dtzs": dict(dc_delta=True, container="v1", segment_elems=4096),
+}
+
+
+@pytest.mark.parametrize("kw", list(PORTED.values()), ids=list(PORTED))
+def test_formerly_unported_configs_round_trip(oracle_shuffle, kw):
+    """Each compresses (a DTZS stream where segment_elems asks for one),
+    and each package decodes the other's output within the bound."""
+    import dctz_tpu
+    import dctz_tpu_torch as dz
+
+    x = signal(3 * 4096, 0)
+    port = dz.compress(x, config=slice_cfg(dz, **kw), device="cpu")
+    ref = dctz_tpu.compress(x, config=slice_cfg(dctz_tpu, **kw))
+    assert (port[:4] == b"DTZS") == (ref[:4] == b"DTZS") == ("segment_elems" in kw)
+    for y in (dz.decompress(port, device="cpu"), np.asarray(dctz_tpu.decompress(port)),
+              dz.decompress(ref, device="cpu")):
+        assert y.shape == x.shape and np.abs(y - x).max() <= bound(x)
 
 
 def test_compress_requires_config():
@@ -169,10 +203,12 @@ def test_float64_and_foreign_containers_raise():
         got = dz.decompress((GOLDEN / f"{name}.z").read_bytes(), device="cpu")
         assert got.shape == x.shape and np.abs(got - x).max() <= bound(x)
     # a DTZS stream whose frame is a v2 container without the DPK id stream
+    # (a host-coded frame) decodes as that container does
     import struct
 
     frame = (GOLDEN / "golden_v2_ec_f32.z").read_bytes()
     raw = (b"DTZS" + struct.pack("<HHQ", 1, 0, 7777)
            + struct.pack("<Q", len(frame)) + frame + struct.pack("<Q", 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        dz.decompress(raw, device="cpu")
+    got = dz.decompress(raw, device="cpu")
+    assert got.tobytes() == dz.decompress(frame, device="cpu").tobytes()
+    assert np.abs(got - x).max() <= bound(x)

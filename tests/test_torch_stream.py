@@ -35,14 +35,14 @@ def _x():
     return qt_signal(N, 21)
 
 
-def _port_stream(mode, x=None, **kw):
+def _port_stream(mode, x=None, config=None, **kw):
     import dctz_tpu_torch as dz
     from dctz_tpu_torch import stream
 
     buf = io.BytesIO()
     stream.compress_stream(_x() if x is None else x, buf,
-                           config=slice_cfg(dz, mode=mode), segment_elems=SEG,
-                           device="cpu", **kw)
+                           config=config or slice_cfg(dz, mode=mode),
+                           segment_elems=SEG, device="cpu", **kw)
     return buf.getvalue()
 
 
@@ -253,11 +253,15 @@ def test_trace_covers_every_segment():
     assert dz.decompress(raw, device="cpu").shape == (N,)
 
 
-def test_generic_segment_path_raises():
+def test_generic_segment_path_writes_host_coded_frames():
+    """ids_codec "deflate" takes the generic segment path: host-coded v2
+    frames that decode within the bound (test_torch_stream_generic.py holds
+    them against the reference)."""
     import dctz_tpu_torch as dz
-    from dctz_tpu_torch import stream
+    from dctz_tpu_torch.core import container as ct
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        stream.compress_stream(_x(), io.BytesIO(),
-                               config=slice_cfg(dz, ids_codec="deflate"),
-                               segment_elems=SEG, device="cpu")
+    x = _x()
+    raw = _port_stream("ec", config=slice_cfg(dz, ids_codec="deflate"))
+    frames = _frames(raw)
+    assert len(frames) == 3 and not any(ct.parse_v2(f)[0].dpk for f in frames)
+    assert np.abs(dz.decompress(raw, device="cpu") - x).max() <= bound(x)
