@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out build/chip_smoke.json]
 
-Drives the port's paths once each at full size and checks them. Twenty
-paths, on 32Mi float32 elements (128 MB) unless named otherwise:
+Drives the port's paths once each at full size and checks them.
+Twenty-five paths, on 32Mi float32 elements (128 MB) unless named otherwise:
 
   DPK v2, the bench.py configuration (eb 1e-3, v2 container, DPK ids, verify
   on): EC and QT, each monolithic (segment_elems=0) and as the DTZS stream
@@ -39,6 +39,19 @@ paths, on 32Mi float32 elements (128 MB) unless named otherwise:
   builds). And ec_dcd_dtzs: bench.py's configuration with dc_delta=True
   (the DC delta on the device before the byte-plane split), whose decode
   must equal ec_dtzs's bit for bit.
+  Float64, on bench64 (the bench formula evaluated in float64 arithmetic at
+  32Mi, 256 MB; not a cast of the float32 array) unless named otherwise, at
+  full width (the generic chain's transform, bins, repair and, on decode,
+  dequantization and inverse transform as float64 torch ops); each decodes
+  to float64, launches its kernels and never kernel D: ec_f64_dtzs
+  (bench.py's configuration: two 16Mi host-coded float64 frames, their ids
+  in Huffman-only deflate; H and I once a frame), ec_f64 (the same with
+  segment_elems=0: the XLA chain's DPK container of the true length; B on
+  encode, C on decode), ec_f64_fast (ec_f64 with internal_dtype="float32":
+  the float32 kernels A and B, the header declaring float64, C and the
+  float64 decode), v1_f64_cesm (CodecConfig(), the native codec's
+  settings, on the CESM-length formula in float64; H and I) and
+  qt_f64_dtzs (ec_f64_dtzs in QT: the float64 global qtable pre-pass).
 
 Phases, each printed as one JSON line:
 
@@ -125,11 +138,26 @@ Phases, each printed as one JSON line:
      the HIGHEST forward kernels launched, and a "relaxed_vs_highest" line,
      the ratio and error beside the HIGHEST path of the same mode)
      (dpk_onepass: both decodes within the bound, every kernel > 0, K's rows
-     equal to L's exception rows)
-  5. times, per path: compress and decompress GB/s (median of warm runs) and
-     their split into stages; a torch.profiler pass over one call of each
-     direction of ec, ec_dtzs, v1_ec and v2_deflate_dtzs (device busy and
-     idle share); one traced run of each direction of the bench-array DTZS
+     equal to L's exception rows); the float64 paths: float64 output, no
+     launch of D, a "generic_vs_monolithic" line for ec_f64_dtzs beside
+     ec_f64
+  4b. f64_parity: the card's float64 v1 containers (EC and QT at n 32768,
+     32799, 777 and the CESM length) against dctz_tpu_torch.native.compress
+     (the C++ codec of cpp/, built on the card's host): EC byte-equal with
+     the mean zeroed, QT the same sections and header minus the mean and
+     the qtable within rtol 1e-15 (tests/test_parity_native.py's rules); a
+     native library that does not build fails the phase
+  4c. f64_card_vs_cpu: the five float64 configurations at n = 70001 (the
+     segmented ones in 32768-element frames) on the card and on the CPU: the
+     same containers by those rules; ec_f64_fast's float32 kernels differ
+     from their plain versions in summation order, so it is held to the
+     float32 paths' rule instead (the ratio within 0.1%, each decoding the
+     other within the bound) and its byte equality is printed
+  5. times, per path: compress and decompress GB/s (median of warm runs;
+     the float64 paths in GB/s of their float64 input bytes, REPS_F64 runs)
+     and their split into stages; a torch.profiler pass over one call of each
+     direction of ec, ec_dtzs, v1_ec, v2_deflate_dtzs, ec_f64 and
+     ec_f64_dtzs (device busy and idle share); one traced run of each direction of the bench-array DTZS
      paths (the stream's per-segment spans); each kernel's time beside its plain
      version's (CUDA events), its bound (B's counts the ids, the DC values
      and the escapes it keeps, not the whole coefficient array; the RELAXED
@@ -174,6 +202,7 @@ import time
 
 N = 1 << 25  # elements: 128 MB of float32, the benchmark's size
 REPS = 3
+REPS_F64 = 2
 A_ID_MISMATCH_MAX = 1e-5
 D_ULPS = 32
 E_ULPS = 4
@@ -256,6 +285,14 @@ GENERIC_QT_KERNELS = ("chunk_compact", "chunk_expand", "dequant_idct_qt")
 #: the one-pass DPK path (its own block in phase 4, not a PATHS entry: it
 #: runs through the research entry points and pack_ids_with_ac, not
 #: dz.compress); kernel F runs in it too
+#: float64 at full width: the generic chain's H and I (v1, host-coded DTZS
+#: frames) or the XLA chain's DPK container (B, C); internal_dtype
+#: "float32": A, B and C. Never D: the float64 decode dequantizes and
+#: inverts in torch ops
+F64_GENERIC_KERNELS = ("chunk_compact", "chunk_expand")
+F64_DPK_KERNELS = ("dpk_pack_compact", "dpk_unpack_expand")
+F64_FAST_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand")
+D_KERNELS = ("dequant_idct", "dequant_idct_qt")
 ONEPASS_KERNELS = ("fused_encode_dpk", "fused_decode_dpk", "chunk_compact_unified",
                    "chunk_compact_bytes")
 N_CESM = 3600 * 1800  # one CESM field: n % 1024 == 128, the generic chain
@@ -290,6 +327,14 @@ PATHS = {
     "v2_qt_x30_dtzs": (dict(container="v2", ids_codec="deflate", segment_elems="auto",
                             verify=True, mode="qt"), "x30", GENERIC_QT_KERNELS),
     "v1_seg": (dict(segment_elems=1 << 24), "bench", GENERIC_KERNELS),
+    "ec_f64": (dict(DPK, mode="ec", segment_elems=0), "bench64", F64_DPK_KERNELS),
+    "ec_f64_dtzs": (dict(DPK, mode="ec", segment_elems="auto"), "bench64",
+                    F64_GENERIC_KERNELS),
+    "ec_f64_fast": (dict(DPK, mode="ec", segment_elems=0, internal_dtype="float32"),
+                    "bench64", F64_FAST_KERNELS),
+    "v1_f64_cesm": ({}, "cesm64", F64_GENERIC_KERNELS),
+    "qt_f64_dtzs": (dict(DPK, mode="qt", segment_elems="auto"), "bench64",
+                    F64_GENERIC_KERNELS),
     "ec_dcd_dtzs": (dict(DPK, mode="ec", segment_elems="auto", dc_delta=True), "bench",
                     EC_KERNELS),
 }
@@ -306,7 +351,10 @@ DTZS_TWIN = {"ec_dtzs": "ec", "qt_dtzs": "qt", "qt_x30_dtzs": "qt_x30",
 #: (torch.matmul transform, shuffle + deflate sections), the monolithic
 #: containers kernel F and PLC sections, so neither the bytes nor the
 #: decodes are equal
-GENERIC_TWIN = {"v2_deflate_dtzs": "v2_deflate", "v1_seg": "v1_ec"}
+GENERIC_TWIN = {"v2_deflate_dtzs": "v2_deflate", "v1_seg": "v1_ec",
+                "ec_f64_dtzs": "ec_f64"}
+F64_INPUTS = ("bench64", "cesm64")
+F64_PATHS = ("ec_f64", "ec_f64_dtzs", "ec_f64_fast", "v1_f64_cesm", "qt_f64_dtzs")
 #: the path whose launch counts the kernel table reports (bench.py's
 #: configuration for the DPK EC kernels, its QT twin for the QT ones, the
 #: package's default, v1 EC, for the non-DPK kernels)
@@ -571,6 +619,38 @@ def dtzs_frames(blob: bytes) -> list:
         off += flen
 
 
+def same_f64_container(a: bytes, b: bytes) -> tuple[bool, float | None]:
+    """(whether two containers, or DTZS streams frame by frame, are the same
+    but for the mean, the largest relative difference of their qtables):
+    tests/test_parity_native.py's rules, every section and header field
+    equal but the mean, a QT qtable within rtol 1e-15 (its maxima are of
+    coefficients that differ by an ulp between two float64 transforms)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dctz_tpu_torch.core import container as ct
+
+    def parse(f):
+        if ct.detect_format(f) == "v1":
+            h, *sec, q = ct.parse_v1(f)
+            return dataclasses.replace(h, mean=0.0), tuple(sec), q
+        h, sec, q, cb = ct.parse_v2(f)
+        return dataclasses.replace(h, mean=0.0), sec + (cb,), q
+
+    fa, fb = dtzs_frames(a), dtzs_frames(b)
+    same, rel = len(fa) == len(fb), None
+    for x, y in zip(fa, fb):
+        (ha, sa, qa), (hb, sb, qb) = parse(x), parse(y)
+        same = same and ha == hb and sa == sb and (qa is None) == (qb is None)
+        if qa is not None and qb is not None:
+            r = float(np.max(np.abs(qa - qb)
+                             / np.maximum(np.abs(qb), np.finfo(np.float64).tiny)))
+            rel = r if rel is None else max(rel, r)
+            same = same and r <= 1e-15
+    return same, rel
+
+
 def ids_codec_of(header, fmt: str) -> str:
     """The coder that took a container's ids: zlib for v1, the device (DPK)
     coder, native rANS or deflate for v2."""
@@ -628,7 +708,7 @@ def main() -> int:
     from dctz_tpu_torch.ops import idpack
     from dctz_tpu_torch.ops import shuffle
     from dctz_tpu_torch.ops.research import _ref, fused_decode, fused_encode_dpk
-    from dctz_tpu_torch.utils.bench_data import climate_formula_np
+    from dctz_tpu_torch.utils.bench_data import climate_formula_np, climate_formula_np64
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1362,7 +1442,8 @@ def main() -> int:
 
     # 4. end to end through the public API, one path at a time; the counters
     # count each path's own run only
-    inputs = {"bench": x_np, "x30": x_qt_np, "cesm": x_cesm}
+    inputs = {"bench": x_np, "x30": x_qt_np, "cesm": x_cesm,
+              "bench64": climate_formula_np64(N), "cesm64": climate_formula_np64(N_CESM)}
     tolx = {k: cfg.error_bound * float(x.max() - x.min()) for k, x in inputs.items()}
     launches, walks_e2e, blobs, decoded, e2e = {}, {}, {}, {}, {}
     for path, (kw, inp, needed) in PATHS.items():
@@ -1387,6 +1468,8 @@ def main() -> int:
         retried = (launches[path]["chunk_compact"] - len(frames)
                    if "chunk_compact" in needed else None)
         emit("end_to_end", path=path, input=inp, n=x.size, bytes_in=x.nbytes,
+             input_dtype=str(x.dtype), output_dtype=str(y.dtype),
+             frame_dtypes=sorted({str(h.dtype) for h in heads}),
              bytes_out=len(blob), container=("dtzs " + fmt) if dtzs else fmt,
              frames=len(frames), ids_codec=ids_codecs, dcd=[bool(h.dcd) for h in heads]
              if fmt0 == "v2" else None, compaction_retried=retried,
@@ -1403,9 +1486,20 @@ def main() -> int:
             require(set(walks_e2e[path]) == {"chunk_compact"},
                     f"{path}: H took {walks_e2e[path]}, not its word walk alone")
         require(ev["bound_satisfied"], f"{path}: pointwise bound violated")
-        want = ("dtzs " if api._resolve_segment(pcfg or dz.CodecConfig(), x.size) else "") + (
+        seg_p = api._resolve_segment(pcfg or dz.CodecConfig(), x.size)
+        if inp in F64_INPUTS:
+            # full width: float64 frames (host-coded when segmented) and a
+            # float64 decode; internal_dtype="float32": a float64 header on
+            # the float32 routes. Kernel D never runs
+            require(y.dtype == np.float64, f"{path}: decoded to {y.dtype}")
+            require(all(h.dtype == np.float64 for h in heads),
+                    f"{path}: a frame that does not declare float64")
+            ran_d = [k for k in D_KERNELS if launches[path][k]]
+            require(not ran_d, f"{path}: kernel D launched: {ran_d}")
+        want = ("dtzs " if seg_p else "") + (
             "v1" if kw is None or "container" not in kw and "segment_elems" not in kw
-            else "v2 dpk" if kw.get("ids_codec") == "device" else "v2 host-coded")
+            else "v2 dpk" if kw.get("ids_codec") == "device"
+            and not (seg_p and inp in F64_INPUTS) else "v2 host-coded")
         got = ("dtzs " + fmt) if dtzs else fmt
         require(got == want, f"{path}: wrote {got}, not {want}")
         if (kw or {}).get("dc_delta"):
@@ -1507,6 +1601,57 @@ def main() -> int:
     del x_dev, y_o, y_64, ids_o, dcac_o, mask_o, ids_oi
     report["end_to_end"] = e2e
 
+    # 4b. float64 parity with the C++ codec (cpp/, the reference's double
+    # build): the card's v1 containers against native.compress
+    from dctz_tpu_torch import native
+
+    require(native.available(), "f64_parity: the native codec did not build")
+    report["f64_parity"] = []
+    for n_par in (64 * 512, 64 * 512 + 31, 777, N_CESM):
+        x_par = (inputs["cesm64"] if n_par == N_CESM
+                 else np.random.default_rng(n_par).standard_normal(n_par) * 250)
+        for mode in ("ec", "qt"):
+            pb = dz.compress(x_par, cfg.error_bound, mode, device="cuda")
+            nb = native.compress(x_par, cfg.error_bound, mode)
+            same, qt_rel = same_f64_container(pb, nb)
+            row = {"n": n_par, "mode": mode, "equal": same, "bytes": len(pb),
+                   "qtable_max_rel_diff": qt_rel}
+            emit("f64_parity", **row)
+            report["f64_parity"].append(row)
+            require(same, f"f64_parity: n={n_par} {mode}: the card's container "
+                          "differs from the native codec's")
+
+    # 4c. the float64 configurations at a small length, on the card and on
+    # the CPU (the segmented ones in 32768-element frames)
+    n_cc = 70001
+    x_cc = climate_formula_np64(n_cc)
+    report["f64_card_vs_cpu"] = []
+    for path in F64_PATHS:
+        kw_cc = dict(PATHS[path][0])
+        if kw_cc.get("segment_elems") == "auto":
+            kw_cc["segment_elems"] = 1 << 15
+        cfg_cc = dz.CodecConfig(**kw_cc)
+        b_gpu = dz.compress(x_cc, config=cfg_cc, device="cuda")
+        b_cpu = dz.compress(x_cc, config=cfg_cc, device="cpu")
+        same, qt_rel = same_f64_container(b_gpu, b_cpu)
+        tol_cc = cfg.error_bound * float(x_cc.max() - x_cc.min())
+        e1 = float(np.abs(dz.decompress(b_cpu, device="cuda") - x_cc).max())
+        e2 = float(np.abs(dz.decompress(b_gpu, device="cpu") - x_cc).max())
+        row = {"path": path, "n": n_cc, "frames": len(dtzs_frames(b_gpu)), "equal": same,
+               "qtable_max_rel_diff": qt_rel, "ratio_rel_diff": len(b_cpu) / len(b_gpu) - 1.0,
+               "gpu_decodes_plain_max_err": e1, "plain_decodes_gpu_max_err": e2,
+               "bound": tol_cc}
+        emit("f64_card_vs_cpu", **row)
+        report["f64_card_vs_cpu"].append(row)
+        require(e1 <= tol_cc and e2 <= tol_cc, f"f64_card_vs_cpu: {path}: cross decode "
+                                               "violates the bound")
+        if path == "ec_f64_fast":
+            require(abs(row["ratio_rel_diff"]) <= RATIO_REL_TOL,
+                    f"f64_card_vs_cpu: {path}: ratio differs from the plain path")
+        else:
+            require(same, f"f64_card_vs_cpu: {path}: the card's container differs "
+                          "from the CPU run's")
+
     # 5. times (the card's name and power limit go beside every number)
     from dctz_tpu_torch.utils.timing import StageTimer
 
@@ -1514,11 +1659,14 @@ def main() -> int:
     for path, (kw, inp, _needed) in PATHS.items():
         pcfg, x, blob = cfg_of(path), inputs[inp], blobs[path]
         seg = api._resolve_segment(pcfg or dz.CodecConfig(), x.size)
-        t_c = wall_s(lambda: dz.compress(x, config=pcfg, device="cuda"), REPS)
-        t_d = wall_s(lambda: dz.decompress(blob, device="cuda"), REPS)
+        reps = REPS_F64 if inp in F64_INPUTS else REPS
+        t_c = wall_s(lambda: dz.compress(x, config=pcfg, device="cuda"), reps)
+        t_d = wall_s(lambda: dz.decompress(blob, device="cuda"), reps)
+        # GB/s of the input's own bytes: float64 paths count 8 bytes a sample
         gbs_c, gbs_d = x.nbytes / t_c / 1e9, x.nbytes / t_d / 1e9
         emit("throughput", card=card, path=path, compress_gb_s=gbs_c,
-             decompress_gb_s=gbs_d, compress_s=t_c, decompress_s=t_d, reps=REPS)
+             decompress_gb_s=gbs_d, compress_s=t_c, decompress_s=t_d, reps=reps,
+             input_dtype=str(x.dtype), ratio=e2e[path]["ratio"])
         tc, td = StageTimer(sync=True), StageTimer(sync=True)
         with tc:
             dz.compress(x, config=pcfg, device="cuda", timer=tc)
@@ -1530,7 +1678,7 @@ def main() -> int:
                                       "card": card}
         report["stages"][path] = {"compress": tc.report(x.nbytes),
                                   "decompress": td.report(x.nbytes)}
-        if path in ("ec", "ec_dtzs", "v1_ec", "v2_deflate_dtzs"):
+        if path in ("ec", "ec_dtzs", "v1_ec", "v2_deflate_dtzs", "ec_f64", "ec_f64_dtzs"):
             report["profile"][path] = profile_once(dz, x, pcfg, blob, card, path)
         if seg and inp == "bench":
             report.setdefault("pipeline_trace", {})[path] = pipeline_trace(

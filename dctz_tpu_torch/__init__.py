@@ -1,7 +1,8 @@
 """dctz_tpu_torch: the PyTorch + CUDA port of DCTZ-TPU.
 
 The JAX package dctz_tpu stays the reference. This package runs float32
-input, EC or QT, verify on or off, in the v1 container (the reference's own
+and float64 input (float64 at full width, as the reference with x64 on),
+EC or QT, verify on or off, in the v1 container (the reference's own
 format and the default), in v2 with the device-packed id stream (monolithic
 or as a segmented DTZS stream) and in host-coded v2 (ids_codec "deflate" or
 "rans"), on an NVIDIA H100 through hand-written CUDA kernels

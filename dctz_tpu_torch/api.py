@@ -1,7 +1,8 @@
 """Public compress / decompress of the PyTorch port (port of dctz_tpu/api.py).
 
-The port runs float32 input, mode "ec" or "qt", verify on or off, in three
-container families, dispatched as the JAX package dispatches on its TPU:
+The port runs float32 and float64 input, mode "ec" or "qt", verify on or
+off, in three container families. Float32 is dispatched as the JAX package
+dispatches on its TPU:
 
   DPK v2 (ids_codec="device", what "auto" means for v2), monolithic or
     segmented into a DTZS stream (segment_elems; the default "auto" segments
@@ -32,6 +33,22 @@ container families, dispatched as the JAX package dispatches on its TPU:
                   per-chunk AC counts from the ids -> rows -> kernel I ->
                   kernel D (rem-point tail in-kernel) -> the first n samples
 
+Float64 runs as the JAX package runs it with x64 on and a backend that is
+not a TPU (its CPU and GPU policy, and its byte parity with the C codec's
+double build): at full width, on the generic chain, since the fused
+kernels take float32 alone (dctz_tpu/api.py:269-305). v1 and host-coded v2
+write the generic chain's container (for v1 the float64 parity path); DPK
+v2 takes the XLA chain's DPK route (dctz_tpu/api.py:1870-1960): the generic
+chain, then kernel B (kernel J at chunk widths B does not take) on the
+float32 stored values, the id stream of the TRUE length n; a DTZS stream
+writes host-coded v2 frames of the generic chain. The decode moves the
+float32 stored values on kernel C (DPK) or I (the others), then
+dequantizes and runs the inverse transform in float64 torch ops, as the
+reference's XLA decode does, and returns float64. internal_dtype="float32"
+casts float64 input to float32 and runs the float32 routes, the header
+still declaring float64 (its segmented stream declares float32 frames, as
+the reference's does).
+
 CodecConfig.dct_precision="high" (the relaxed analysis: three bfloat16
 products, dctz_tpu/ops/dpk_fuse.py:_dot_bf16x3) takes the RELAXED
 instantiations of kernels A, E, F and G on every fused route, and
@@ -45,8 +62,8 @@ every host-coded DTZS frame) as the order-preserving u32 delta
 split), as dctz_tpu does; v1 keeps raw DC.
 
 Everything else raises NotImplementedError naming the ROADMAP item that
-will port it (float64, brsf != 1 and the other codec options: item 9);
-nothing falls back silently.
+will port it (rate="auto", brsf != 1, truncate=False and non-default
+geometry: item 9); nothing falls back silently.
 
 `device` is explicit ("cuda" by default; the CPU tests pass "cpu"). On a
 CUDA device every kernel of the path launches; on the CPU each kernel's
@@ -153,7 +170,8 @@ def _zstd_on(cfg: CodecConfig) -> bool:
 
 
 def _stats_device(x_padded: torch.Tensor, n_real: int, sf_adj: int):
-    """(sf, mean) over a zero-padded array (float32 scalars on its device)."""
+    """(sf, mean) over a zero-padded array (scalars of its dtype on its
+    device)."""
     from .core.stats import amax_mean, scaling_factor
 
     amax, mean = amax_mean(x_padded, n_real)
@@ -340,11 +358,14 @@ def _dpk_sections(width, packed_rows, exc_rows, exc_counts, ac_counts, tile_b,
 
 def _pack_dpk_v2(header, width, packed_rows, exc_rows, exc_counts, counts,
                  ac_chunks, dc, n_pad, cfg, qtable=None, *, dc_planes=None,
-                 ac_planes=None):
+                 ac_planes=None, n_stream=None):
     """Host assembly of a DPK v2 container from the device outputs (numpy);
-    qtable: the (64,) float32 quantizer table of a QT container;
-    dc_planes/ac_planes are the device-split byte planes replacing dc and
-    ac_chunks (the same bytes, no host shuffle)."""
+    qtable: the (64,) quantizer table of a QT container; dc_planes/ac_planes
+    are the device-split byte planes replacing dc and ac_chunks (the same
+    bytes, no host shuffle). n_pad: the padded length, whose chunk width
+    the rows take; n_stream: the id stream's length written to the meta
+    section, n_pad unless given (the XLA chain's containers store the true
+    length, dctz_tpu/api.py:1940-1943)."""
     from .ops import idpack
 
     header.shuffle = cfg.shuffle
@@ -372,30 +393,34 @@ def _pack_dpk_v2(header, width, packed_rows, exc_rows, exc_counts, counts,
     f_ac = pool.submit(_ac_task)
     streams = _dpk_sections(
         width, packed_rows, exc_rows, exc_counts, counts, idpack.B_DEFAULT,
-        qz.chunk_width(n_pad, cfg.block_size), n_pad, cfg, header,
+        qz.chunk_width(n_pad, cfg.block_size),
+        n_pad if n_stream is None else n_stream, cfg, header,
     ) + (f_dc.result(), f_ac.result())
     return ct.pack_v2(header, streams, qtable, cfg.chunk_bytes)
 
 
-def _resolve_input(x, device) -> torch.Tensor:
-    """A flat float32 tensor on `device` (float64 is not ported yet)."""
+def _resolve_input(x, device, cfg: CodecConfig):
+    """(a flat float32 or float64 tensor on `device`, the source dtype as a
+    numpy dtype). internal_dtype="float32" casts float64 input to float32
+    on the device, the one downcast (dctz_tpu/api.py:1758-1779); "auto"
+    keeps float64 at full width. The header records the source dtype."""
     if isinstance(x, torch.Tensor):
         arr = x
     else:
         a = np.asarray(x)
-        if a.dtype == np.float64:
-            raise _todo("float64 input", "9")
-        if a.dtype != np.float32:
-            raise TypeError(f"unsupported dtype {a.dtype}; use float32")
+        if a.dtype not in (np.float32, np.float64):
+            raise TypeError(f"unsupported dtype {a.dtype}; use float32/float64")
         arr = torch.from_numpy(np.ascontiguousarray(a))
-    if arr.dtype == torch.float64:
-        raise _todo("float64 input", "9")
-    if arr.dtype != torch.float32:
-        raise TypeError(f"unsupported dtype {arr.dtype}; use float32")
+    if arr.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {arr.dtype}; use float32/float64")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but CUDA is not available")
-    return arr.reshape(-1).to(device)
+    src_dtype = np.dtype(np.float64 if arr.dtype == torch.float64 else np.float32)
+    arr = arr.reshape(-1).to(device)
+    if cfg.internal_dtype == "float32":
+        arr = arr.to(torch.float32)
+    return arr, src_dtype
 
 
 def compress(
@@ -407,30 +432,34 @@ def compress(
     timer=None,
     device: str | torch.device = "cuda",
 ) -> bytes:
-    """Compress a flat float32 array (numpy or torch); returns the container
-    bytes. The signature of dctz_tpu.compress plus `device`: with no config
-    it writes CodecConfig(mode=mode, error_bound=error_bound), a v1
-    container. A v2 config writes a DPK container (ids_codec "device" or
-    "auto") or a host-coded v2 container (ids_codec "deflate" or "rans").
-    A segmented array (cfg.segment_elems, _resolve_segment) becomes a DTZS
-    stream: of DPK frames with the device ids, else of host-coded v2
-    frames (v1 configurations included)."""
+    """Compress a flat float32 or float64 array (numpy or torch); returns
+    the container bytes. The signature of dctz_tpu.compress plus `device`:
+    with no config it writes CodecConfig(mode=mode,
+    error_bound=error_bound), a v1 container. A v2 config writes a DPK
+    container (ids_codec "device" or "auto") or a host-coded v2 container
+    (ids_codec "deflate" or "rans"). A segmented array (cfg.segment_elems,
+    _resolve_segment) becomes a DTZS stream: of DPK frames with the device
+    ids on float32 data, else of host-coded v2 frames (v1 configurations
+    and float64 data included). Float64 runs at full width unless
+    cfg.internal_dtype is "float32" (_resolve_input)."""
     from .utils.timing import StageTimer
 
     timer = timer or StageTimer()
     cfg = config or CodecConfig(mode=mode, error_bound=error_bound)
     cfg = _resolve_ids_codec(_upgrade_container(cfg))
+    _check_slice(cfg)
     with timer.stage("transfer"):
-        arr = _resolve_input(x, device)
+        arr, src_dtype = _resolve_input(x, device, cfg)
     n = int(arr.shape[0])
     if n == 0:
         raise ValueError("cannot compress an empty array")
-    _check_slice(cfg)
     seg = _resolve_segment(cfg, n)
     if seg:
         # the pipelined path: the device encodes segment k + 1 while a host
         # worker packs segment k; the input already lies on `device`, so the
-        # statistics reduce there and the segments are slices of it
+        # statistics reduce there and the segments are slices of it. With
+        # internal_dtype="float32" the frames declare the cast array's
+        # float32, as the reference's do (it casts before its stream writer)
         import io
 
         from . import stream
@@ -440,16 +469,20 @@ def compress(
             stream.compress_stream(arr, buf, config=cfg, segment_elems=seg,
                                    device=arr.device)
         return buf.getvalue()
-    if _fused_eligible(cfg, n):
-        return _compress_fused(arr, n, cfg, timer)
-    return _compress_generic(arr, n, cfg, timer)
+    if _fused_eligible(cfg, arr, n):
+        return _compress_fused(arr, n, cfg, timer, src_dtype)
+    if cfg.container == "v2" and cfg.ids_codec == "device":
+        return _compress_chain_dpk(arr, n, cfg, timer)
+    return _compress_generic(arr, n, cfg, timer, src_dtype)
 
 
-def _fused_eligible(cfg: CodecConfig, n: int) -> bool:
+def _fused_eligible(cfg: CodecConfig, arr: torch.Tensor, n: int) -> bool:
     """dctz_tpu/api.py:269-305 for the configurations _check_slice admits:
-    the fused kernels take every v2 container, and a v1 container only when
-    n % 1024 == 0 (the reference stream layout allows no padding)."""
-    return cfg.container == "v2" or n % 1024 == 0
+    the fused kernels take float32 alone, every v2 container, and a v1
+    container only when n % 1024 == 0 (the reference stream layout allows
+    no padding)."""
+    return arr.dtype == torch.float32 and (cfg.container == "v2"
+                                           or n % 1024 == 0)
 
 
 def _warn_bound() -> None:
@@ -460,19 +493,21 @@ def _warn_bound() -> None:
     )
 
 
-def _compress_fused(arr: torch.Tensor, n: int, cfg: CodecConfig, timer) -> bytes:
+def _compress_fused(arr: torch.Tensor, n: int, cfg: CodecConfig, timer,
+                    src_dtype: np.dtype) -> bytes:
     """dctz_tpu.api._compress_fused: the DPK branch, or the non-DPK branch
     for v1 and host-coded v2. The latter pads to the 1024 quantum, then
     without verify runs fused_encode_pipeline(_qt) (F, or E and G, then H);
     with verify it runs F or G and _repair_fused, skipping the pipeline's
     compaction that the JAX package computes and discards before its repair
     (dctz_tpu/api.py:420-448). The id stream holds n ids for v1 (n == n_pad
-    there) and n_pad for v2 (dctz_tpu/api.py:526)."""
+    there) and n_pad for v2 (dctz_tpu/api.py:526). The header declares
+    src_dtype (float64 for float64 input cast by internal_dtype="float32")."""
     from . import stream
     from .ops import fused_encode as fe
 
     if cfg.container == "v2" and cfg.ids_codec == "device":
-        return _compress_fused_dpk(arr, n, cfg, timer)
+        return _compress_fused_dpk(arr, n, cfg, timer, src_dtype)
     eb, relaxed = cfg.error_bound, _relaxed(cfg)
     with timer.stage("device"):
         x = stream._on_device(arr, arr.device)
@@ -493,7 +528,8 @@ def _compress_fused(arr: torch.Tensor, n: int, cfg: CodecConfig, timer) -> bytes
         qtable = (fe.patch_slot0(q.qtable, q.dc, n) if q.qtable is not None
                   else None)
     stream_len = n if cfg.container == "v1" else n_pad
-    return _pack_host_coded(q, qtable, ok, sf, mean, n, stream_len, cfg, timer)
+    return _pack_host_coded(q, qtable, ok, sf, mean, n, stream_len, cfg, timer,
+                            src_dtype)
 
 
 def _repair_fused(x: torch.Tensor, sf: torch.Tensor, ids: torch.Tensor,
@@ -533,31 +569,96 @@ def _forward_padded(xs: torch.Tensor, bs: int,
     return torch.cat([main_c, tail_row[None, :]])
 
 
-def _compress_generic(arr: torch.Tensor, n: int, cfg: CodecConfig,
-                      timer) -> bytes:
-    """The generic chain (dctz_tpu/api.py:1870-1978, _encode_device), taken
-    by v1 containers with n % 1024 != 0: stats over the n samples, then the
-    device stage of a host-coded DTZS frame (stream._encode_segment) with
-    this array's own sf, tolerance and qtable. The ids of the n real
-    positions make the stream."""
-    from . import stream
+def _chain_stats(arr: torch.Tensor, n: int, cfg: CodecConfig):
+    """(sf, mean, tolerance or None) of a whole array in its dtype, as
+    dctz_tpu/api.py:_encode_device takes them (calc_data_stat, and
+    repair.verify_repair's own tolerance when cfg.verify)."""
     from .core.stats import amax_mean, scaling_factor
     from .ops import fused_encode as fe
 
+    amax, mean = amax_mean(arr, n)
+    tol = fe.tolerance(arr, n, cfg.error_bound) if cfg.verify else None
+    return scaling_factor(amax, cfg.sf_adj), mean, tol
+
+
+def _compress_generic(arr: torch.Tensor, n: int, cfg: CodecConfig,
+                      timer, src_dtype: np.dtype) -> bytes:
+    """The generic chain (dctz_tpu/api.py:1870-1978, _encode_device), taken
+    by v1 containers with n % 1024 != 0, and by v1 and host-coded v2
+    containers of float64 data (for v1 the float64 parity path): stats over
+    the n samples, then the device stage of a host-coded DTZS frame
+    (stream._encode_segment) with this array's own sf, tolerance and
+    qtable, in the array's dtype. The ids of the n real positions make the
+    stream."""
+    from . import stream
+
     with timer.stage("device"):
-        amax, mean = amax_mean(arr, n)
-        sf = scaling_factor(amax, cfg.sf_adj)
-        tol = fe.tolerance(arr, n, cfg.error_bound) if cfg.verify else None
+        sf, mean, tol = _chain_stats(arr, n, cfg)
         q, ok = stream._encode_segment(arr, n, sf, tol, cfg)
-    return _pack_host_coded(q, q.qtable, ok, sf, mean, n, n, cfg, timer)
+    return _pack_host_coded(q, q.qtable, ok, sf, mean, n, n, cfg, timer,
+                            src_dtype)
+
+
+def _compress_chain_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
+                        timer) -> bytes:
+    """The XLA chain's DPK route (dctz_tpu/api.py:1870-1960), taken by v2
+    containers with the device ids on float64 data: the generic chain in
+    float64 up to the stored values (stream._quantize_segment), then the
+    id coding and AC compaction of pack_ids_with_ac on the float32 stored
+    values (kernel B where its geometry holds, else kernel J), retried at
+    full chunk width on exception overflow, and a DPK container whose id
+    stream has the TRUE length n: its last block is partial and decodes
+    through the rem-point basis. The arrays are padded to whole blocks
+    only, so the chunk width can be 64."""
+    from . import stream
+    from .ops import idpack
+
+    bs = cfg.block_size
+    with timer.stage("device"):
+        sf, mean, tol = _chain_stats(arr, n, cfg)
+        ids, dc, vals, qtable, ok = stream._quantize_segment(arr, n, sf, tol,
+                                                             cfg)
+        dcac = vals.to(torch.float32)
+        dcac[:, 0] = dc
+        n_pad = dcac.numel()
+
+        def pack(cape):
+            return idpack.pack_ids_with_ac(ids.to(torch.uint8), dcac, n,
+                                           idpack.B_DEFAULT, cape)
+
+        outs = pack(idpack.CAPE)
+        if bool(outs[7]):
+            outs = pack(qz.chunk_width(n_pad, bs))
+        width, packed, exc_rows, exc_counts, ac, ac_counts, dc, _ovf = outs
+        # the qtable's slot 0 is already the last block's DC in float64
+        # (qz.qtable_colmax), and the float64 header keeps raw DC (_dcd_on)
+        planes = (_plane_split2(dc, ac) if _plane_mode(cfg, dc) else None)
+    with timer.stage("transfer"):
+        dc_s, ac_s = planes if planes is not None else (dc, ac)
+        (width, packed, exc_rows, exc_counts, ac_counts, dc_s, ac_s, qt,
+         ok) = stream._start_pull([width, packed, exc_rows, exc_counts,
+                                   ac_counts, dc_s, ac_s, qtable, ok])()
+        sf, mean = float(sf), float(mean)
+    if ok is not None and not bool(ok):
+        _warn_bound()
+    header = _header(cfg, n, int(ac_counts.sum()), sf, mean, np.float64)
+    plane_kw = (dict(dc_planes=dc_s, ac_planes=ac_s) if planes is not None
+                else {})
+    with timer.stage("zlib"):
+        return _pack_dpk_v2(
+            header, width, packed, exc_rows, exc_counts, ac_counts,
+            None if planes is not None else ac_s,
+            None if planes is not None else dc_s, n_pad, cfg, qt,
+            n_stream=n, **plane_kw,
+        )
 
 
 def _header(cfg: CodecConfig, n: int, ac_count: int, sf: float,
-            mean: float) -> ct.Header:
-    """The header of a float32 container of n elements, its section sizes
-    and flags still to be filled."""
+            mean: float, dtype=np.float32) -> ct.Header:
+    """The header of a container of n elements of `dtype` (float32 or
+    float64), its section sizes and flags still to be filled."""
     return ct.Header(
-        dtype=np.dtype(np.float32),
+        dtype=np.dtype(dtype),
         num_elements=n,
         error_bound=cfg.error_bound,
         ac_count=ac_count,
@@ -575,10 +676,11 @@ def _header(cfg: CodecConfig, n: int, ac_count: int, sf: float,
 
 
 def _pack_host_coded(q, qtable, ok, sf, mean, n: int, stream_len: int,
-                     cfg: CodecConfig, timer) -> bytes:
+                     cfg: CodecConfig, timer, dtype=np.float32) -> bytes:
     """Pull the device streams (pinned memory on the card) and assemble a v1
-    or host-coded v2 container: the first stream_len ids, the DC stream and
-    the tight AC stream (dctz_tpu/api.py:524-545)."""
+    or host-coded v2 container of `dtype`: the first stream_len ids, the
+    float32 DC stream and the tight float32 AC stream
+    (dctz_tpu/api.py:524-545), the qtable in `dtype`."""
     from . import stream
 
     with timer.stage("transfer"):
@@ -587,7 +689,7 @@ def _pack_host_coded(q, qtable, ok, sf, mean, n: int, stream_len: int,
         sf, mean = float(sf), float(mean)
     if ok is not None and not bool(ok):
         _warn_bound()
-    header = _header(cfg, n, int(counts.sum()), sf, mean)
+    header = _header(cfg, n, int(counts.sum()), sf, mean, dtype)
     with timer.stage("zlib"):
         ac = entropy.take_row_prefixes(ac_rows, counts)
         flat_ids = ids.reshape(-1)[:stream_len].tobytes()
@@ -636,7 +738,7 @@ def _ids_streams(ids_bytes: bytes, cfg: CodecConfig, header: ct.Header):
 
 
 def _compress_fused_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
-                        timer) -> bytes:
+                        timer, src_dtype: np.dtype) -> bytes:
     """The DPK EC/QT branch of dctz_tpu.api._compress_fused, as the
     one-segment case of the stream writer: pad to the tile quantum, stats,
     tolerance, [QT: kernel E], then the segment's device stage (kernels
@@ -655,7 +757,7 @@ def _compress_fused_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
                                            relaxed=_relaxed(cfg))
                   if cfg.mode == "qt" else None)
         outs, planes, qtable = stream._encode_segment_dpk(x, n, sf, tol, cfg,
-                                                          qtable)
+                                                          qtable, src_dtype)
     with timer.stage("transfer"):
         host = stream._start_pull(stream._pull_list(outs, planes, qtable, cfg))()
         sf, mean = float(sf), float(mean)
@@ -663,7 +765,7 @@ def _compress_fused_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
     with timer.stage("zlib"):
         blob = stream._pack_segment_dpk(
             lambda: host, planes is not None, n, int(x.shape[0]), sf, mean,
-            cfg, bound_bad,
+            cfg, bound_bad, dtype=src_dtype,
         )
     if bound_bad:
         _warn_bound()
@@ -818,7 +920,9 @@ def _decode_device_dpk(width, packed_rows, exc_rows, dc, ac_buf, n: int,
                        qtable=None):
     """Kernels C + D (ops/dpk_fuse.decode_fused) on the device arrays of a
     DPK container -> (n,) float32. dc/ac_buf may arrive as (4, ...) u8 byte
-    planes, reassembled here; qtable (a device tensor) selects QT mode."""
+    planes, reassembled here; qtable (a device tensor) selects QT mode. A
+    float64 sf (a float64 container) takes kernel C, then the float64
+    dequantization and inverse transform of qz.decode_x -> (n,) float64."""
     from .ops import dpk_fuse
 
     if tile_b != dpk_fuse.TILE_B:
@@ -829,24 +933,31 @@ def _decode_device_dpk(width, packed_rows, exc_rows, dc, ac_buf, n: int,
         ac_buf = _combine_planes(ac_buf)
     if dcd:
         dc = _f32_delta_inv_dev(dc)
+    if sf.dtype == torch.float64:
+        nblk = -(-n // cfg.block_size)
+        ids, acv = dpk_fuse.dpk_unpack_expand(width, packed_rows, exc_rows,
+                                              ac_buf.contiguous(), nblk, n, cw)
+        return qz.decode_x(ids, dc, acv, n, cfg, sf, qtable, torch.float64)[1]
     return dpk_fuse.decode_fused(width, packed_rows, exc_rows,
                                  ac_buf.contiguous(), dc.contiguous(), sf, cfg,
                                  cw, n, qtable)
 
 
-def _require_f32(header: ct.Header) -> None:
-    if header.dtype != np.float32:
-        raise _todo("float64 containers (the v1 float64 parity path "
-                    "among them)", "9")
+def _work_dtype(header: ct.Header) -> torch.dtype:
+    """The decode's arithmetic: the container's own dtype, float64 at full
+    width as dctz_tpu's _decode_work_dtype gives on a backend that is not a
+    TPU (dctz_tpu/api.py:1581-1600)."""
+    return torch.float64 if header.dtype == np.float64 else torch.float32
 
 
 def _to_device(host_arrays, header: ct.Header, qtable, device):
     """The host stage's arrays, the scaling factor and the qtable on
-    `device`."""
+    `device`, the last two in the decode's dtype (_work_dtype)."""
     dev = [torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
            for a in host_arrays]
-    sf = torch.tensor(header.scaling_factor, dtype=torch.float32, device=device)
-    qt = (torch.from_numpy(np.asarray(qtable, np.float32)).to(device)
+    wd = _work_dtype(header)
+    sf = torch.tensor(header.scaling_factor, dtype=wd, device=device)
+    qt = (torch.from_numpy(np.array(qtable)).to(device=device, dtype=wd)
           if qtable is not None else None)
     return dev, sf, qt
 
@@ -917,6 +1028,8 @@ def _host_coded_prep(header: ct.Header, bindex, dc_raw, ac_raw):
         # every block of a chunk holds one DC escape for the count below
         flat_ids = np.concatenate([flat_ids, np.zeros(pad, np.uint8)])
         flat_ids.reshape(nblk, bs)[:, 0] = C.ESCAPE
+    if _stored_dtype(header, len(dc_raw), nblk) != np.float32:
+        raise _todo("full-width (truncate=False) float64 streams", "9")
     dc = np.frombuffer(dc_raw, dtype=np.float32, count=nblk)
     ac = np.frombuffer(ac_raw, dtype=np.float32, count=header.ac_count)
     cw = qz.chunk_width(nblk * bs, bs)
@@ -927,19 +1040,21 @@ def _host_coded_prep(header: ct.Header, bindex, dc_raw, ac_raw):
 
 
 def _host_stage(blob):
-    """Host stage of the decode of one float32 container (v1, DPK v2 or
-    host-coded v2; a DTZS frame is one of these): parse, inflate and re-pad
-    (_dpk_decode_prep, or _inflate_v2_streams / entropy.inflate_streams and
-    _host_coded_prep). Returns (header, qtable, host_arrays, decode):
-    decode(dev_arrays, sf, qtable) runs the device stage on the arrays moved
-    by _to_device, kernels C + D for DPK and I + D for the others, and
-    returns a float32 tensor whose first header.num_elements samples are
-    the data."""
+    """Host stage of the decode of one container (v1, DPK v2 or host-coded
+    v2, float32 or float64; a DTZS frame is one of these): parse, inflate
+    and re-pad (_dpk_decode_prep, or _inflate_v2_streams /
+    entropy.inflate_streams and _host_coded_prep). Returns (header, qtable,
+    host_arrays, decode): decode(dev_arrays, sf, qtable) runs the device
+    stage on the arrays moved by _to_device and returns a tensor of the
+    container's dtype whose first header.num_elements samples are the data.
+    Float32: kernels C + D for DPK and I + D for the others. Float64: C or
+    I move the float32 stored values, then the dequantization and the
+    inverse transform run in float64 torch ops (qz.decode_x), as dctz_tpu's
+    XLA decode does (dctz_tpu/api.py:123-133)."""
     from .ops import dpk_fuse
 
     if ct.detect_format(blob) == "v2":
         header, streams, qtable, _cb = ct.parse_v2(blob)
-        _require_f32(header)
         if header.dpk:
             host_arrays, (n_stream, tile_b, cw, cfg) = _dpk_decode_prep(header,
                                                                         streams)
@@ -952,16 +1067,18 @@ def _host_stage(blob):
         bindex, dc_raw, ac_raw = _inflate_v2_streams(header, streams)
     else:
         header, bz, dz, az, qtable = ct.parse_v1(blob)
-        _require_f32(header)
         bindex, dc_raw, ac_raw = entropy.inflate_streams([bz, dz, az])
     host_arrays, n_stream, cfg = _host_coded_prep(header, bindex, dc_raw, ac_raw)
 
     def decode_host_coded(dev, sf, qt):
-        # kernel I puts the AC rows back at the escapes, kernel D
-        # dequantizes and runs the IDCT (the rem-point basis for a partial
-        # last block)
+        # kernel I puts the AC rows back at the escapes; kernel D (float32)
+        # or torch ops (float64) dequantize and run the IDCT (the rem-point
+        # basis for a partial last block)
         ids, dc, ac = dev
         acv = qz.expand_ac(ids, ac, n_stream)
+        if sf.dtype == torch.float64:
+            return qz.decode_x(ids, dc, acv, n_stream, cfg, sf, qt,
+                               torch.float64)[1]
         return dpk_fuse.dequant_idct(ids, acv, dc, sf, cfg, n_stream, qt)
 
     return header, qtable, host_arrays, decode_host_coded
@@ -970,8 +1087,9 @@ def _host_stage(blob):
 def decompress(blob: bytes | memoryview, *, timer=None,
                device: str | torch.device = "cuda") -> np.ndarray:
     """Decompress a container of either format (v1, v2 with DPK or
-    host-coded ids) or a DTZS stream of them back to a flat float32 numpy
-    array."""
+    host-coded ids) or a DTZS stream of them back to a flat numpy array of
+    the container's dtype (float32 or float64; a stream's from its
+    frames)."""
     from .utils.timing import StageTimer
 
     timer = timer or StageTimer()

@@ -17,10 +17,10 @@ def linear_to_zigzag(lin: torch.Tensor, nbins: int) -> torch.Tensor:
     return torch.where(lin <= half, 2 * (half - lin), 2 * (lin - half) - 1)
 
 
-def zigzag_to_center(ids: torch.Tensor, bin_width: float) -> torch.Tensor:
-    """Closed form of the reference bin_center[id] as float32 (ids int32)."""
+def zigzag_to_center(ids: torch.Tensor, bin_width: float,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Closed form of the reference bin_center[id] in `dtype` (ids int32)."""
     k = torch.div(ids, 2, rounding_mode="floor")
     tmp = torch.where(ids % 2 == 1, k + 1, -k)
-    return tmp.to(torch.float32) * torch.tensor(
-        bin_width, dtype=torch.float32, device=ids.device
-    )
+    return tmp.to(dtype) * torch.tensor(bin_width, dtype=dtype,
+                                        device=ids.device)

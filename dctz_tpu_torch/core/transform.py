@@ -1,19 +1,24 @@
 """Orthonormal block DCT-II/III as matmuls (port of dctz_tpu/core/transform.py).
 
 The basis is built exactly as the JAX package builds it: in float64 with
-numpy, then rounded once to float32 (the port's tests assert byte equality).
+numpy, then rounded once to float32 for float32 data (the port's tests
+assert byte equality) and kept unrounded for float64 data.
 The fused paths' transforms run inside the CUDA kernels (ops/dpk_fuse.py,
 ops/fused_encode.py) against the same float32 basis. The matmuls here are
 the plain versions, and also the device transforms of the generic chain and
 of the verify-repair on the non-DPK containers, which the JAX package leaves
-to XLA as well; on the card they run in full float32, never TF32. The
+to XLA as well; on the card they run in full float32, never TF32, and a
+float64 product is cuBLAS DGEMM (IEEE doubles with fused multiply-adds). The
 remainder block of a length that is not a block multiple uses a rem-point
 basis, as the JAX package's XLA chain does for its containers.
 
 The forward transform takes CodecConfig.dct_precision: "highest" is the
 float32 product, "high" the relaxed analysis of the JAX package, three
 bfloat16 products with float32 accumulation (dot_bf16x3, the twin of
-dctz_tpu/ops/dpk_fuse.py:_dot_bf16x3). The inverse is always float32.
+dctz_tpu/ops/dpk_fuse.py:_dot_bf16x3), for float32 data; float64 data
+takes the float64 product at either precision, as dctz_tpu's matmul does on
+its CPU and GPU backends, which ignore the precision flag for doubles. The
+inverse is always the full product in the data's dtype.
 """
 
 from __future__ import annotations
@@ -49,21 +54,28 @@ def _blockdiag_np(n: int, copies: int, forward: bool):
 
 
 @functools.lru_cache(maxsize=32)
-def _dct2_basis_on(n: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_dct2_basis_np(n).astype(np.float32)).to(device)
+def _dct2_basis_on(n: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    b = _dct2_basis_np(n)
+    return torch.from_numpy(b if dtype == torch.float64
+                            else b.astype(np.float32)).to(device)
 
 
-def dct2_basis(n: int, device) -> torch.Tensor:
-    """The (n, n) float32 basis B[k, m] on `device`, built once per (n,
-    device) and shared: callers must not write to it."""
-    return _dct2_basis_on(n, torch.device(device))
+def dct2_basis(n: int, device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (n, n) basis B[k, m] on `device` in `dtype` (float32: rounded
+    once; float64: the doubles unrounded), built once per (n, device, dtype)
+    and shared: callers must not write to it."""
+    return _dct2_basis_on(n, torch.device(device), dtype)
 
 
 def _require_fp32_matmul(t: torch.Tensor) -> None:
     """A float32 matmul on the card must not run in TF32, which keeps about
     three decimal digits and would break the error bound. PyTorch's default
-    is full float32 (allow_tf32 False); a caller may have flipped it."""
-    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+    is full float32 (allow_tf32 False); a caller may have flipped it. The
+    switch does not touch float64 products."""
+    if (t.is_cuda and t.dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is True: the codec's "
             "transforms need full float32 matmuls; set it to False"
@@ -97,21 +109,24 @@ def dot_bf16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def block_dct(blocks: torch.Tensor, precision: str = "highest") -> torch.Tensor:
-    """Forward DCT-II of a batch of float32 blocks: (..., n) -> (..., n).
-    precision "high": the relaxed bfloat16x3 analysis (dot_bf16x3)."""
+    """Forward DCT-II of a batch of blocks in their dtype: (..., n) ->
+    (..., n). precision "high": the relaxed bfloat16x3 analysis
+    (dot_bf16x3) for float32 blocks; float64 blocks take the float64
+    product."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     _require_fp32_matmul(blocks)
-    basis = dct2_basis(blocks.shape[-1], blocks.device)
-    if precision == "high":
+    basis = dct2_basis(blocks.shape[-1], blocks.device, blocks.dtype)
+    if precision == "high" and blocks.dtype == torch.float32:
         return dot_bf16x3(blocks, basis.T)
     return torch.matmul(blocks, basis.T)
 
 
 def block_idct(coeffs: torch.Tensor) -> torch.Tensor:
-    """Inverse DCT (DCT-III) of a batch of blocks: (..., n) -> (..., n)."""
+    """Inverse DCT (DCT-III) of a batch of blocks in their dtype: (..., n)
+    -> (..., n)."""
     _require_fp32_matmul(coeffs)
-    basis = dct2_basis(coeffs.shape[-1], coeffs.device)
+    basis = dct2_basis(coeffs.shape[-1], coeffs.device, coeffs.dtype)
     return torch.matmul(coeffs, basis)
 
 

@@ -39,11 +39,11 @@ def _f32(v: float, device) -> torch.Tensor:
 
 def tolerance(x: torch.Tensor, n_true: int, error_bound: float) -> torch.Tensor:
     """The verify tolerance: (max - min over the n_true real samples of the
-    zero-padded x) * eb * _SLACK, a float32 scalar on x's device."""
+    zero-padded x) * eb * _SLACK, a scalar of x's dtype on x's device
+    (dctz_tpu/ops/repair.py:113-126)."""
     xv = x[:n_true]
-    return (torch.max(xv) - torch.min(xv)) * _f32(error_bound, x.device) * _f32(
-        _SLACK, x.device
-    )
+    return (torch.max(xv) - torch.min(xv)) * qz._c(error_bound, x) * qz._c(
+        _SLACK, x)
 
 
 def _qtable_qmax_plain(x: torch.Tensor, sf: torch.Tensor, cfg: CodecConfig,

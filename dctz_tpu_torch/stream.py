@@ -22,11 +22,13 @@ Two segment paths, chosen as the JAX package chooses them (its dpk_seg):
     whenever the segment size is a multiple of the 1024-element pad quantum
     (the default DEFAULT_SEGMENT is).
   generic (every other configuration: v1 with an int segment_elems, the ids
-    codecs "deflate", "rans" and, for v1, "auto"): the generic chain
+    codecs "deflate", "rans" and, for v1, "auto", and every float64 array,
+    whose frames are float64 containers): the generic chain
     (_encode_segment: the transform, bins and verify-repair as torch ops,
     the compaction in kernel H; _qtable_colmax_segment for the qtable) and
     a host-coded v2 frame (_pack_segment), whatever the config's container.
-    These frames decode through kernels I and D.
+    These frames decode through kernels I and D (float32), or kernel I and
+    float64 torch ops (float64).
 
 Both directions run a two-stage pipeline: the writer's host worker pulls and
 packs segment k (its device-to-host copies run on a side CUDA stream) while
@@ -65,9 +67,9 @@ _PAD_QUANTUM = 1024  # the fused encode pads to whole (8, 128) tiles
 def _stats_stream_device(x: torch.Tensor):
     """Global statistics of a device-resident array, reduced on its device:
     (max|x|, sum, max, min) as tensors. max|x| = max(|max|, |min|) exactly;
-    the sum is a float32 sum, as the JAX package's device branch takes it
-    (dctz_tpu/stream.py:_stats_stream_device), equal to it up to the order
-    of the float32 additions."""
+    the sum is a sum in the array's dtype, as the JAX package's device
+    branch takes it (dctz_tpu/stream.py:_stats_stream_device), equal to it
+    up to the order of the additions."""
     vmin, vmax = torch.aminmax(x)
     amax = torch.maximum(torch.abs(vmax), torch.abs(vmin))
     return amax, torch.sum(x), vmax, vmin
@@ -94,8 +96,9 @@ def _segments(x, segment_elems: int) -> Iterator:
 
 
 def _on_device(seg, device: torch.device, pad: bool = True) -> torch.Tensor:
-    """A segment as a float32 tensor on `device`, zero-padded to the tile
-    quantum unless pad is False (the generic chain takes it unpadded)."""
+    """A segment as a tensor of its dtype on `device`, zero-padded to the
+    tile quantum unless pad is False (the generic chain takes it
+    unpadded)."""
     if isinstance(seg, np.ndarray):
         if not seg.flags.writeable:
             seg = seg.copy()
@@ -146,10 +149,13 @@ def compress_stream(
     trace: list | None = None,
     device: str | torch.device = "cuda",
 ) -> int:
-    """Compress the flat float32 array `x` into `out` as a DTZS stream of
-    frames of segment_elems elements (rounded down to a block multiple):
-    DPK v2 frames for ids_codec "device", host-coded v2 frames of the
-    generic chain otherwise. Returns the bytes written.
+    """Compress the flat float32 or float64 array `x` into `out` as a DTZS
+    stream of frames of segment_elems elements (rounded down to a block
+    multiple): DPK v2 frames for ids_codec "device" on float32 data,
+    host-coded v2 frames of the generic chain otherwise, of the array's
+    dtype (float64 at full width: internal_dtype does not apply here, as in
+    the reference, whose compress() casts before calling its writer).
+    Returns the bytes written.
 
     x: a numpy array (statistics on the host, one segment at a time; each
     segment then goes to `device`) or a tensor (moved to `device` once;
@@ -170,19 +176,19 @@ def compress_stream(
     else:
         x = np.asarray(x).reshape(-1)
         dtype = x.dtype
-    if dtype == np.float64:
-        raise api._todo("float64 input", "9")
-    if dtype != np.float32:
-        raise TypeError(f"unsupported dtype {dtype}; use float32")
+    if dtype not in (np.float32, np.float64):
+        raise TypeError(f"unsupported dtype {dtype}; use float32/float64")
     n = int(x.shape[0])
     if n == 0:
         raise ValueError("cannot compress an empty array")
     cfg = api._resolve_ids_codec(cfg)
     api._check_slice(cfg)
     # the JAX writer's dpk_seg (dctz_tpu/stream.py:227-238): its other
-    # conditions (float32, the default geometry, truncate) are what
-    # _check_slice and the dtype check above admit
-    dpk_seg = cfg.ids_codec == "device"
+    # conditions (the default geometry, truncate) are what _check_slice
+    # admits. A float64 array with the device ids writes host-coded frames,
+    # whose ids take Huffman-only deflate (api._ids_streams)
+    dpk_seg = cfg.ids_codec == "device" and dtype == np.float32
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
     bs = cfg.block_size
     segment_elems = max(bs, segment_elems - segment_elems % bs)
 
@@ -194,7 +200,7 @@ def compress_stream(
         total, vmax, vmin = float(total_d), float(vmax_d), float(vmin_d)
     else:
         amax, total, vmax, vmin = _stats_stream_host(x, segment_elems)
-        amax = torch.tensor(amax, dtype=torch.float32, device=device)
+        amax = torch.tensor(amax, dtype=tdtype, device=device)
     from .core.stats import scaling_factor
 
     sf_t = scaling_factor(amax, cfg.sf_adj)
@@ -205,10 +211,10 @@ def compress_stream(
     # so the two routes store different means, as the JAX package's do
     mean = total / n
     # the verify tolerance is GLOBAL (eb times the range of the whole
-    # array), computed in python doubles and rounded once to float32, as
-    # the JAX stream writer does
-    tol_t = torch.tensor(np.float32((vmax - vmin) * cfg.error_bound * _SLACK),
-                         device=device)
+    # array), computed in python doubles and rounded once to the segment
+    # dtype, as the JAX stream writer does
+    tol_t = torch.tensor((vmax - vmin) * cfg.error_bound * _SLACK,
+                         dtype=tdtype, device=device)
 
     # QT: the global column max over every segment first, max-reduced (max
     # is associative: equal to the whole-array pass): kernel E on DPK
@@ -252,7 +258,7 @@ def compress_stream(
                                         sf_t, tol_t, cfg, qt_ext)
                 pull = _start_pull([q.bin_ids, q.dc, q.ac_buf, q.ac_count,
                                     q.qtable, ok])
-                pack = (_pack_segment, pull, n_seg, sf, mean, cfg)
+                pack = (_pack_segment, pull, n_seg, sf, mean, cfg, dtype)
             if trace is not None:
                 trace.append(("device", si, t0, time.perf_counter()))
             if pending is not None:
@@ -276,7 +282,8 @@ def _warn_bound(bound_bad: list) -> None:
 
 
 def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
-                        tol_t: torch.Tensor, cfg: CodecConfig, qt_ext):
+                        tol_t: torch.Tensor, cfg: CodecConfig, qt_ext,
+                        src_dtype=np.float32):
     """Device stage of one DPK array: kernels A + B with the given sf,
     tolerance and qtable, retried once at full chunk width on exception
     overflow (the qtable does not depend on the width, so E is not rerun);
@@ -285,7 +292,9 @@ def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
     (_on_device), n of its samples real. The float32 DC/AC streams are
     split into byte planes on the device (api._plane_split2) so the host
     packer skips its shuffle; with cfg.dc_delta on a v2 config the DC
-    stream is delta-coded first (dctz_tpu/stream.py:393-397). qt_seg: the
+    stream is delta-coded first (dctz_tpu/stream.py:393-397), unless the
+    container declares float64 (src_dtype, internal_dtype="float32"), which
+    keeps raw DC as api._dcd_on says. qt_seg: the
     qtable with slot 0 set to the last REAL block's DC, un-delta'd. Returns
     (outs, planes, qt_seg). The monolithic container is the one-segment
     case (api._compress_fused)."""
@@ -304,8 +313,9 @@ def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
     if bool(outs[7]):
         outs = encode(cw)
     qt_seg = patch_slot0(qt_ext, outs[6], n) if qt_ext is not None else None
-    planes = (api._plane_split2(outs[6], outs[4],
-                                cfg.dc_delta and cfg.container == "v2")
+    dcd = (cfg.dc_delta and cfg.container == "v2"
+           and np.dtype(src_dtype) == np.float32)
+    planes = (api._plane_split2(outs[6], outs[4], dcd)
               if api._plane_mode(cfg, outs[6]) else None)
     return outs, planes, qt_seg
 
@@ -323,11 +333,13 @@ def _pull_list(outs, planes, qt_seg, cfg: CodecConfig):
 def _pack_segment_dpk(pull, plane_mode: bool, n: int, n_pad: int, sf: float,
                       mean: float, cfg: CodecConfig,
                       bound_bad: list | None = None, seg_index: int = 0,
-                      trace=None) -> bytes:
+                      trace=None, dtype=np.float32) -> bytes:
     """Host stage of one DPK segment (on the writer's worker thread, or on
-    the caller's for a monolithic container): wait for the segment's copies (the "pull" interval: device completion plus
-    transfer) and pack the same v2 container the monolithic path emits (the
-    "pack" interval, host CPU only)."""
+    the caller's for a monolithic container): wait for the segment's copies
+    (the "pull" interval: device completion plus transfer) and pack the
+    same v2 container the monolithic path emits (the "pack" interval, host
+    CPU only). dtype: the header's, float64 for a monolithic float64 array
+    cast by internal_dtype="float32"."""
     from . import api
 
     tp0 = time.perf_counter()
@@ -335,7 +347,7 @@ def _pack_segment_dpk(pull, plane_mode: bool, n: int, n_pad: int, sf: float,
      qtable) = pull()
     if ok is not None and bound_bad is not None and not bool(ok):
         bound_bad.append(seg_index)
-    header = api._header(cfg, n, int(counts.sum()), sf, mean)
+    header = api._header(cfg, n, int(counts.sum()), sf, mean, dtype)
     tp1 = time.perf_counter()
     planes = dict(dc_planes=dc_s, ac_planes=ac_s) if plane_mode else {}
     blob = api._pack_dpk_v2(
@@ -362,26 +374,23 @@ def _qtable_colmax_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
     return qz.escape_colmax(coeffs, n, cfg)
 
 
-def _encode_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor, tol_t,
-                    cfg: CodecConfig, qt_ext: torch.Tensor | None = None):
-    """Device stage of one array on the generic chain
-    (dctz_tpu/stream.py:65-94, and api._encode_device for a whole array):
-    x / sf, the forward transform at cfg.dct_precision (a rem-point tail
-    when the array ends mid-block), bins (QT: the qtable of qt_ext, the
-    writer's global column max, else of these coefficients), the
-    verify-repair against tol_t when cfg.verify, and the compaction
-    (qz.repack: kernel H on the card). On a row overflow only the
-    compaction is rerun at full chunk width, where the JAX writer reruns
-    the whole segment: the width changes nothing but the compaction, so
-    the streams are the same. xs: the array on its device, unpadded, n its
-    length; tol_t: the float32 tolerance tensor (None without verify).
-    The transform, bins and repair are torch ops, as the JAX package leaves
-    them to XLA. Returns (qz.Quantized, ok or None)."""
+def _quantize_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor, tol_t,
+                      cfg: CodecConfig, qt_ext: torch.Tensor | None = None):
+    """The generic chain up to the stored values (dctz_tpu/stream.py:65-94,
+    and api._encode_device for a whole array), in the dtype of xs: x / sf,
+    the forward transform at cfg.dct_precision (a rem-point tail when the
+    array ends mid-block), bins (QT: the qtable of qt_ext, the writer's
+    global column max, else of these coefficients), and the verify-repair
+    against tol_t when cfg.verify. xs: the array on its device, unpadded,
+    n its length; tol_t: the tolerance tensor of its dtype (None without
+    verify). Torch ops, as the JAX package leaves them to XLA. Returns (bin
+    ids int32 (nblk, bs), dc float32, stored values (nblk, bs) in the dtype
+    of xs, qtable or None, ok or None)."""
     from . import api
     from .ops import repair
 
     bs = cfg.block_size
-    coeffs = api._forward_padded(xs / sf_t, bs, cfg.dct_precision)
+    coeffs = api._forward_padded(xs / sf_t.to(xs.dtype), bs, cfg.dct_precision)
     ids, dc, vals, qtable = qz.quantize(coeffs, n, cfg, qt_ext)
     ok = None
     if cfg.verify:
@@ -389,18 +398,31 @@ def _encode_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor, tol_t,
                                        tol_t, qtable)
         acm = qz.ac_mask(coeffs.shape[0], bs, n, xs.device)
         vals = repair.stored_dense(coeffs, ids, acm, cfg, qtable)
+    return ids, dc, vals, qtable, ok
+
+
+def _encode_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor, tol_t,
+                    cfg: CodecConfig, qt_ext: torch.Tensor | None = None):
+    """Device stage of one array on the generic chain: _quantize_segment,
+    then the compaction of the float32 stored values (qz.repack: kernel H
+    on the card). On a row overflow only the compaction is rerun at full
+    chunk width, where the JAX writer reruns the whole segment: the width
+    changes nothing but the compaction, so the streams are the same.
+    Returns (qz.Quantized, ok or None)."""
+    ids, dc, vals, qtable, ok = _quantize_segment(xs, n, sf_t, tol_t, cfg,
+                                                  qt_ext)
     return qz.repack(ids, vals, dc, qtable, n, cfg), ok
 
 
 def _pack_segment(pull, n: int, sf: float, mean: float, cfg: CodecConfig,
-                  bound_bad: list | None = None, seg_index: int = 0,
-                  trace=None) -> bytes:
+                  dtype=np.float32, bound_bad: list | None = None,
+                  seg_index: int = 0, trace=None) -> bytes:
     """Host stage of one generic segment (dctz_tpu/stream.py:467-516, byte
-    for byte): a host-coded v2 frame whatever cfg.container says. The id
-    sections of the n real ids (api._ids_streams); DC and AC always
-    shuffled (cfg.shuffle) and chunk-deflated, never plane-coded; the DC
-    delta (cfg.dc_delta) on the host, since the frame is a v2 float32
-    container; the qtable stored in QT mode only."""
+    for byte): a host-coded v2 frame of `dtype` whatever cfg.container
+    says. The id sections of the n real ids (api._ids_streams); DC and AC
+    always shuffled (cfg.shuffle) and chunk-deflated, never plane-coded;
+    the DC delta (cfg.dc_delta) on the host for a float32 frame (a float64
+    frame keeps raw DC); the qtable stored in QT mode only."""
     from . import api
     from .core import entropy
 
@@ -409,10 +431,10 @@ def _pack_segment(pull, n: int, sf: float, mean: float, cfg: CodecConfig,
     if ok is not None and bound_bad is not None and not bool(ok):
         bound_bad.append(seg_index)
     tp1 = time.perf_counter()
-    header = api._header(cfg, n, int(counts.sum()), sf, mean)
+    header = api._header(cfg, n, int(counts.sum()), sf, mean, dtype)
     ac = entropy.take_row_prefixes(ac_rows, counts)
     header.shuffle = cfg.shuffle
-    if cfg.dc_delta:
+    if cfg.dc_delta and dtype == np.float32:
         # frames restart at their own item 0, so each decodes on its own
         dc = entropy.f32_delta(dc)
         header.dcd = True
@@ -468,14 +490,15 @@ def decompress_stream(f: BinaryIO, trace: list | None = None,
     re-padding) while this thread runs frame k's device stage. `trace`
     collects ("prep" | "device", frame, t0, t1) wall times."""
     _read_stream_header(f)
-    for n, run in _frame_stages(f, trace, torch.device(device)):
-        yield run(np.empty(n, np.float32))
+    for n, dtype, run in _frame_stages(f, trace, torch.device(device)):
+        yield run(np.empty(n, dtype))
 
 
 def _frame_stages(f, trace, device: torch.device):
-    """Yield (n, run) per frame in order: its element count, and the
-    function that runs its device stage on the caller's thread and writes
-    the frame's n samples into a given float32 array (which it returns).
+    """Yield (n, dtype, run) per frame in order: its element count and
+    dtype, and the function that runs its device stage on the caller's
+    thread and writes the frame's n samples into a given array (which it
+    returns).
     Frame k + 1's host stage is already running on a worker when frame k is
     yielded."""
     from . import api
@@ -494,7 +517,7 @@ def _frame_stages(f, trace, device: torch.device):
 
     def prep(blob, fi):
         """Host stage of one frame (api._host_stage: a DPK v2, host-coded
-        v2 or v1 float32 container)."""
+        v2 or v1 container)."""
         t0 = time.perf_counter()
         header, qtable, host_arrays, decode = api._host_stage(blob)
         n = header.num_elements
@@ -510,7 +533,7 @@ def _frame_stages(f, trace, device: torch.device):
                 trace.append(("device", fi, t1, time.perf_counter()))
             return dst
 
-        return n, run
+        return n, header.dtype, run
 
     with concurrent.futures.ThreadPoolExecutor(1) as host_worker:
         blob = read_frame()
@@ -532,18 +555,21 @@ def _frame_stages(f, trace, device: torch.device):
 def decompress_stream_all(f: BinaryIO, trace: list | None = None,
                           device: str | torch.device = "cuda") -> np.ndarray:
     """Reassemble the whole array from a stream into one output buffer,
-    allocated once from the stream header's element count; each frame's
-    device stage writes its samples straight into it (peak incremental
-    memory beyond the output is about one segment)."""
+    allocated once from the stream header's element count and the first
+    frame's dtype (dctz_tpu/stream.py:653); each frame's device stage writes
+    its samples straight into it (peak incremental memory beyond the output
+    is about one segment)."""
     total = _read_stream_header(f)
-    out = np.empty(total, np.float32)
+    out = None
     off = 0
-    for n, run in _frame_stages(f, trace, torch.device(device)):
+    for n, dtype, run in _frame_stages(f, trace, torch.device(device)):
+        if out is None:
+            out = np.empty(total, dtype)
         if off + n > total:
             raise ValueError(f"stream frames hold more than its {total} "
                              f"elements")
         run(out[off : off + n])
         off += n
-    if off != total:
+    if out is None or off != total:
         raise ValueError(f"truncated stream: {off} of {total} elements restored")
     return out

@@ -1545,3 +1545,121 @@ def test_relaxed_kernels_occupancy(dev):
     spills = _ptxas_spills(build.PTXAS_LOG.read_text())
     for k in ("dct_quant_verify", "qtable_qmax", "dct_quant"):  # every instantiation
         assert spills.get(k) == 0, (k, spills.get(k))
+
+
+#: float64 on the card: (config, length, the kernels the route launches).
+#: Full width everywhere but "fast" (internal_dtype="float32"): the
+#: generic chain in float64 torch ops with kernel H (v1, host-coded DTZS
+#: frames) or kernel B, or J at chunk width 64 (DPK), and the decode's C or
+#: I before the float64 dequantization and inverse transform; never D
+F64_DPK = dict(error_bound=1e-3, container="v2", ids_codec="device", verify=True)
+F64_ROUTES = {
+    "v1_ec": (dict(error_bound=1e-3), 3 * TILE_N + 31,
+              {"chunk_compact", "chunk_expand"}),
+    "v1_qt_verify": (dict(error_bound=1e-3, mode="qt", verify=True), 3 * TILE_N,
+                     {"chunk_compact", "chunk_expand"}),
+    "dtzs": (dict(F64_DPK, segment_elems=2 * TILE_N), 4 * TILE_N + 1025,
+             {"chunk_compact", "chunk_expand"}),
+    "dtzs_qt": (dict(F64_DPK, mode="qt", segment_elems=2 * TILE_N), 4 * TILE_N + 1025,
+                {"chunk_compact", "chunk_expand"}),
+    "dpk": (dict(F64_DPK, segment_elems=0), 4 * TILE_N,
+            {"dpk_pack_compact", "dpk_unpack_expand"}),
+    "dpk_qt": (dict(F64_DPK, mode="qt", segment_elems=0), 4 * TILE_N - 5,
+               {"dpk_pack_compact", "dpk_unpack_expand"}),
+    "dpk_cw64": (dict(F64_DPK, segment_elems=0), 777,
+                 {"chunk_compact_unified", "dpk_unpack_expand"}),
+    "fast": (dict(F64_DPK, segment_elems=0, internal_dtype="float32"), 4 * TILE_N + 1025,
+             {"dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand"}),
+}
+
+
+def _signal64(n, seed):
+    rng = np.random.default_rng(seed)
+    x = np.sin(np.arange(n) * 0.003) * 30.0 + rng.standard_normal(n) * 0.7
+    x[::977] *= 30.0
+    return x
+
+
+def _same_f64_container(a: bytes, b: bytes) -> bool:
+    """tests/test_torch_f64.py's rule without jax: every section and header
+    field equal but the mean; a QT qtable within rtol 1e-15; frame by frame
+    for a DTZS stream."""
+    import dataclasses
+
+    from dctz_tpu_torch import stream
+    from dctz_tpu_torch.core import container as ct
+
+    def frames(raw):
+        if raw[:4] != b"DTZS":
+            return [raw]
+        off, out = stream._HDR.size, []
+        while True:
+            (flen,) = stream._FRAME.unpack_from(raw, off)
+            off += stream._FRAME.size
+            if not flen:
+                return out
+            out.append(raw[off: off + flen])
+            off += flen
+
+    def parse(f):
+        if ct.detect_format(f) == "v1":
+            h, *s, q = ct.parse_v1(f)
+            return dataclasses.replace(h, mean=0.0), tuple(s), q
+        h, s, q, cb = ct.parse_v2(f)
+        return dataclasses.replace(h, mean=0.0), s + (cb,), q
+
+    fa, fb = frames(a), frames(b)
+    if len(fa) != len(fb):
+        return False
+    for x, y in zip(fa, fb):
+        (ha, sa, qa), (hb, sb, qb) = parse(x), parse(y)
+        if ha != hb or sa != sb or (qa is None) != (qb is None):
+            return False
+        if qa is not None and not np.allclose(qa, qb, rtol=1e-15, atol=0):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("route", list(F64_ROUTES))
+def test_f64_route_on_card(dev, route):
+    """Float64 through dz.compress and dz.decompress on the card: exactly
+    the route's kernels launch (kernel D never), the decode is float64
+    within the bound, and the container equals the CPU run's but for the
+    mean. "fast" runs the float32 kernels, whose products differ from their
+    plain versions', so it matches the CPU run's ratio within 0.1% instead."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.core import container as ct
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    kw, n, want = F64_ROUTES[route]
+    x = _signal64(n, n)
+    cfg = dz.CodecConfig(**kw)
+    fk.reset_launches()
+    blob = dz.compress(x, config=cfg, device="cuda")
+    y = dz.decompress(blob, device="cuda")
+    launched = {k for k, v in fk.LAUNCHES.items() if v}
+    assert launched == want, launched
+    assert y.dtype == np.float64 and dz.evaluate(x, y, 1e-3)["bound_satisfied"]
+    blob_cpu = dz.compress(x, config=cfg, device="cpu")
+    if route == "fast":
+        assert ct.parse_v2(blob)[0].dtype == np.float64
+        assert abs(len(blob) / len(blob_cpu) - 1.0) <= 1e-3
+    else:
+        assert _same_f64_container(blob, blob_cpu)
+    tol = 1e-3 * float(x.max() - x.min())
+    assert np.abs(dz.decompress(blob_cpu, device="cuda") - x).max() <= tol
+    assert np.abs(dz.decompress(blob, device="cpu") - x).max() <= tol
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+def test_f64_native_parity_on_card(dev, mode):
+    """The card's float64 v1 container is the C++ codec's (cpp/), as
+    tests/test_parity_native.py holds the JAX package's."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("native codec not built")
+    x = np.random.default_rng(32799).standard_normal(32799) * 250
+    assert _same_f64_container(dz.compress(x, 1e-3, mode, device="cuda"),
+                               native.compress(x, 1e-3, mode))

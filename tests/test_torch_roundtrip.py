@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from test_torch_oracle import (  # noqa: F401
     EPS32, TILE_N, assert_mean_close, bound, oracle, oracle_shuffle, signal,
     slice_cfg,
@@ -123,7 +125,7 @@ def test_overflow_retry_round_trip():
 
 
 #: what stays outside the ported slice: the rate and codec options of
-#: ROADMAP item 9 (float64: test_float64_and_foreign_containers_raise)
+#: ROADMAP item 9 (float64 is ported: tests/test_torch_f64.py)
 OUTSIDE = {
     "rate_auto": dict(rate="auto"),
     "brsf": dict(brsf=2.0),
@@ -190,14 +192,26 @@ def test_compress_requires_config():
 
 
 def test_float64_and_foreign_containers_raise():
+    """Float64 input and float64 containers are ported (tests/test_torch_f64.py
+    holds them to the reference); what still raises of float64 is a
+    container with full-width streams (truncate=False, ROADMAP item 9)."""
+    import dctz_tpu
     import dctz_tpu_torch as dz
 
+    ones = np.ones(4096)
+    blob = dz.compress(ones, config=slice_cfg(dz), device="cpu")
+    got = dz.decompress(blob, device="cpu")
+    assert got.dtype == np.float64 and np.array_equal(got, ones)
+    golden = dz.decompress((GOLDEN / "golden_v1_ec_f64.z").read_bytes(),
+                           device="cpu")
+    x64 = np.fromfile(GOLDEN / "golden_input_f64.bin", np.float64)
+    assert golden.dtype == np.float64 and np.abs(golden - x64).max() <= bound(x64)
+    with jax.enable_x64(True):  # other tests of this module turn it off
+        wide = dctz_tpu.compress(x64, config=dctz_tpu.CodecConfig(truncate=False))
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        dz.compress(np.ones(4096), config=slice_cfg(dz), device="cpu")
-    # float64 containers (the v1 float64 parity path) are item 9; the two
-    # float32 non-DPK goldens now decode (all 17: test_torch_v1.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        dz.decompress((GOLDEN / "golden_v1_ec_f64.z").read_bytes(), device="cpu")
+        dz.decompress(wide, device="cpu")
+    # the float32 non-DPK goldens decode (all 28 goldens: test_torch_v1.py
+    # and test_torch_f64.py)
     x = np.fromfile(GOLDEN / "golden_input_f64.bin", np.float64).astype(np.float32)
     for name in ("golden_v2_qt_f32", "golden_v2_ec_f32_rans"):
         got = dz.decompress((GOLDEN / f"{name}.z").read_bytes(), device="cpu")
