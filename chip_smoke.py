@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out build/chip_smoke.json]
 
 Drives the port's paths once each at full size and checks them.
-Twenty-five paths, on 32Mi float32 elements (128 MB) unless named otherwise:
+Thirty-two paths, on 32Mi float32 elements (128 MB) unless named otherwise:
 
   DPK v2, the bench.py configuration (eb 1e-3, v2 container, DPK ids, verify
   on): EC and QT, each monolithic (segment_elems=0) and as the DTZS stream
@@ -52,6 +52,19 @@ Twenty-five paths, on 32Mi float32 elements (128 MB) unless named otherwise:
   float64 decode), v1_f64_cesm (CodecConfig(), the native codec's
   settings, on the CESM-length formula in float64; H and I) and
   qt_f64_dtzs (ec_f64_dtzs in QT: the float64 global qtable pre-pass).
+  The codec options of ROADMAP item 9: ec_auto_dtzs (bench.py's
+  configuration with rate="auto": monolithic trial encodes on the 4Mi
+  sample, A and B each, then two 16Mi DTZS frames at the chosen brsf; C and
+  D on decode), qt_auto (QT, monolithic, rate="auto": E, A-QT, B; C, D-QT
+  at the chosen brsf), v2_deflate_brsf (host-coded v2, brsf=2, verify on:
+  the generic chain with H, then I and D; kernel F must not launch),
+  ec_bs128 (DPK v2 at block_size=128: the XLA chain's DPK route with J,
+  no A, B, C or D; decode in torch ops with I), v2_nbins63 (host-coded v2,
+  nbins=63, verify on: H and I, no D), v1_f64_full_cesm
+  (CodecConfig(truncate=False) on the CESM length in float64: v1 with
+  8-byte DC and AC streams, the compaction in torch ops, no H or I) and
+  ec_f64_full_dtzs (the DPK configuration with truncate=False on bench64:
+  host-coded float64 frames with 8-byte sections, no H or I).
 
 Phases, each printed as one JSON line:
 
@@ -121,10 +134,15 @@ Phases, each printed as one JSON line:
      against the library's); J (pack_ids_with_ac at tile 64) and K
      byte-equal, each also called alone in its word walk and, on id bytes
      viewed 8 bytes off 16, in its lane walk (K's word walk also equal to
-     L's exception rows)
+     L's exception rows). The item-9 operands ("item9_kernel_check"): A
+     (verify on), A-QT, E, D and D-QT at brsf 2**(3/8) and 8 against their
+     plain versions by the rules above; J at block size 128 on the XLA
+     chain's DPK route byte-equal to its plain version and launched, and
+     at 48 on the input cut to rows of 480 the same
   4. end to end, per path: compress and decompress through the public API on
      the card with the launch counters reset just before and read just after
-     (every kernel of the path > 0, on a DTZS path at least once a frame; H,
+     (every kernel of the path > 0, on a DTZS path at least once a frame
+     besides the launches of rate="auto"'s trial encodes; H,
      J and K in their word walks, as dpk_fuse.INSTANTIATIONS counts them),
      the container family expected, the pointwise bound satisfied, the ratio
      within 0.1% of the plain (CPU) path's, each path's output decoded by
@@ -141,6 +159,16 @@ Phases, each printed as one JSON line:
      equal to L's exception rows); the float64 paths: float64 output, no
      launch of D, a "generic_vs_monolithic" line for ec_f64_dtzs beside
      ec_f64
+     The item-9 paths (NEVER): the kernels their gates exclude launch no
+     time; an "item9_path" line: the stored item width (8 bytes on the
+     full-width paths, whose v2 headers say truncate=False), the brsf, the
+     ratio beside the same family at the default options (ITEM9_BESIDE)
+     and, with rate="auto", each trial's brsf, bytes and seconds and the
+     trials' share of the compress; and instead of the full-size cross
+     check an "item9_card_vs_cpu" line on a PREFIX-sample prefix: the card's
+     and the CPU's containers equal but for the mean, the same brsf chosen,
+     each decoding the other's within the bound, and the card's and the
+     CPU's decodes of the card's container equal byte for byte
   4b. f64_parity: the card's float64 v1 containers (EC and QT at n 32768,
      32799, 777 and the CESM length) against dctz_tpu_torch.native.compress
      (the C++ codec of cpp/, built on the card's host): EC byte-equal with
@@ -192,6 +220,7 @@ It imports nothing of jax or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -337,7 +366,50 @@ PATHS = {
                     F64_GENERIC_KERNELS),
     "ec_dcd_dtzs": (dict(DPK, mode="ec", segment_elems="auto", dc_delta=True), "bench",
                     EC_KERNELS),
+    # the codec options of ROADMAP item 9: rate="auto" and brsf on kernels
+    # A-E, a non-default block size or bin count on the generic chain and
+    # the XLA chain's DPK route, truncate=False (8-byte float64 streams)
+    "ec_auto_dtzs": (dict(DPK, mode="ec", segment_elems="auto", rate="auto"), "bench",
+                     EC_KERNELS),
+    "qt_auto": (dict(DPK, mode="qt", segment_elems=0, rate="auto"), "bench", QT_KERNELS),
+    "v2_deflate_brsf": (dict(container="v2", ids_codec="deflate", segment_elems=0,
+                             verify=True, brsf=2.0), "bench", GENERIC_KERNELS),
+    "ec_bs128": (dict(DPK, mode="ec", segment_elems=0, block_size=128), "bench",
+                 ("chunk_compact_unified",)),
+    "v2_nbins63": (dict(container="v2", ids_codec="deflate", segment_elems=0,
+                        verify=True, nbins=63), "bench", ("chunk_compact", "chunk_expand")),
+    "v1_f64_full_cesm": (dict(truncate=False), "cesm64", ()),
+    "ec_f64_full_dtzs": (dict(DPK, mode="ec", segment_elems="auto", truncate=False),
+                         "bench64", ()),
 }
+#: the fused kernels A-G (HIGHEST and RELAXED), which a non-default block
+#: size or bin count never launches
+A_TO_G = ("dct_quant_verify", "dct_quant_verify_qt", "dpk_pack_compact",
+          "dpk_unpack_expand", "dequant_idct", "dequant_idct_qt", "qtable_qmax",
+          "dct_quant", "dct_quant_qt") + RELAXED_KERNELS
+#: the item-9 paths, and the kernels each must not launch: brsf != 1 on
+#: host-coded v2 leaves F and G for the generic chain; the non-default
+#: geometries leave A-G; float64 full-width values never pass through H or I
+#: (nor D, as no float64 path)
+NEVER = {
+    "ec_auto_dtzs": ("dct_quant", "dct_quant_qt"),
+    "qt_auto": ("dct_quant", "dct_quant_qt"),
+    "v2_deflate_brsf": ("dct_quant", "dct_quant_qt", "dct_quant_verify",
+                        "dct_quant_verify_qt"),
+    "ec_bs128": A_TO_G,
+    "v2_nbins63": A_TO_G,
+    "v1_f64_full_cesm": ("chunk_compact", "chunk_expand") + D_KERNELS,
+    "ec_f64_full_dtzs": ("chunk_compact", "chunk_expand") + D_KERNELS,
+}
+ITEM9_PATHS = tuple(NEVER)
+#: the item-9 paths' card-against-CPU check runs on this prefix of the input
+PREFIX = 1 << 20
+#: each item-9 path and the path of the same family at the default options,
+#: whose ratio it is printed beside
+ITEM9_BESIDE = {"ec_auto_dtzs": "ec_dtzs", "qt_auto": "qt",
+                "v2_deflate_brsf": "v2_deflate", "ec_bs128": "ec",
+                "v2_nbins63": "v2_deflate", "v1_f64_full_cesm": "v1_f64_cesm",
+                "ec_f64_full_dtzs": "ec_f64_dtzs"}
 #: each relaxed path and the HIGHEST path of the same mode and container
 #: whose ratio it is printed beside
 HIGH_VS_HIGHEST = {"ec_high_dtzs": "ec_dtzs", "qt_high": "qt",
@@ -355,6 +427,9 @@ GENERIC_TWIN = {"v2_deflate_dtzs": "v2_deflate", "v1_seg": "v1_ec",
                 "ec_f64_dtzs": "ec_f64"}
 F64_INPUTS = ("bench64", "cesm64")
 F64_PATHS = ("ec_f64", "ec_f64_dtzs", "ec_f64_fast", "v1_f64_cesm", "qt_f64_dtzs")
+#: the brsf values at which kernels A, A-QT, E, D and D-QT are held to their
+#: plain versions (the second not a power of two: w and rmax rounded once)
+CHECK_BRSFS = (2 ** (3 / 8), 8.0)
 #: the path whose launch counts the kernel table reports (bench.py's
 #: configuration for the DPK EC kernels, its QT twin for the QT ones, the
 #: package's default, v1 EC, for the non-DPK kernels)
@@ -682,6 +757,84 @@ def bound_ms(n_bytes: int, flops: float, peak: float = PEAK_FP32) -> tuple[float
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
+def item9_checks(dz, api, path, pcfg, x, blob, y, heads, timer, ratio, e2e, launched,
+                 tol, card) -> dict:
+    """The end-to-end checks of an item-9 path beyond the common ones: the
+    stored width (8-byte items for truncate=False float64, a header that
+    says so in v2), the chosen brsf and each trial's size and the trials'
+    share of the compress (rate="auto"), the ratio beside the same family
+    at the default options, and the card against the CPU on a PREFIX-sample
+    prefix of the input, as f64_card_vs_cpu holds them: the containers
+    equal but for the mean (same_f64_container's rules), their sizes within
+    RATIO_REL_TOL, the same brsf, each decoding the other's within the
+    bound, and the card's and the CPU's decodes of the card's container
+    equal byte for byte."""
+    import numpy as np
+
+    cfg = pcfg
+    full = not cfg.truncate and x.dtype == np.float64
+    widths = []
+    for f in dtzs_frames(blob):
+        host = api._host_stage(f)[2]
+        dc = host[1] if len(host) == 3 else host[3]
+        widths.append(4 if dc.dtype == np.uint8 else dc.dtype.itemsize)
+    require(widths == [8 if full else 4] * len(widths),
+            f"{path}: stored items of {widths} bytes")
+    if full:
+        require(all(h.truncate == (api.ct.detect_format(f) == "v1")
+                    for h, f in zip(heads, dtzs_frames(blob))),
+                f"{path}: a v2 header that does not say truncate=False")
+    brsfs = sorted({h.brsf for h in heads})
+    require(len(brsfs) == 1, f"{path}: frames of brsf {brsfs}")
+    row = {"path": path, "card": card, "ratio": ratio, "stored_item_bytes": widths[0],
+           "brsf": brsfs[0], "beside": ITEM9_BESIDE[path],
+           "beside_ratio": e2e[ITEM9_BESIDE[path]]["ratio"],
+           "ratio_rel_diff": ratio / e2e[ITEM9_BESIDE[path]]["ratio"] - 1.0,
+           "compress_s": timer.total, "stages_s": dict(timer.stages)}
+    if cfg.rate == "auto":
+        row["trials"] = [{"brsf": b, "bytes": sz, "s": t} for b, sz, t in timer.rate_trials]
+        row["trials_share_of_compress"] = timer.stages["rate"] / timer.total
+        row["trial_launches"] = {k: v for k, v in timer.after_rate.items() if v}
+        a_b = (("dct_quant_verify" if cfg.mode == "ec" else "dct_quant_verify_qt"),
+               "dpk_pack_compact")
+        require(all(timer.after_rate.get(k, 0) >= len(row["trials"]) for k in a_b),
+                f"{path}: trials launched {row['trial_launches']}, not A and B each")
+        require(row["trials"] and brsfs[0] in [t["brsf"] for t in row["trials"]],
+                f"{path}: the chosen brsf was no trial's")
+    emit("item9_path", **row)
+
+    xs = x[:PREFIX]
+    b_gpu = dz.compress(xs, config=cfg, device="cuda")
+    b_cpu = dz.compress(xs, config=cfg, device="cpu")
+    same = same_f64_container(b_gpu, b_cpu)[0]
+    tol_s = cfg.error_bound * float(xs.max() - xs.min())
+    y_gg = dz.decompress(b_gpu, device="cuda")
+    y_cg = dz.decompress(b_gpu, device="cpu")
+    e1 = float(np.abs(dz.decompress(b_cpu, device="cuda") - xs).max())
+    e2 = float(np.abs(y_cg - xs).max())
+    same_decode = y_gg.tobytes() == y_cg.tobytes()
+
+    def brsf_of(b):
+        f = dtzs_frames(b)[0]
+        return (api.ct.parse_v1(f)[0] if api.ct.detect_format(f) == "v1"
+                else api.ct.parse_v2(f)[0]).brsf
+
+    cc = {"path": path, "n": int(xs.size), "containers_equal_but_mean": same,
+          "brsf_card": brsf_of(b_gpu), "brsf_cpu": brsf_of(b_cpu),
+          "ratio_rel_diff": len(b_cpu) / len(b_gpu) - 1.0,
+          "gpu_decodes_plain_max_err": e1, "plain_decodes_gpu_max_err": e2,
+          "decodes_bytes_equal": same_decode, "bound": tol_s}
+    emit("item9_card_vs_cpu", **cc)
+    require(same, f"{path}: the card's container differs from the CPU run's")
+    require(abs(cc["ratio_rel_diff"]) <= RATIO_REL_TOL,
+            f"{path}: ratio differs from the CPU run's")
+    require(cc["brsf_card"] == cc["brsf_cpu"], f"{path}: card and CPU chose other brsf")
+    require(e1 <= tol_s and e2 <= tol_s, f"{path}: cross decode violates the bound")
+    require(same_decode, f"{path}: the card's and the CPU's decodes differ")
+    return {"ratio": ratio, "launches": launched, "item9": row, "card_vs_cpu": cc,
+            "evaluate": dz.evaluate(x, y, cfg.error_bound)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/chip_smoke.json",
@@ -709,6 +862,23 @@ def main() -> int:
     from dctz_tpu_torch.ops import shuffle
     from dctz_tpu_torch.ops.research import _ref, fused_decode, fused_encode_dpk
     from dctz_tpu_torch.utils.bench_data import climate_formula_np, climate_formula_np64
+    from dctz_tpu_torch.utils.timing import StageTimer
+
+    class RateSnapTimer(StageTimer):
+        """A synchronizing StageTimer that copies the launch counters when
+        its "rate" stage (the rate="auto" trial encodes) ends, so that a
+        path's launches split into the trials' and the frames' own."""
+
+        def __init__(self) -> None:
+            super().__init__(sync=True)
+            self.after_rate: dict[str, int] = {}
+
+        @contextlib.contextmanager
+        def stage(self, name: str):
+            with super().stage(name):
+                yield
+            if name == "rate":
+                self.after_rate = dict(fk.LAUNCHES)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1440,6 +1610,90 @@ def main() -> int:
          equal_to_l=True, lanes_byte_equal=True, lanes_byte_offset=byt_kl.data_ptr() % 16)
     kernels["chunk_compact_bytes"] = {"max_abs_err": 0.0}
 
+    # the item-9 operands: A (verify on), A-QT, E, D and D-QT at bin
+    # geometries scaled by brsf (runtime operands w, rmin, rmax, computed in
+    # doubles and rounded once), each against its plain version by the
+    # rules above (D on A's own stored values: the escapes and the DC); J
+    # on the XLA chain's DPK route at block size 128 (rows of 512) and at
+    # 48 on the input cut to a multiple of 480 samples (rows of 480, which
+    # J takes: a multiple of 32), byte-equal to its plain version
+    report["item9_kernels"] = []
+    col = torch.arange(64, device=dev)
+    for brsf in CHECK_BRSFS:
+        for mode in ("ec", "qt"):
+            cfg_b = dz.CodecConfig(mode=mode, error_bound=cfg.error_bound, brsf=brsf)
+            x_b, sf_b, tol_b = (xp, sf, tol) if mode == "ec" else (xq, sf_q, tol_q)
+            q_b9 = e_ulps_b = None
+            if mode == "qt":
+                q_b9 = fused_encode.qtable_qmax(x_b, sf_b, cfg.error_bound, brsf=brsf)
+                q_b9p = torch.clamp_min(fused_encode._qtable_qmax_plain(x_b, sf_b, cfg_b),
+                                        1.0)
+                e_ulps_b = ((q_b9 - q_b9p).abs() / torch.maximum(q_b9, q_b9p)
+                            / EPS32).max().item()
+                require(e_ulps_b <= E_ULPS, f"E at brsf {brsf}: {e_ulps_b} ulp")
+            ik, vk, okk = fk.dct_quant_verify(x_b, sf_b, tol_b, n, cfg.error_bound, True,
+                                              q_b9, brsf=brsf)
+            ip, vp, okp = fk._dct_quant_verify_plain(x_b, sf_b, tol_b, n, cfg_b, True, q_b9)
+            mism_b = (ik != ip).float().mean().item()
+            bud = 32 * EPS32 * (x_b / sf_b).reshape(-1, 64).abs().amax(1, keepdim=True)
+            same_b = ik == ip
+            esc_b = same_b & (ik == 255) & (col > 0)
+            lim_b = bud.expand_as(vp)
+            if q_b9 is not None:
+                lim_b = torch.where(esc_b, bud * (cfg.error_bound * cfg_b.qt_factor) / q_b9
+                                    + 4 * EPS32 * vp.abs(), lim_b)
+            over_b = int((((vk - vp).abs() > lim_b) & same_b).sum())
+            ids_d = torch.where(col > 0, ik, torch.full_like(ik, 255))
+            acv_b = torch.where((ids_d == 255) & (col > 0), vk, torch.zeros_like(vk))
+            dc_b = vk[:, 0].contiguous()
+            xd_k = fk.dequant_idct(ids_d, acv_b, dc_b, sf_b, cfg_b, n_pad, q_b9)
+            xd_p = fk._dequant_idct_plain(ids_d, acv_b, dc_b, sf_b, cfg_b, n_pad, q_b9)
+            co_b = qz.decode_dense(ids_d, dc_b, acv_b, n_pad, cfg_b, q_b9)
+            lim_db = (D_ULPS * EPS32 * sf_b * co_b.abs().amax(1)).repeat_interleave(64)
+            over_db = int(((xd_k - xd_p).abs() > lim_db).sum())
+            torch.cuda.synchronize()
+            row = {"brsf": brsf, "mode": mode, "a_id_mismatch": mism_b,
+                   "a_ok_kernel": bool(okk), "a_ok_plain": bool(okp),
+                   "a_over_budget": over_b, "escapes": int(esc_b.sum()),
+                   "a_max_abs_err": (vk - vp).abs()[same_b].max().item(),
+                   "e_max_ulps": e_ulps_b, "d_over_budget": over_db,
+                   "d_max_abs_err": (xd_k - xd_p).abs().max().item(),
+                   "w_rmax": list(qz._geometry(cfg_b))[::2]}
+            emit("item9_kernel_check", **row)
+            report["item9_kernels"].append(row)
+            require(mism_b <= A_ID_MISMATCH_MAX, f"A at brsf {brsf} {mode}: id mismatch")
+            require(bool(okk) == bool(okp), f"A at brsf {brsf} {mode}: ok flags differ")
+            require(over_b == 0, f"A at brsf {brsf} {mode}: values beyond the budget")
+            require(over_db == 0, f"D at brsf {brsf} {mode}: beyond 32 ulp")
+    for bs_j in (128, 48):
+        cfg_j = dz.CodecConfig(error_bound=cfg.error_bound, block_size=bs_j, verify=True)
+        cw_want = 512 // bs_j * bs_j  # rows of 512 and 480 samples
+        n_j = n - n % cw_want
+        x_j = torch.from_numpy(x_np[:n_j]).to(dev)
+        sf_j9, _m, tol_j9 = api._chain_stats(x_j, n_j, cfg_j)
+        from dctz_tpu_torch import stream as dstream
+
+        ids_j9, dc_j9, vals_j9, _q, _ok = dstream._quantize_segment(x_j, n_j, sf_j9, tol_j9,
+                                                                   cfg_j)
+        dcac_j9 = vals_j9.to(torch.float32)
+        dcac_j9[:, 0] = dc_j9
+        ids_j9 = ids_j9.to(torch.uint8)
+        cw_j9 = qz.chunk_width(ids_j9.numel(), bs_j)
+        fk.reset_launches()
+        st_k = idpack.pack_ids_with_ac(ids_j9, dcac_j9, n_j, 256, 128)
+        torch.cuda.synchronize()
+        j_launches = fk.LAUNCHES["chunk_compact_unified"]
+        st_p = idpack._pack_ids_with_ac_plain(ids_j9, dcac_j9, n_j, 256, 128)
+        equal_j = all(torch.equal(a, b) for a, b in zip(st_k, st_p))
+        row = {"block_size": bs_j, "n": n_j, "cw": cw_j9, "j_launches": j_launches,
+               "byte_equal": equal_j, "exc_peak": int(st_k[3].max())}
+        emit("item9_kernel_check", kernel="chunk_compact_unified", **row)
+        report["item9_kernels"].append(row)
+        require(equal_j, f"J at block size {bs_j}: differs from the plain version")
+        require(cw_j9 == cw_want, f"J at block size {bs_j}: chunk width {cw_j9}")
+        require(j_launches == 1, f"J at block size {bs_j} (cw {cw_j9}): {j_launches} launches")
+        del x_j, ids_j9, dc_j9, vals_j9, dcac_j9, st_k, st_p
+
     # 4. end to end through the public API, one path at a time; the counters
     # count each path's own run only
     inputs = {"bench": x_np, "x30": x_qt_np, "cesm": x_cesm,
@@ -1449,8 +1703,10 @@ def main() -> int:
     for path, (kw, inp, needed) in PATHS.items():
         pcfg = cfg_of(path)
         x = inputs[inp]
+        timer = RateSnapTimer()
         fk.reset_launches()
-        blob = dz.compress(x, config=pcfg, device="cuda")
+        with timer:
+            blob = dz.compress(x, config=pcfg, device="cuda", timer=timer)
         y = dz.decompress(blob, device="cuda")
         launches[path] = dict(fk.LAUNCHES)
         walks_e2e[path] = {k: v for k, v in fk.INSTANTIATIONS.items() if v}
@@ -1478,8 +1734,12 @@ def main() -> int:
              max_rel_err=ev["max_rel_err"], bound_satisfied=ev["bound_satisfied"])
         missing = [k for k in needed if launches[path][k] == 0]
         require(not missing, f"{path}: kernels not launched: {missing}")
+        ran = [k for k in NEVER.get(path, ()) if launches[path][k]]
+        require(not ran, f"{path}: kernels its gates exclude launched: {ran}")
         if dtzs:
-            short = [k for k in needed if launches[path][k] < len(frames)]
+            # the frames' own launches: without the rate="auto" trials'
+            short = [k for k in needed
+                     if launches[path][k] - timer.after_rate.get(k, 0) < len(frames)]
             require(not short, f"{path}: kernels launched fewer times than the "
                                f"{len(frames)} frames: {short}")
         if "chunk_compact" in needed:
@@ -1527,6 +1787,10 @@ def main() -> int:
                  bit_equal=same_bits)
             require(same_bits, f"{path}: DTZS decode differs from the monolithic decode")
 
+        if path in ITEM9_PATHS:
+            e2e[path] = item9_checks(dz, api, path, pcfg, x, blob, y, heads, timer, ratio,
+                                     e2e, launches[path], tolx[inp], card)
+            continue
         t0 = time.perf_counter()
         blob_cpu = dz.compress(x, config=pcfg, device="cpu")
         t_cpu_c = time.perf_counter() - t0
@@ -1653,8 +1917,6 @@ def main() -> int:
                           "from the CPU run's")
 
     # 5. times (the card's name and power limit go beside every number)
-    from dctz_tpu_torch.utils.timing import StageTimer
-
     report["throughput"], report["stages"], report["profile"] = {}, {}, {}
     for path, (kw, inp, _needed) in PATHS.items():
         pcfg, x, blob = cfg_of(path), inputs[inp], blobs[path]

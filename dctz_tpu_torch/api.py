@@ -1,8 +1,9 @@
 """Public compress / decompress of the PyTorch port (port of dctz_tpu/api.py).
 
 The port runs float32 and float64 input, mode "ec" or "qt", verify on or
-off, in three container families. Float32 is dispatched as the JAX package
-dispatches on its TPU:
+off, in three container families, and every other option of CodecConfig
+(below). Float32 at the default geometry (blocks of 64, 255 bins, brsf 1,
+truncate on) is dispatched as the JAX package dispatches on its TPU:
 
   DPK v2 (ids_codec="device", what "auto" means for v2), monolithic or
     segmented into a DTZS stream (segment_elems; the default "auto" segments
@@ -39,10 +40,12 @@ double build): at full width, on the generic chain, since the fused
 kernels take float32 alone (dctz_tpu/api.py:269-305). v1 and host-coded v2
 write the generic chain's container (for v1 the float64 parity path); DPK
 v2 takes the XLA chain's DPK route (dctz_tpu/api.py:1870-1960): the generic
-chain, then kernel B (kernel J at chunk widths B does not take) on the
-float32 stored values, the id stream of the TRUE length n; a DTZS stream
+chain, then kernel B (kernel J at other chunk widths that are multiples
+of 128, torch ops elsewhere) on the float32 stored values, the id stream
+of the TRUE length n; a DTZS stream
 writes host-coded v2 frames of the generic chain. The decode moves the
-float32 stored values on kernel C (DPK) or I (the others), then
+float32 stored values on kernel C (DPK) or I (the others) where their
+chunk width holds, torch ops elsewhere, then
 dequantizes and runs the inverse transform in float64 torch ops, as the
 reference's XLA decode does, and returns float64. internal_dtype="float32"
 casts float64 input to float32 and runs the float32 routes, the header
@@ -61,9 +64,33 @@ every host-coded DTZS frame) as the order-preserving u32 delta
 (entropy.f32_delta; _f32_delta_dev on the device before the byte-plane
 split), as dctz_tpu does; v1 keeps raw DC.
 
-Everything else raises NotImplementedError naming the ROADMAP item that
-will port it (rate="auto", brsf != 1, truncate=False and non-default
-geometry: item 9); nothing falls back silently.
+The other codec options are dispatched as the JAX package dispatches them:
+
+  rate="auto" upgrades v1 to v2 and turns verify on (both with the
+    reference's warnings), then picks brsf from AUTO_RATE_LADDER by real
+    monolithic trial encodes on a sample cut on the device (_rate_sample,
+    _auto_rate_brsf) and encodes at the chosen brsf.
+  brsf != 1 (snapped to the header's 2**(k/8) grid, _quantize_brsf; v1
+    upgrades to v2) takes kernels A + B on DPK v2 and DPK DTZS frames (the
+    bin geometry is A's and E's runtime operand) and decodes on C + D; on
+    host-coded v2 the generic chain, never kernels F or G (_fused_eligible).
+  a block size other than 64 or a bin count other than 255 (v1 upgrades
+    to v2) takes the generic chain: host-coded v2 containers and frames,
+    and for the device ids the XLA chain's DPK route (_compress_chain_dpk:
+    kernel J at the chunk widths it takes, multiples of 32, torch ops
+    elsewhere). Decode unpacks and dequantizes in torch ops
+    (idpack.unpack_ids, qz.decode_x), with kernel I where its chunk width
+    holds; kernels A-G never run.
+  truncate=False stores float64 data's DC and escaped AC values at 8
+    bytes an item on the generic chain and the XLA chain's DPK route
+    (idpack.pack_ids for the ids, torch ops for the compaction), which a
+    v1 container records only in its DC section's size; decode reads the
+    width from that size and expands and dequantizes in float64 torch ops.
+    Float32 data with truncate=False takes the generic chain (float32
+    stored values).
+
+A DPK container whose tiles are not 256 blocks raises NotImplementedError
+(ROADMAP item 10); nothing falls back silently.
 
 `device` is explicit ("cuda" by default; the CPU tests pass "cpu"). On a
 CUDA device every kernel of the path launches; on the CPU each kernel's
@@ -97,13 +124,7 @@ def _todo(what: str, item: str) -> NotImplementedError:
     )
 
 
-def _check_slice(cfg: CodecConfig) -> None:
-    """Raise for every codec option outside the ported slice (the container
-    families are checked where they are dispatched)."""
-    if cfg.rate != "fixed" or cfg.brsf != 1.0:
-        raise _todo("rate='auto' / brsf != 1", "9")
-    if cfg.block_size != C.BLK_SZ or cfg.nbins != C.NBINS or not cfg.truncate:
-        raise _todo("non-default block/bin geometry or truncate=False", "9")
+def _check_internal_dtype(cfg: CodecConfig) -> None:
     if cfg.internal_dtype not in ("auto", "float32"):
         raise ValueError(f"internal_dtype {cfg.internal_dtype!r}")
 
@@ -124,10 +145,43 @@ def _resolve_ids_codec(cfg: CodecConfig) -> CodecConfig:
     return cfg
 
 
+def _quantize_brsf(cfg: CodecConfig) -> CodecConfig:
+    """Snap cfg.brsf to the header's grid 2**(k/8), k in 1..255 offset by
+    128 (container.Header stores the code k), so that the encoder runs the
+    geometry the header records; warns when the value moves
+    (dctz_tpu/api.py:1603-1620)."""
+    import math
+
+    if cfg.brsf == 1.0:
+        return cfg
+    code = min(255, max(1, round(math.log2(cfg.brsf) * 8.0) + 128))
+    q = 2.0 ** ((code - 128) / 8.0)
+    if q != cfg.brsf:
+        warnings.warn(
+            f"brsf {cfg.brsf} quantized to {q} (the container header grid)",
+            stacklevel=3,
+        )
+        cfg = dataclasses.replace(cfg, brsf=q)
+    return cfg
+
+
 def _upgrade_container(cfg: CodecConfig) -> CodecConfig:
-    """The v1 format has no geometry or brsf fields (dctz_tpu/api.py:
-    1811-1832): v1 with a non-default block size or bin count, or with
-    brsf != 1, warns and writes v2."""
+    """The prologue of dctz_tpu.compress (dctz_tpu/api.py:1800-1832), in its
+    order: rate="auto" needs v2 (brsf lives in its header) and verify on
+    (the widened bins rely on the repair for the bound); the v1 format has
+    no geometry or brsf fields, so v1 with a non-default block size or bin
+    count, or with brsf != 1, writes v2; each upgrade warns. brsf then
+    snaps to the header's grid (_quantize_brsf)."""
+    if cfg.rate == "auto":
+        if cfg.container == "v1":
+            warnings.warn(
+                "rate='auto' needs the v2 container (brsf lives in its "
+                "header); writing v2 instead",
+                stacklevel=3,
+            )
+            cfg = dataclasses.replace(cfg, container="v2")
+        if not cfg.verify:
+            cfg = dataclasses.replace(cfg, verify=True)
     if cfg.container == "v1" and (cfg.block_size != C.BLK_SZ
                                   or cfg.nbins != C.NBINS):
         warnings.warn(
@@ -136,14 +190,73 @@ def _upgrade_container(cfg: CodecConfig) -> CodecConfig:
             stacklevel=3,
         )
         cfg = dataclasses.replace(cfg, container="v2")
-    if cfg.brsf != 1.0 and cfg.container == "v1":
-        warnings.warn(
-            "v1 containers cannot record brsf (fixed reference layout); "
-            "writing v2 instead",
-            stacklevel=3,
-        )
-        cfg = dataclasses.replace(cfg, container="v2")
+    if cfg.brsf != 1.0:
+        if cfg.container == "v1":
+            warnings.warn(
+                "v1 containers cannot record brsf (fixed reference layout); "
+                "writing v2 instead",
+                stacklevel=3,
+            )
+            cfg = dataclasses.replace(cfg, container="v2")
+        cfg = _quantize_brsf(cfg)
     return cfg
+
+
+#: rate="auto": the candidate bin-range scale factors, powers of two on the
+#: header's grid. The size against brsf falls while wider bins shrink the id
+#: stream and rises once repair escapes dominate, so the ladder stops once
+#: the size turns upward (dctz_tpu/api.py:1661-1665)
+AUTO_RATE_LADDER = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+_AUTO_SAMPLE_ELEMS = 1 << 22  # the trials encode at most this many samples
+
+
+def _rate_sample(arr, n: int, block_size: int):
+    """The trials' input: the whole array up to _AUTO_SAMPLE_ELEMS samples,
+    else eight block-aligned slices spread across it, concatenated
+    (dctz_tpu/api.py:1668-1681). A tensor is cut where it lies, on its
+    device."""
+    if n <= _AUTO_SAMPLE_ELEMS:
+        return arr
+    k = 8
+    seg = _AUTO_SAMPLE_ELEMS // k
+    seg -= seg % block_size
+    step = (n - seg) // (k - 1)
+    step -= step % block_size
+    parts = [arr[i * step : i * step + seg] for i in range(k)]
+    if isinstance(arr, torch.Tensor):
+        return torch.cat(parts)
+    return np.concatenate(parts)
+
+
+def _auto_rate_brsf(arr: torch.Tensor, n: int, cfg: CodecConfig,
+                    trials: list | None = None) -> float:
+    """The ladder's brsf with the smallest container on the sample
+    (dctz_tpu/api.py:1684-1706). Each trial is a real monolithic compress
+    with verify on, so the chosen geometry's bound behaviour is what the
+    final encode ships. The ladder stops at the first trial whose repair
+    could not hold the pointwise bound (its warning) and never selects it,
+    or once a size exceeds 1.02 times the best so far. trials: an optional
+    list collecting (brsf, size, seconds) per trial."""
+    import time
+
+    sample = _rate_sample(arr, n, cfg.block_size)
+    best_b, best_sz = 1.0, None
+    for b in AUTO_RATE_LADDER:
+        trial_cfg = dataclasses.replace(cfg, brsf=b, rate="fixed",
+                                        segment_elems=None, verify=True)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sz = len(compress(sample, config=trial_cfg, device=sample.device))
+        if trials is not None:
+            trials.append((b, sz, time.perf_counter() - t0))
+        if any("pointwise bound" in str(w.message) for w in caught):
+            break
+        if best_sz is None or sz < best_sz:
+            best_b, best_sz = b, sz
+        elif sz > best_sz * 1.02:
+            break
+    return best_b
 
 
 def _resolve_segment(cfg: CodecConfig, n: int) -> int | None:
@@ -447,12 +560,18 @@ def compress(
     timer = timer or StageTimer()
     cfg = config or CodecConfig(mode=mode, error_bound=error_bound)
     cfg = _resolve_ids_codec(_upgrade_container(cfg))
-    _check_slice(cfg)
+    _check_internal_dtype(cfg)
     with timer.stage("transfer"):
         arr, src_dtype = _resolve_input(x, device, cfg)
     n = int(arr.shape[0])
     if n == 0:
         raise ValueError("cannot compress an empty array")
+    if cfg.rate == "auto":
+        with timer.stage("rate"):
+            cfg = dataclasses.replace(
+                cfg, rate="fixed",
+                brsf=_auto_rate_brsf(arr, n, cfg,
+                                     getattr(timer, "rate_trials", None)))
     seg = _resolve_segment(cfg, n)
     if seg:
         # the pipelined path: the device encodes segment k + 1 while a host
@@ -472,17 +591,25 @@ def compress(
     if _fused_eligible(cfg, arr, n):
         return _compress_fused(arr, n, cfg, timer, src_dtype)
     if cfg.container == "v2" and cfg.ids_codec == "device":
-        return _compress_chain_dpk(arr, n, cfg, timer)
+        return _compress_chain_dpk(arr, n, cfg, timer, src_dtype)
     return _compress_generic(arr, n, cfg, timer, src_dtype)
 
 
 def _fused_eligible(cfg: CodecConfig, arr: torch.Tensor, n: int) -> bool:
-    """dctz_tpu/api.py:269-305 for the configurations _check_slice admits:
-    the fused kernels take float32 alone, every v2 container, and a v1
-    container only when n % 1024 == 0 (the reference stream layout allows
-    no padding)."""
-    return arr.dtype == torch.float32 and (cfg.container == "v2"
-                                           or n % 1024 == 0)
+    """dctz_tpu/api.py:269-305, with its TPU dispatch taken: the fused
+    kernels take EC or QT on float32 at the default geometry (block size 64,
+    255 bins) with truncate on, every v2 container and a v1 container only
+    when n % 1024 == 0 (the reference stream layout allows no padding).
+    brsf != 1 rides only the x-input DPK kernel (A), which takes the bin
+    geometry as an operand; the other fused branches (F, G) leave it to the
+    generic chain, whose container stores the true length."""
+    base = (cfg.mode in ("ec", "qt") and cfg.truncate
+            and cfg.block_size == C.BLK_SZ and cfg.nbins == C.NBINS
+            and arr.dtype == torch.float32
+            and (cfg.container == "v2" or n % 1024 == 0))
+    if not base or cfg.brsf == 1.0:
+        return base
+    return cfg.container == "v2" and cfg.ids_codec == "device"
 
 
 def _warn_bound() -> None:
@@ -584,8 +711,10 @@ def _chain_stats(arr: torch.Tensor, n: int, cfg: CodecConfig):
 def _compress_generic(arr: torch.Tensor, n: int, cfg: CodecConfig,
                       timer, src_dtype: np.dtype) -> bytes:
     """The generic chain (dctz_tpu/api.py:1870-1978, _encode_device), taken
-    by v1 containers with n % 1024 != 0, and by v1 and host-coded v2
-    containers of float64 data (for v1 the float64 parity path): stats over
+    by the v1 and host-coded v2 containers the fused kernels do not take
+    (_fused_eligible): v1 with n % 1024 != 0, float64 data (for v1 the
+    float64 parity path), brsf != 1 on host-coded v2, a non-default block
+    size or bin count, truncate=False. Stats over
     the n samples, then the device stage of a host-coded DTZS frame
     (stream._encode_segment) with this array's own sf, tolerance and
     qtable, in the array's dtype. The ids of the n real positions make the
@@ -600,16 +729,22 @@ def _compress_generic(arr: torch.Tensor, n: int, cfg: CodecConfig,
 
 
 def _compress_chain_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
-                        timer) -> bytes:
+                        timer, src_dtype: np.dtype) -> bytes:
     """The XLA chain's DPK route (dctz_tpu/api.py:1870-1960), taken by v2
-    containers with the device ids on float64 data: the generic chain in
-    float64 up to the stored values (stream._quantize_segment), then the
-    id coding and AC compaction of pack_ids_with_ac on the float32 stored
-    values (kernel B where its geometry holds, else kernel J), retried at
-    full chunk width on exception overflow, and a DPK container whose id
-    stream has the TRUE length n: its last block is partial and decodes
-    through the rem-point basis. The arrays are padded to whole blocks
-    only, so the chunk width can be 64."""
+    containers with the device ids that the fused kernels do not take
+    (_fused_eligible): float64 data, a non-default block size or bin
+    count, truncate=False. The generic chain up to the stored values
+    (stream._quantize_segment) in the array's dtype, then the id coding and
+    the AC compaction: with float32 stored values pack_ids_with_ac (kernel
+    B at its geometry, kernel J at other chunk widths that are multiples of
+    32, torch ops elsewhere), retried at full chunk width on exception
+    overflow; with full-width float64 stored values (truncate=False)
+    pack_ids for the ids and the chain's own compaction (qz.repack, torch
+    ops at 8 bytes an item) for the AC, as the reference does. The
+    container's id stream has the TRUE length n: its last block is partial
+    and decodes through the rem-point basis. The arrays are padded to whole
+    blocks only, so the chunk width can be that of one block. The header
+    declares src_dtype."""
     from . import stream
     from .ops import idpack
 
@@ -618,21 +753,35 @@ def _compress_chain_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
         sf, mean, tol = _chain_stats(arr, n, cfg)
         ids, dc, vals, qtable, ok = stream._quantize_segment(arr, n, sf, tol,
                                                              cfg)
-        dcac = vals.to(torch.float32)
-        dcac[:, 0] = dc
-        n_pad = dcac.numel()
+        ids8 = ids.to(torch.uint8)
+        n_pad = ids.numel()
+        cw = qz.chunk_width(n_pad, bs)
+        if dc.dtype == torch.float32:
+            dcac = vals.to(torch.float32)
+            dcac[:, 0] = dc
 
-        def pack(cape):
-            return idpack.pack_ids_with_ac(ids.to(torch.uint8), dcac, n,
-                                           idpack.B_DEFAULT, cape)
+            def pack(cape):
+                return idpack.pack_ids_with_ac(ids8, dcac, n, idpack.B_DEFAULT,
+                                               cape)
 
-        outs = pack(idpack.CAPE)
-        if bool(outs[7]):
-            outs = pack(qz.chunk_width(n_pad, bs))
-        width, packed, exc_rows, exc_counts, ac, ac_counts, dc, _ovf = outs
-        # the qtable's slot 0 is already the last block's DC in float64
-        # (qz.qtable_colmax), and the float64 header keeps raw DC (_dcd_on)
-        planes = (_plane_split2(dc, ac) if _plane_mode(cfg, dc) else None)
+            outs = pack(idpack.CAPE)
+            if bool(outs[7]):
+                outs = pack(cw)
+            width, packed, exc_rows, exc_counts, ac, ac_counts, dc, _ovf = outs
+        else:
+            width, packed, exc_rows, exc_counts, ovf = idpack.pack_ids(
+                ids8, n, idpack.B_DEFAULT, idpack.CAPE)
+            if bool(ovf):
+                width, packed, exc_rows, exc_counts, _ = idpack.pack_ids(
+                    ids8, n, idpack.B_DEFAULT, cw)
+            q = qz.repack(ids, vals, dc, qtable, n, cfg)
+            ac, ac_counts = q.ac_buf, q.ac_count
+        # the qtable's slot 0 is already the last block's DC in the data's
+        # dtype (qz.qtable_colmax); a float64 header keeps raw DC (_dcd_on)
+        dcd = (cfg.dc_delta and cfg.container == "v2"
+               and src_dtype == np.float32)
+        planes = (_plane_split2(dc, ac, dcd) if _plane_mode(cfg, dc)
+                  else None)
     with timer.stage("transfer"):
         dc_s, ac_s = planes if planes is not None else (dc, ac)
         (width, packed, exc_rows, exc_counts, ac_counts, dc_s, ac_s, qt,
@@ -641,7 +790,7 @@ def _compress_chain_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
         sf, mean = float(sf), float(mean)
     if ok is not None and not bool(ok):
         _warn_bound()
-    header = _header(cfg, n, int(ac_counts.sum()), sf, mean, np.float64)
+    header = _header(cfg, n, int(ac_counts.sum()), sf, mean, src_dtype)
     plane_kw = (dict(dc_planes=dc_s, ac_planes=ac_s) if planes is not None
                 else {})
     with timer.stage("zlib"):
@@ -678,9 +827,11 @@ def _header(cfg: CodecConfig, n: int, ac_count: int, sf: float,
 def _pack_host_coded(q, qtable, ok, sf, mean, n: int, stream_len: int,
                      cfg: CodecConfig, timer, dtype=np.float32) -> bytes:
     """Pull the device streams (pinned memory on the card) and assemble a v1
-    or host-coded v2 container of `dtype`: the first stream_len ids, the
-    float32 DC stream and the tight float32 AC stream
-    (dctz_tpu/api.py:524-545), the qtable in `dtype`."""
+    or host-coded v2 container of `dtype`: the first stream_len ids, the DC
+    stream and the tight AC stream, float32 or, with truncate off, of the
+    data's dtype (dctz_tpu/api.py:524-545, :2052-2101), the qtable in
+    `dtype`. A v1 container records nothing of the width: its decoder reads
+    it from the DC section's size."""
     from . import stream
 
     with timer.stage("transfer"):
@@ -701,8 +852,9 @@ def _pack_host_coded(q, qtable, ok, sf, mean, n: int, stream_len: int,
             return ct.pack_v1(header, bz, dz, az, qt)
         header.shuffle = cfg.shuffle
         streams = _ids_streams(flat_ids, cfg, header) + (
-            _float_sections(dc.tobytes(), 4, cfg, header, dc=True),
-            _float_sections(ac.tobytes(), 4, cfg, header),
+            _float_sections(dc.tobytes(), dc.dtype.itemsize, cfg, header,
+                            dc=True),
+            _float_sections(ac.tobytes(), ac.dtype.itemsize, cfg, header),
         )
         return ct.pack_v2(header, streams, qt, cfg.chunk_bytes)
 
@@ -880,29 +1032,34 @@ def _capc_tier(peak: int, cw: int) -> int:
     return next(tt for tt in tiers if tt >= min(peak, cw))
 
 
-def _stored_dtype(header: ct.Header, dc_nbytes: int, nblk: int):
-    """The stored float dtype from the DC section length (float32 unless the
-    container was written with truncate=False)."""
-    if dc_nbytes == nblk * header.dtype.itemsize and header.dtype != np.float32:
-        return header.dtype
-    return np.dtype(np.float32)
+def _stored_dtype(header: ct.Header, dc_nbytes: int, nblk: int,
+                  cfg: CodecConfig):
+    """(the stored float dtype, cfg) from the DC section's length: a float64
+    container whose DC section holds 8-byte items was written with
+    truncate=False, full-width streams (dctz_tpu/api.py:1107-1114); cfg then
+    says so."""
+    stored = np.dtype(np.float32)
+    if dc_nbytes == nblk * header.dtype.itemsize and header.dtype != stored:
+        return header.dtype, dataclasses.replace(cfg, truncate=False)
+    return stored, cfg
 
 
 def _dpk_decode_prep(header: ct.Header, streams):
     """Host stage of DPK decompress: ((width, packed_rows, exc_rows, dc, ac)
     numpy arrays, (n_stream, tile_b, cw, cfg)). dc is (4, nblk) byte planes
-    or float32 (nblk,); ac is (4, nc, capc) planes or float32 (nc, capc)."""
+    or (nblk,) of the stored dtype; ac is (4, nc, capc) planes or (nc, capc)
+    of the stored dtype (float32, or float64 at full width)."""
     (width, rows, exc_rows, dc_raw, ac_raw, n_stream, tile_b, cw, ac_counts,
      nblk) = _dpk_host_rebuild(header, streams)
     cfg = _header_config(header)
+    stored = np.dtype(np.float32)
     dc_pl = isinstance(dc_raw, tuple)
     ac_pl = isinstance(ac_raw, tuple)
-    if not dc_pl and _stored_dtype(header, len(dc_raw), nblk) != np.float32:
-        raise _todo("full-width (truncate=False) float64 streams", "9")
     if dc_pl:
         dc = np.stack([np.frombuffer(p, np.uint8, nblk) for p in dc_raw[1]])
     else:
-        dc = np.frombuffer(dc_raw, dtype=np.float32, count=nblk)
+        stored, cfg = _stored_dtype(header, len(dc_raw), nblk, cfg)
+        dc = np.frombuffer(dc_raw, dtype=stored, count=nblk)
     capc = _capc_tier(int(ac_counts.max()) if ac_counts.size else 0, cw)
     if ac_pl:
         pls = [np.frombuffer(p, np.uint8, header.ac_count) for p in ac_raw[1]]
@@ -910,37 +1067,57 @@ def _dpk_decode_prep(header: ct.Header, streams):
             np.concatenate(pls), np.tile(ac_counts, len(pls)), capc, np.uint8
         ).reshape(len(pls), ac_counts.size, capc)
     else:
-        ac = np.frombuffer(ac_raw, dtype=np.float32, count=header.ac_count)
-        ac = entropy.pad_row_prefixes(ac, ac_counts, capc, np.float32)
+        ac = np.frombuffer(ac_raw, dtype=stored, count=header.ac_count)
+        ac = entropy.pad_row_prefixes(ac, ac_counts, capc, stored)
     return (width, rows, exc_rows, dc, ac), (n_stream, tile_b, cw, cfg)
 
 
 def _decode_device_dpk(width, packed_rows, exc_rows, dc, ac_buf, n: int,
                        cfg: CodecConfig, tile_b: int, cw: int, sf, dcd: bool,
                        qtable=None):
-    """Kernels C + D (ops/dpk_fuse.decode_fused) on the device arrays of a
-    DPK container -> (n,) float32. dc/ac_buf may arrive as (4, ...) u8 byte
-    planes, reassembled here; qtable (a device tensor) selects QT mode. A
-    float64 sf (a float64 container) takes kernel C, then the float64
-    dequantization and inverse transform of qz.decode_x -> (n,) float64."""
-    from .ops import dpk_fuse
+    """The device decode of a DPK container's arrays (dctz_tpu/api.py:
+    _decode_device_dpk) -> (n,) of sf's dtype. dc/ac_buf may arrive as
+    (4, ...) u8 byte planes, reassembled here; qtable (a device tensor)
+    selects QT mode. The ids and the AC values come from kernel C where it
+    takes the container (dpk_fuse.decode_eligible, float32 stored values),
+    else from idpack.unpack_ids and qz.expand_ac (torch ops; kernel I at the
+    chunk widths it takes); the dequantization and inverse transform run on
+    kernel D (float32 at blocks of 64 and 255 bins) or in torch ops of sf's
+    dtype (qz.decode_x), as the reference's _decode_core does (_dequantize)."""
+    from .ops import dpk_fuse, idpack
 
     if tile_b != dpk_fuse.TILE_B:
-        raise _todo(f"DPK tile_b={tile_b}", "9")
+        raise _todo(f"DPK tile_b={tile_b}", "10")
     if dc.dtype == torch.uint8:
         dc = _combine_planes(dc)
     if ac_buf.dtype == torch.uint8:
         ac_buf = _combine_planes(ac_buf)
     if dcd:
         dc = _f32_delta_inv_dev(dc)
-    if sf.dtype == torch.float64:
-        nblk = -(-n // cfg.block_size)
+    ac_buf = ac_buf.contiguous()
+    nblk = -(-n // cfg.block_size)
+    if (dpk_fuse.decode_eligible(cfg, tile_b, cw)
+            and ac_buf.dtype == torch.float32):
         ids, acv = dpk_fuse.dpk_unpack_expand(width, packed_rows, exc_rows,
-                                              ac_buf.contiguous(), nblk, n, cw)
-        return qz.decode_x(ids, dc, acv, n, cfg, sf, qtable, torch.float64)[1]
-    return dpk_fuse.decode_fused(width, packed_rows, exc_rows,
-                                 ac_buf.contiguous(), dc.contiguous(), sf, cfg,
-                                 cw, n, qtable)
+                                              ac_buf, nblk, n, cw)
+    else:
+        ids = idpack.unpack_ids(width, packed_rows, exc_rows, nblk,
+                                cfg.block_size, tile_b, cw)
+        acv = qz.expand_ac(ids, ac_buf, n)
+    return _dequantize(ids, acv, dc, n, cfg, sf, qtable)
+
+
+def _dequantize(ids, acv, dc, n: int, cfg: CodecConfig, sf, qtable):
+    """The dequantization and inverse transform of the first n positions
+    -> (n,) of sf's dtype: kernel D for float32 at blocks of 64 and 255
+    bins, float64 torch ops (qz.decode_x) for a float64 container, float32
+    torch ops at any other geometry, as dctz_tpu's XLA decode."""
+    from .ops import dpk_fuse
+
+    if sf.dtype == torch.float32 and dpk_fuse.default_geometry(cfg):
+        return dpk_fuse.dequant_idct(ids, acv, dc.contiguous(), sf, cfg, n,
+                                     qtable)[:n]
+    return qz.decode_x(ids, dc, acv, n, cfg, sf, qtable, sf.dtype)[1]
 
 
 def _work_dtype(header: ct.Header) -> torch.dtype:
@@ -1012,13 +1189,12 @@ def _host_coded_prep(header: ct.Header, bindex, dc_raw, ac_raw):
     2022-2058): the id stream holds n_stream ids (v1: n; v2 from the fused
     branch: the padded length); a partial last block is padded with DC
     marks, the per-chunk AC counts come from the ids, and the AC stream is
-    cut into rows of the smallest capacity tier that holds them. Returns
-    ((ids (nblk, bs) u8, dc (nblk,) f32, ac_rows (nc, capc) f32), n_stream,
-    cfg)."""
+    cut into rows of the smallest capacity tier that holds them. The DC
+    section's size gives the stored dtype (_stored_dtype). Returns ((ids
+    (nblk, bs) u8, dc (nblk,), ac_rows (nc, capc), both of the stored
+    dtype), n_stream, cfg)."""
     cfg = _header_config(header)
     bs = header.block_size
-    if bs != C.BLK_SZ or header.nbins != C.NBINS:
-        raise _todo("non-default block/bin geometry", "9")
     n_stream = len(bindex)
     nblk = -(-n_stream // bs)
     flat_ids = np.frombuffer(bindex, dtype=np.uint8, count=n_stream)
@@ -1028,14 +1204,13 @@ def _host_coded_prep(header: ct.Header, bindex, dc_raw, ac_raw):
         # every block of a chunk holds one DC escape for the count below
         flat_ids = np.concatenate([flat_ids, np.zeros(pad, np.uint8)])
         flat_ids.reshape(nblk, bs)[:, 0] = C.ESCAPE
-    if _stored_dtype(header, len(dc_raw), nblk) != np.float32:
-        raise _todo("full-width (truncate=False) float64 streams", "9")
-    dc = np.frombuffer(dc_raw, dtype=np.float32, count=nblk)
-    ac = np.frombuffer(ac_raw, dtype=np.float32, count=header.ac_count)
+    stored, cfg = _stored_dtype(header, len(dc_raw), nblk, cfg)
+    dc = np.frombuffer(dc_raw, dtype=stored, count=nblk)
+    ac = np.frombuffer(ac_raw, dtype=stored, count=header.ac_count)
     cw = qz.chunk_width(nblk * bs, bs)
     counts = _chunk_escape_counts(flat_ids, cw, bs)
     capc = _capc_tier(int(counts.max()) if counts.size else 0, cw)
-    ac_rows = entropy.pad_row_prefixes(ac, counts, capc, np.float32)
+    ac_rows = entropy.pad_row_prefixes(ac, counts, capc, stored)
     return (flat_ids.reshape(nblk, bs), dc, ac_rows), n_stream, cfg
 
 
@@ -1047,12 +1222,12 @@ def _host_stage(blob):
     host_arrays, decode): decode(dev_arrays, sf, qtable) runs the device
     stage on the arrays moved by _to_device and returns a tensor of the
     container's dtype whose first header.num_elements samples are the data.
-    Float32: kernels C + D for DPK and I + D for the others. Float64: C or
-    I move the float32 stored values, then the dequantization and the
-    inverse transform run in float64 torch ops (qz.decode_x), as dctz_tpu's
-    XLA decode does (dctz_tpu/api.py:123-133)."""
-    from .ops import dpk_fuse
-
+    Float32 at the default geometry: kernels C + D for DPK and I + D for the
+    others. Float64: C or I move the float32 stored values, then the
+    dequantization and the inverse transform run in float64 torch ops
+    (qz.decode_x), as dctz_tpu's XLA decode does (dctz_tpu/api.py:123-133);
+    full-width (8-byte) stored values and the geometries kernels C and D do
+    not take decode in torch ops (_decode_device_dpk, _dequantize)."""
     if ct.detect_format(blob) == "v2":
         header, streams, qtable, _cb = ct.parse_v2(blob)
         if header.dpk:
@@ -1071,15 +1246,13 @@ def _host_stage(blob):
     host_arrays, n_stream, cfg = _host_coded_prep(header, bindex, dc_raw, ac_raw)
 
     def decode_host_coded(dev, sf, qt):
-        # kernel I puts the AC rows back at the escapes; kernel D (float32)
-        # or torch ops (float64) dequantize and run the IDCT (the rem-point
-        # basis for a partial last block)
+        # kernel I puts the float32 AC rows back at the escapes (torch ops
+        # at other chunk widths and at full width); kernel D (float32 at the
+        # default geometry) or torch ops dequantize and run the IDCT (the
+        # rem-point basis for a partial last block)
         ids, dc, ac = dev
         acv = qz.expand_ac(ids, ac, n_stream)
-        if sf.dtype == torch.float64:
-            return qz.decode_x(ids, dc, acv, n_stream, cfg, sf, qt,
-                               torch.float64)[1]
-        return dpk_fuse.dequant_idct(ids, acv, dc, sf, cfg, n_stream, qt)
+        return _dequantize(ids, acv, dc, n_stream, cfg, sf, qt)
 
     return header, qtable, host_arrays, decode_host_coded
 

@@ -21,17 +21,18 @@ class CodecConfig:
     """Full codec configuration: the same fields, defaults and validation
     as dctz_tpu.config.CodecConfig, whose docstring describes each field.
 
-    The port runs this slice of the space (api.py): float32 and float64
-    input (internal_dtype "auto": float64 at full width; "float32": cast
-    to float32), mode "ec" or "qt", verify on or off, dct_precision
-    "highest" or "high", dc_delta on or off; the v1 container (the
-    default) at any length; v2 with the device-packed ids (ids_codec
-    "device", or "auto", which means it for v2); and host-coded v2
-    (ids_codec "deflate" or "rans", ids4 on or off); each monolithic or as
-    a DTZS stream (segment_elems), whose frames are DPK v2 containers for
-    the device ids on float32 data and host-coded v2 containers otherwise.
-    compress() raises NotImplementedError, naming ROADMAP item 9, for the
-    rest: rate="auto", brsf != 1, truncate=False and non-default geometry.
+    The port runs all of it (api.py): float32 and float64 input
+    (internal_dtype "auto": float64 at full width; "float32": cast to
+    float32), mode "ec" or "qt", verify on or off, dct_precision "highest"
+    or "high", dc_delta on or off, rate "fixed" or "auto", any brsf (snapped
+    to the header's 2**(k/8) grid), any block size >= 2 and bin count
+    1..255, truncate on or off; the v1 container (the default) at any
+    length; v2 with the device-packed ids (ids_codec "device", or "auto",
+    which means it for v2); and host-coded v2 (ids_codec "deflate" or
+    "rans", ids4 on or off); each monolithic or as a DTZS stream
+    (segment_elems), whose frames are DPK v2 containers for the device ids
+    on float32 data at the fused kernels' geometry and host-coded v2
+    containers otherwise.
     """
 
     mode: Mode = "ec"

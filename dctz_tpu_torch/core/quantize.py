@@ -14,7 +14,8 @@ reproduce that order with IEEE intrinsics (csrc/common.cuh). Float64 is
 dctz_tpu's generic chain with x64 on, the arithmetic of the C codec's
 double build: the geometry, the bins, the QT renormalization and its
 inverse in doubles. The stored DC and escape values are float32 either way
-(truncate, USE_TRUNCATE in dctz-comp-lib.c:102-105): repack rounds them.
+with truncate on (USE_TRUNCATE in dctz-comp-lib.c:102-105): repack rounds
+them; with truncate off they keep the data's dtype (stored_dtype).
 """
 
 from __future__ import annotations
@@ -45,6 +46,13 @@ def _geometry(cfg: CodecConfig,
         float(np.float32(-rmax_d)),
         float(np.float32(rmax_d)),
     )
+
+
+def stored_dtype(cfg: CodecConfig, dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the stored DC and escape values: float32 with truncate
+    on (USE_TRUNCATE, dctz-comp-lib.c:102-105), the data's own with it off
+    (full-width streams: 8-byte items for float64 data)."""
+    return torch.float32 if cfg.truncate else dtype
 
 
 def chunk_width(total: int, block_size: int) -> int:
@@ -148,8 +156,8 @@ class Quantized(NamedTuple):
     (repack then recompacted at full chunk width, so nothing was lost)."""
 
     bin_ids: torch.Tensor  # (nblk, bs) uint8; DC, escapes, padding: ESCAPE
-    dc: torch.Tensor  # (nblk,) float32 (truncate: float32 for float64 data)
-    ac_buf: torch.Tensor  # (nc, capc) float32
+    dc: torch.Tensor  # (nblk,) float32 (truncate off: the data's dtype)
+    ac_buf: torch.Tensor  # (nc, capc) float32 (truncate off: data dtype)
     ac_count: torch.Tensor  # (nc,) int32
     qtable: torch.Tensor | None  # (bs,) QT only, the coefficients' dtype
     overflowed: torch.Tensor  # bool scalar
@@ -183,14 +191,14 @@ def quantize(coeffs: torch.Tensor, n: int, cfg: CodecConfig,
              ext_qtable: torch.Tensor | None = None):
     """Pass 1 and pass 2 of the generic chain on padded block coefficients
     (nblk, bs), n the true element count: (bin ids int32 (nblk, bs), dc
-    (nblk,) float32, stored values (nblk, bs) in the coefficients' dtype,
-    rounded to float32 by repack, qtable or None). The stored value of
-    an escape is the coefficient (EC) or its renormalization (QT) through
+    (nblk,) of stored_dtype, stored values (nblk, bs) in the coefficients'
+    dtype, rounded to stored_dtype by repack, qtable or None). The stored
+    value of an escape is the coefficient (EC) or its renormalization (QT) through
     the qtable of these coefficients or, given ext_qtable (the DTZS
     writer's global column max), through that one (qtable_colmax).
     dctz_tpu's quantize.encode is this followed by the compaction (repack
     here); the caller verifies in between when asked to."""
-    dc = coeffs[:, 0].to(torch.float32)
+    dc = coeffs[:, 0].to(stored_dtype(cfg, coeffs.dtype))
     if cfg.mode != "qt":
         return encode_ids(coeffs, n, cfg), dc, coeffs, None
     qtable = qtable_colmax(coeffs, n, cfg, ext_qtable)
@@ -202,9 +210,10 @@ def quantize(coeffs: torch.Tensor, n: int, cfg: CodecConfig,
 def repack(bin_ids: torch.Tensor, dense_vals: torch.Tensor, dc: torch.Tensor,
            qtable: torch.Tensor | None, n: int, cfg: CodecConfig) -> Quantized:
     """Compact the stored values at the AC escapes of the first n positions,
-    rounded to float32 (truncate), into chunk rows of the default capacity,
-    and again at full chunk width when a row overflows (kernel H for CUDA
-    tensors; only the compaction is rerun). The streams are those of
+    rounded to stored_dtype (float32 with truncate on), into chunk rows of
+    the default capacity, and again at full chunk width when a row
+    overflows (compaction.compact_chunked: kernel H for CUDA tensors where
+    it applies; only the compaction is rerun). The streams are those of
     dctz_tpu's _compact_stream / repack and its overflow retry."""
     from ..ops import compaction as cp
 
@@ -212,7 +221,7 @@ def repack(bin_ids: torch.Tensor, dense_vals: torch.Tensor, dc: torch.Tensor,
     escape = ac_mask(nblk, bs, n, bin_ids.device) & (bin_ids == C.ESCAPE)
     cw = chunk_width(nblk * bs, bs)
     flat_m = escape.reshape(-1)
-    flat_v = dense_vals.reshape(-1).to(torch.float32)
+    flat_v = dense_vals.reshape(-1).to(stored_dtype(cfg, dense_vals.dtype))
     ac, counts, ovf = cp.compact_chunked(flat_m, flat_v, cw, min(cp.CAPC, cw))
     if bool(ovf):
         ac, counts, _ = cp.compact_chunked(flat_m, flat_v, cw, cw)
@@ -221,9 +230,10 @@ def repack(bin_ids: torch.Tensor, dense_vals: torch.Tensor, dc: torch.Tensor,
 
 def expand_ac(bin_ids: torch.Tensor, ac_rows: torch.Tensor, n: int):
     """The chunked-layout half of dctz_tpu's quantize.decode: the AC rows
-    back at the escapes of the first n positions (kernel I for CUDA
-    tensors) -> (nblk, bs) float32, 0 elsewhere. decode_dense (kernel D on
-    the card) dequantizes the rest."""
+    back at the escapes of the first n positions (compaction.expand_chunked:
+    kernel I for CUDA tensors where it applies) -> (nblk, bs) of the rows'
+    dtype, 0 elsewhere. decode_dense (kernel D on the card) dequantizes the
+    rest."""
     from ..ops import compaction as cp
 
     nblk, bs = bin_ids.shape

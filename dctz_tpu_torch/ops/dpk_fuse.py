@@ -100,6 +100,31 @@ INSTANTIATIONS = {
 }
 
 
+def encode_eligible(b: int, bs: int, cw: int, nbins: int = C.NBINS) -> bool:
+    """The geometry kernels A and B take (dctz_tpu/ops/dpk_fuse.py:278-285):
+    tiles of 256 blocks of 64 samples, 255 bins (csrc/common.cuh: NBINS),
+    a chunk width that is a multiple of 128 and divides the tile."""
+    return (b == TILE_B and bs == BS and nbins == C.NBINS and cw % 128 == 0
+            and TILE_N % cw == 0)
+
+
+def decode_eligible(cfg: CodecConfig, tile_b: int, cw: int) -> bool:
+    """Whether kernel C takes a DPK container's ids and AC rows: the
+    default geometry (default_geometry, as dctz_tpu's decode_eligible at
+    dctz_tpu/ops/dpk_fuse.py:72-83 asks), tiles of 256 blocks, and C's own
+    chunk-width limit, a block multiple that divides the tile (the JAX
+    package's kernel asks a multiple of 128, a limit of the TPU's vector
+    layout; C unpacks the same ids either way)."""
+    return (default_geometry(cfg) and tile_b == TILE_B and cw % BS == 0
+            and TILE_N % cw == 0)
+
+
+def default_geometry(cfg: CodecConfig) -> bool:
+    """Blocks of 64 samples and 255 bins, which kernels A-G hard-code
+    (csrc/common.cuh, csrc/dct_tile.cuh); brsf is an operand."""
+    return cfg.block_size == BS and cfg.nbins == C.NBINS
+
+
 def reset_launches() -> None:
     for counts in (LAUNCHES, INSTANTIATIONS):
         for k in counts:
@@ -162,8 +187,9 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _mode_cfg(cfg_eb: float, qtable) -> CodecConfig:
-    return CodecConfig(mode="ec" if qtable is None else "qt", error_bound=cfg_eb)
+def _mode_cfg(cfg_eb: float, qtable, brsf: float = 1.0) -> CodecConfig:
+    return CodecConfig(mode="ec" if qtable is None else "qt", error_bound=cfg_eb,
+                       brsf=brsf)
 
 
 def _qtable32(qtable: torch.Tensor) -> torch.Tensor:
@@ -222,7 +248,7 @@ def _dct_quant_verify_plain(x, sf, tol, n_valid, cfg, verify, qtable=None,
 def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
                      qtable: torch.Tensor | None = None,
                      counters: torch.Tensor | None = None, *,
-                     relaxed: bool = False):
+                     relaxed: bool = False, brsf: float = 1.0):
     """Kernel A. Replaces the transform and verify half of
     dctz_tpu/ops/dpk_fuse.py:_make_encode_x_kernel (lines 494-647), in its
     HIGHEST arm or, relaxed, in its relaxed one (the instantiations named
@@ -233,11 +259,13 @@ def dct_quant_verify(x, sf, tol, n_valid: int, cfg_eb: float, verify: bool,
     (its slot 0 is not read), None for EC. Returns (ids u8 (n_pad/64, 64)
     zeroed at DC and padding, vals f32 (n_pad/64, 64), ok bool scalar
     tensor). vals holds the coefficients, except at QT's AC escapes, which
-    hold the renormalized values the container stores. counters: None (the
+    hold the renormalized values the container stores. brsf scales the bins
+    (w, rmin, rmax from qz._geometry, runtime operands of the kernel).
+    counters: None (the
     codec's path), or an int64 (2,) tensor on x's device to which a
     verifying call adds the blocks the L2 screen sent to the exact check and
     the blocks whose reconstruction missed tol and were repaired."""
-    cfg = _mode_cfg(cfg_eb, qtable)
+    cfg = _mode_cfg(cfg_eb, qtable, brsf)
     n_pad = x.shape[0]
     args = [t for t in (x, sf, tol, qtable, counters) if t is not None]
     if counters is not None:
@@ -341,15 +369,15 @@ def encode_fused(ids2d, dcac2d, n_valid: int, b: int, cape: int, cw: int):
 
 def encode_x_fused(x, sf, tol, n_valid: int, cfg_eb: float, cape: int,
                    cw: int, verify: bool, qtable: torch.Tensor | None = None,
-                   *, relaxed: bool = False):
+                   *, relaxed: bool = False, brsf: float = 1.0):
     """Whole EC/QT encode from raw samples: kernel A then kernel B. Same
     contract as dctz_tpu/ops/dpk_fuse.py:encode_x_fused; a qtable selects QT
-    mode, relaxed the relaxed analysis (its dct_precision="high"). Returns
-    (width, packed, exc_rows, exc_counts, ac_rows, ac_counts, dc, overflow,
-    ok)."""
+    mode, relaxed the relaxed analysis (its dct_precision="high"), brsf the
+    bin geometry. Returns (width, packed, exc_rows, exc_counts, ac_rows,
+    ac_counts, dc, overflow, ok)."""
     n_pad = x.shape[0]
     ids, vals, ok = dct_quant_verify(x, sf, tol, n_valid, cfg_eb, verify,
-                                     qtable, relaxed=relaxed)
+                                     qtable, relaxed=relaxed, brsf=brsf)
     return encode_fused(ids, vals, n_pad, TILE_B, cape, cw) + (ok,)
 
 

@@ -61,7 +61,7 @@ def _qtable_qmax_plain(x: torch.Tensor, sf: torch.Tensor, cfg: CodecConfig,
 
 
 def qtable_qmax(x: torch.Tensor, sf: torch.Tensor, error_bound: float, *,
-                relaxed: bool = False) -> torch.Tensor:
+                relaxed: bool = False, brsf: float = 1.0) -> torch.Tensor:
     """Kernel E (csrc/qtable_qmax.cu). Replaces the TPU kernel
     dctz_tpu/ops/fused_encode.py:_qtable_pass (line 203) behind qtable_qmax
     (line 229): QT pass 1 alone, the per-position max |escaped AC
@@ -74,8 +74,9 @@ def qtable_qmax(x: torch.Tensor, sf: torch.Tensor, error_bound: float, *,
     x: flat float32 (n_pad,), n_pad a multiple of 1024 (zero padding adds
     nothing: zero blocks have no escapes); sf: float32 scalar tensor on x's
     device; relaxed: the relaxed analysis (instantiation
-    qtable_qmax_relaxed). Returns the (64,) float32 qtable on x's device."""
-    cfg = CodecConfig(mode="qt", error_bound=error_bound)
+    qtable_qmax_relaxed); brsf: the bin geometry, whose range decides what
+    escapes. Returns the (64,) float32 qtable on x's device."""
+    cfg = CodecConfig(mode="qt", error_bound=error_bound, brsf=brsf)
     n_pad = x.shape[0]
     if not dpk_fuse._on_cuda(x, sf):
         qmax = _qtable_qmax_plain(x, sf, cfg, relaxed)

@@ -7,8 +7,10 @@ original id byte goes to the exception stream, compacted in block-major
 chunk rows like the AC stream. _pack_ids_with_ac_plain is kernel B's twin
 and unpack_ids is the id half of kernel C's twin (ops/dpk_fuse.py).
 pack_ids_with_ac dispatches as the JAX package does: kernel B at B's
-geometry, kernel J (ops/shuffle.compact_unified) at any other tile, for CUDA
-tensors; pack_ids compacts its exception bytes through kernel H. Any tile
+geometry, kernel J (ops/shuffle.compact_unified) at any other tile or block
+size whose chunk width J takes (compaction.kernel_eligible), for CUDA
+tensors, and torch ops elsewhere; pack_ids compacts its exception bytes through
+compaction.compact_chunked (kernel H where it applies). Any tile
 b that is a multiple of 8 codes (the 3-bit packing takes groups of 8).
 """
 
@@ -120,17 +122,20 @@ def _pack_ids(ids2d, n_valid: int, b: int, cape: int, compact):
             torch.any(counts > cape))
 
 
+def _compact_gated(mask2, vals2, capc):
+    return cp.compact_chunked(mask2.reshape(-1), vals2.reshape(-1),
+                              mask2.shape[1], capc)[:2]
+
+
 def pack_ids(ids2d: torch.Tensor, n_valid: int, b: int, cape: int):
     """Code the (nblk, bs) bin-id grid (dctz_tpu's idpack.pack_ids): widths
     and packing in torch ops, the exception bytes compacted per block-major
-    chunk row, as compaction.compact_chunked does (kernel H for CUDA
-    tensors).
+    chunk row by compaction.compact_chunked (kernel H for CUDA tensors at
+    the chunk widths it takes).
 
     Returns (width (T, bs) u8, packed (T*bs, b//2) u8, exc_rows (nc,
     min(cape, cw)) u8, exc_counts (nc,) i32, overflow bool tensor)."""
-    from . import shuffle
-
-    return _pack_ids(ids2d, n_valid, b, cape, shuffle.compact_f32)
+    return _pack_ids(ids2d, n_valid, b, cape, _compact_gated)
 
 
 def _pack_ids_plain(ids2d: torch.Tensor, n_valid: int, b: int, cape: int):
@@ -180,21 +185,23 @@ def pack_ids_with_ac(ids2d: torch.Tensor, dcac2d: torch.Tensor, n_valid: int,
     unclipped ones.
 
     Dispatched as dctz_tpu's pack_ids_with_ac: for CUDA tensors at kernel
-    B's geometry (b = 256, cw a multiple of 128 dividing the tile)
-    dpk_fuse.encode_fused (kernel B); for CUDA tensors at any other tile,
-    widths and packing in torch ops, then shuffle.compact_unified (kernel
-    J, _pack_ids_with_ac_unified); for CPU tensors the plain version. The
-    card's arms cut the AC values at the exception rank min(cw, cape
-    rounded up to 128), as the JAX kernels do: the same bytes as the plain
-    version wherever cape is a multiple of 128 or at least cw."""
+    B's geometry (dpk_fuse.encode_eligible) dpk_fuse.encode_fused (kernel
+    B); for CUDA tensors at any other tile or block size whose chunk width
+    kernel J takes (compaction.kernel_eligible: a multiple of 32, float32
+    values), widths and packing in torch ops, then shuffle.compact_unified
+    (kernel J, _pack_ids_with_ac_unified); for the other chunk widths, and
+    for CPU tensors, the plain version (the JAX package's sort pair). The card's arms cut the AC values at the
+    exception rank min(cw, cape rounded up to 128), as the JAX kernels do:
+    the same bytes as the plain version wherever cape is a multiple of 128
+    or at least cw."""
     from . import dpk_fuse
 
-    if not dpk_fuse._on_cuda(ids2d, dcac2d):
-        return _pack_ids_with_ac_plain(ids2d, dcac2d, n_valid, b, cape)
     nblk, bs = ids2d.shape
     cw = qz.chunk_width(nblk * bs, bs)
-    if (b == dpk_fuse.TILE_B and bs == dpk_fuse.BS and cw % 128 == 0
-            and dpk_fuse.TILE_N % cw == 0):
+    if (not dpk_fuse._on_cuda(ids2d, dcac2d)
+            or not cp.kernel_eligible(cw, dcac2d.dtype)):
+        return _pack_ids_with_ac_plain(ids2d, dcac2d, n_valid, b, cape)
+    if dpk_fuse.encode_eligible(b, bs, cw):
         return dpk_fuse.encode_fused(ids2d, dcac2d, n_valid, b, min(cape, cw), cw)
     return _pack_ids_with_ac_unified(ids2d, dcac2d, n_valid, b, cape)
 

@@ -44,9 +44,9 @@ def verify_repair(x, coeffs, sf, bin_ids, dc, n_decode: int, n_valid: int,
     n_valid are padding); coeffs: scaled-domain coefficients (nblk, bs);
     tol: the pre-slacked absolute tolerance (a tensor of the coefficients'
     dtype); qtable: the (bs,) quantizer table in QT mode, None in EC mode.
-    The stored values are rounded to float32 (truncate) before the
-    reconstruction, as the container carries them. Returns (bin ids int32,
-    ok bool tensor)."""
+    The stored values are rounded to their stored dtype (float32 with
+    truncate on) before the reconstruction, as the container carries them.
+    Returns (bin ids int32, ok bool tensor)."""
     if (qtable is None) != (cfg.mode == "ec"):
         raise ValueError(f"mode {cfg.mode!r} with qtable={qtable is not None}")
     nblk, bs = coeffs.shape
@@ -61,7 +61,8 @@ def verify_repair(x, coeffs, sf, bin_ids, dc, n_decode: int, n_valid: int,
     )
 
     def block_errors(ids):
-        dense = stored_dense(coeffs, ids, acm, cfg, qtable).to(torch.float32)
+        dense = stored_dense(coeffs, ids, acm, cfg, qtable).to(
+            qz.stored_dtype(cfg, dtype))
         coeffs_hat, xhat = qz.decode_x(ids, dc, dense, n_decode, cfg, sf,
                                        qtable, dtype)
         err = torch.zeros(nblk * bs, dtype=dtype, device=x.device)

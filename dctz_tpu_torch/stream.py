@@ -22,13 +22,15 @@ Two segment paths, chosen as the JAX package chooses them (its dpk_seg):
     whenever the segment size is a multiple of the 1024-element pad quantum
     (the default DEFAULT_SEGMENT is).
   generic (every other configuration: v1 with an int segment_elems, the ids
-    codecs "deflate", "rans" and, for v1, "auto", and every float64 array,
-    whose frames are float64 containers): the generic chain
+    codecs "deflate", "rans" and, for v1, "auto", a block size other than
+    64, a bin count other than 255, truncate=False, and every float64
+    array, whose frames are float64 containers): the generic chain
     (_encode_segment: the transform, bins and verify-repair as torch ops,
     the compaction in kernel H; _qtable_colmax_segment for the qtable) and
     a host-coded v2 frame (_pack_segment), whatever the config's container.
-    These frames decode through kernels I and D (float32), or kernel I and
-    float64 torch ops (float64).
+    These frames decode through kernels I and D (float32 at the default
+    geometry), or kernel I and torch ops (float64, and other geometries;
+    full-width streams in torch ops alone).
 
 Both directions run a two-stage pipeline: the writer's host worker pulls and
 packs segment k (its device-to-host copies run on a side CUDA stream) while
@@ -163,6 +165,7 @@ def compress_stream(
     trace: an optional list collecting per-segment wall times
     ("device" | "pull" | "pack", segment, t0, t1)."""
     from . import api
+    from .ops import dpk_fuse
     from .ops import fused_encode as fe
     from .ops.repair import _SLACK
 
@@ -182,12 +185,16 @@ def compress_stream(
     if n == 0:
         raise ValueError("cannot compress an empty array")
     cfg = api._resolve_ids_codec(cfg)
-    api._check_slice(cfg)
-    # the JAX writer's dpk_seg (dctz_tpu/stream.py:227-238): its other
-    # conditions (the default geometry, truncate) are what _check_slice
-    # admits. A float64 array with the device ids writes host-coded frames,
-    # whose ids take Huffman-only deflate (api._ids_streams)
-    dpk_seg = cfg.ids_codec == "device" and dtype == np.float32
+    api._check_internal_dtype(cfg)
+    # the JAX writer's dpk_seg (dctz_tpu/stream.py:227-238): DPK frames on
+    # kernels A + B for the device ids on float32 data at their geometry
+    # (blocks of 64, 255 bins) with truncate on, at any brsf (an operand of
+    # A). Everything else writes host-coded frames; a float64 array with
+    # the device ids among them, whose ids take Huffman-only deflate
+    # (api._ids_streams)
+    dpk_seg = (cfg.ids_codec == "device" and cfg.mode in ("ec", "qt")
+               and dtype == np.float32 and cfg.truncate
+               and dpk_fuse.default_geometry(cfg))
     tdtype = torch.float64 if dtype == np.float64 else torch.float32
     bs = cfg.block_size
     segment_elems = max(bs, segment_elems - segment_elems % bs)
@@ -225,7 +232,7 @@ def compress_stream(
         for seg in _segments(x, segment_elems):
             if dpk_seg:
                 q1 = fe.qtable_qmax(_on_device(seg, device), sf_t, cfg.error_bound,
-                                    relaxed=api._relaxed(cfg))
+                                    relaxed=api._relaxed(cfg), brsf=cfg.brsf)
             else:
                 q1 = _qtable_colmax_segment(_on_device(seg, device, pad=False),
                                             int(seg.shape[0]), sf_t, cfg)
@@ -287,7 +294,8 @@ def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
     """Device stage of one DPK array: kernels A + B with the given sf,
     tolerance and qtable, retried once at full chunk width on exception
     overflow (the qtable does not depend on the width, so E is not rerun);
-    cfg.dct_precision "high" takes A's RELAXED instantiation.
+    cfg.dct_precision "high" takes A's RELAXED instantiation, and cfg.brsf
+    reaches A as its bin geometry.
     xs: the array on its device, zero-padded to the 1024 tile quantum
     (_on_device), n of its samples real. The float32 DC/AC streams are
     split into byte planes on the device (api._plane_split2) so the host
@@ -307,7 +315,8 @@ def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
     def encode(cape):
         return dpk_fuse.encode_x_fused(xs, sf_t, tol_t, n, cfg.error_bound,
                                        min(cape, cw), cw, cfg.verify, qt_ext,
-                                       relaxed=api._relaxed(cfg))
+                                       relaxed=api._relaxed(cfg),
+                                       brsf=cfg.brsf)
 
     outs = encode(idpack.CAPE)
     if bool(outs[7]):
@@ -384,8 +393,9 @@ def _quantize_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor, tol_t,
     against tol_t when cfg.verify. xs: the array on its device, unpadded,
     n its length; tol_t: the tolerance tensor of its dtype (None without
     verify). Torch ops, as the JAX package leaves them to XLA. Returns (bin
-    ids int32 (nblk, bs), dc float32, stored values (nblk, bs) in the dtype
-    of xs, qtable or None, ok or None)."""
+    ids int32 (nblk, bs), dc of the stored dtype (qz.stored_dtype: float32,
+    or the dtype of xs with truncate off), stored values (nblk, bs) in the
+    dtype of xs, qtable or None, ok or None)."""
     from . import api
     from .ops import repair
 
@@ -404,8 +414,8 @@ def _quantize_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor, tol_t,
 def _encode_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor, tol_t,
                     cfg: CodecConfig, qt_ext: torch.Tensor | None = None):
     """Device stage of one array on the generic chain: _quantize_segment,
-    then the compaction of the float32 stored values (qz.repack: kernel H
-    on the card). On a row overflow only the compaction is rerun at full
+    then the compaction of the stored values (qz.repack: kernel H on the
+    card for float32 rows of a width it takes, torch ops otherwise). On a row overflow only the compaction is rerun at full
     chunk width, where the JAX writer reruns the whole segment: the width
     changes nothing but the compaction, so the streams are the same.
     Returns (qz.Quantized, ok or None)."""
@@ -420,9 +430,10 @@ def _pack_segment(pull, n: int, sf: float, mean: float, cfg: CodecConfig,
     """Host stage of one generic segment (dctz_tpu/stream.py:467-516, byte
     for byte): a host-coded v2 frame of `dtype` whatever cfg.container
     says. The id sections of the n real ids (api._ids_streams); DC and AC
-    always shuffled (cfg.shuffle) and chunk-deflated, never plane-coded;
-    the DC delta (cfg.dc_delta) on the host for a float32 frame (a float64
-    frame keeps raw DC); the qtable stored in QT mode only."""
+    (float32, or 8-byte items at full width) always shuffled (cfg.shuffle)
+    and chunk-deflated, never plane-coded; the DC delta (cfg.dc_delta) on
+    the host for a float32 frame (a float64 frame keeps raw DC); the qtable
+    stored in QT mode only."""
     from . import api
     from .core import entropy
 
@@ -434,14 +445,14 @@ def _pack_segment(pull, n: int, sf: float, mean: float, cfg: CodecConfig,
     header = api._header(cfg, n, int(counts.sum()), sf, mean, dtype)
     ac = entropy.take_row_prefixes(ac_rows, counts)
     header.shuffle = cfg.shuffle
-    if cfg.dc_delta and dtype == np.float32:
+    if cfg.dc_delta and dtype == np.float32 and dc.dtype == np.float32:
         # frames restart at their own item 0, so each decodes on its own
         dc = entropy.f32_delta(dc)
         header.dcd = True
     dcb, acb = dc.tobytes(), ac.tobytes()
     if cfg.shuffle:
-        dcb = entropy.shuffle_bytes(dcb, 4)
-        acb = entropy.shuffle_bytes(acb, 4)
+        dcb = entropy.shuffle_bytes(dcb, dc.dtype.itemsize)
+        acb = entropy.shuffle_bytes(acb, ac.dtype.itemsize)
     streams = api._ids_streams(ids.reshape(-1)[:n].tobytes(), cfg, header) + (
         entropy.chunked_deflate(dcb, cfg.chunk_bytes, cfg.zlib_level),
         entropy.chunked_deflate(acb, cfg.chunk_bytes, cfg.zlib_level),

@@ -11,7 +11,8 @@ Leave it False on production paths to keep launches asynchronous.
     print(t.report(nbytes))
 
 The API's stages: "transfer" (host-device copies), "device" (kernels),
-"zlib" (compress: section coding and container assembly), "host"
+"zlib" (compress: section coding and container assembly), "rate"
+(compress with rate="auto": the trial encodes that pick brsf), "host"
 (decompress: parse, inflate, re-pad) and "pipeline" (a segmented DTZS stream,
 whose device and host stages overlap; stream.py traces them per segment).
 """
@@ -30,6 +31,9 @@ class StageTimer:
 
     def __init__(self, sync: bool = False) -> None:
         self.stages: dict[str, float] = {}
+        #: rate="auto": (brsf, container bytes, seconds) of each trial
+        #: encode, in ladder order (api._auto_rate_brsf)
+        self.rate_trials: list[tuple[float, int, float]] = []
         self.sync = sync
         self._t0 = time.perf_counter()
 

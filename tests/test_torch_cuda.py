@@ -1663,3 +1663,156 @@ def test_f64_native_parity_on_card(dev, mode):
     x = np.random.default_rng(32799).standard_normal(32799) * 250
     assert _same_f64_container(dz.compress(x, 1e-3, mode, device="cuda"),
                                native.compress(x, 1e-3, mode))
+
+
+# ---------------------------------------------------------------------------
+# the codec options of ROADMAP item 9: brsf as kernel operands, and the
+# gates that keep the other geometries off the kernels
+# ---------------------------------------------------------------------------
+
+BRSFS = [2 ** (3 / 8), 8.0]
+
+
+@pytest.mark.parametrize("brsf", BRSFS)
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+def test_kernels_at_brsf(dev, mode, brsf):
+    """A or A-QT (verify on), E and D or D-QT at a bin geometry scaled by
+    brsf, each against its plain version as at brsf 1: ids within 1e-4,
+    the same verified flag, coefficients within 32 ulp of max|x/sf| of the
+    block (stored QT escapes within that times eb*qt_factor/q[k] plus 4
+    ulp), E within 4 ulp, D within 32 ulp of sf * max|coef| of the block."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.config import CodecConfig
+    from dctz_tpu_torch.core import quantize as qz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import fused_encode as fe
+
+    n_valid = 5 * TILE_N - 11
+    xp = _padded_on(dev, _qt_input(n_valid, 41))
+    sf, _ = api._stats_device(xp, n_valid, 1)
+    tol = fe.tolerance(xp, n_valid, 1e-3)
+    cfg = CodecConfig(mode=mode, error_bound=1e-3, brsf=brsf)
+    q = None
+    fk.reset_launches()
+    if mode == "qt":
+        q = fe.qtable_qmax(xp, sf, 1e-3, brsf=brsf)
+        q_p = torch.clamp_min(fe._qtable_qmax_plain(xp, sf, cfg), 1.0)
+        assert torch.all((q - q_p).abs() <= 4 * 2.0**-23 * torch.maximum(q, q_p))
+    ik, vk, okk = fk.dct_quant_verify(xp, sf, tol, n_valid, 1e-3, True, q, brsf=brsf)
+    assert fk.LAUNCHES["dct_quant_verify_qt" if q is not None else "dct_quant_verify"] == 1
+    ip, vp, okp = fk._dct_quant_verify_plain(xp, sf, tol, n_valid, cfg, True, q)
+    assert (ik != ip).float().mean().item() <= 1e-4
+    assert bool(okk) == bool(okp)
+    budget = 32 * 2.0**-23 * (xp / sf).reshape(-1, 64).abs().amax(1, keepdim=True)
+    col = torch.arange(64, device=dev)
+    esc = (ik == ip) & (ik == 255) & (col > 0)
+    assert esc.sum().item() > 0
+    lim = budget.expand_as(vp)
+    if q is not None:
+        lim = torch.where(esc, budget * 1e-2 / q + 4 * 2.0**-23 * vp.abs(), lim)
+    assert torch.all(((vk - vp).abs() <= lim) | (ik != ip))
+    # D on A's output: the escapes hold A's stored values, DC its coefficient
+    ids = torch.where(col > 0, ik, torch.full_like(ik, 255))
+    acv = torch.where((ids == 255) & (col > 0), vk, torch.zeros_like(vk))
+    dc = vk[:, 0].contiguous()
+    n_pad = xp.numel()
+    xd = fk.dequant_idct(ids, acv, dc, sf, cfg, n_pad, q)
+    xd_p = fk._dequant_idct_plain(ids, acv, dc, sf, cfg, n_pad, q)
+    co = qz.decode_dense(ids, dc, acv, n_pad, cfg, q)
+    lim_d = (32 * 2.0**-23 * sf * co.abs().amax(1)).repeat_interleave(64)
+    assert torch.all((xd - xd_p).abs() <= lim_d)
+    tol_x = 1e-3 * float((xp[:n_valid].max() - xp[:n_valid].min()).item())
+    assert (xd[:n_valid] - xp[:n_valid]).abs().max().item() <= tol_x
+
+
+@pytest.mark.parametrize("bs,nblk,launches_j", [(128, 1024, True), (32, 4096, True),
+                                                (48, 2730, True), (48, 2735, False),
+                                                (128, 1027, True)])
+def test_kernel_j_at_block_size(dev, bs, nblk, launches_j):
+    """pack_ids_with_ac at a block size other than 64 (the XLA chain's DPK
+    route): kernel J where it takes the chunk width, a multiple of 32
+    (block sizes 128 and 32 at these counts, and 48 at an even count of
+    240-sample rows: rows of 480), torch ops elsewhere (48 at an odd count:
+    rows of 240), the plain version's bytes either way."""
+    from dctz_tpu_torch.core import quantize as qz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import idpack
+
+    rng = np.random.default_rng(bs + nblk)
+    mag = rng.geometric(p=0.4, size=(nblk, bs)).astype(np.int64) - 1
+    ids = np.minimum(mag * 8 // np.maximum(1, np.arange(bs) // 4)[None, :], 254)
+    ids = np.where(rng.random((nblk, bs)) < 0.02, 255, ids).astype(np.uint8)
+    ids[:, 0] = 255
+    vals = rng.standard_normal((nblk, bs)).astype(np.float32)
+    it, vt = torch.from_numpy(ids).to(dev), torch.from_numpy(vals).to(dev)
+    cw = qz.chunk_width(nblk * bs, bs)
+    assert (cw % 32 == 0) == launches_j
+    fk.reset_launches()
+    got = idpack.pack_ids_with_ac(it, vt, nblk * bs - 5, 256, 128)
+    launched = {k for k, v in fk.LAUNCHES.items() if v}
+    assert launched == ({"chunk_compact_unified"} if launches_j else set())
+    ref = idpack.pack_ids_with_ac(it.cpu(), vt.cpu(), nblk * bs - 5, 256, 128)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+
+
+#: the item-9 routes through the public API on the card: (config, input
+#: length, float64 input, kernels that must launch, kernels that must not)
+ITEM9_ROUTES = {
+    "ec_auto_dtzs": (dict(F64_DPK, rate="auto", segment_elems=2 * TILE_N), 5 * TILE_N - 11,
+                     False, {"dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
+                             "dequant_idct"}, {"dct_quant"}),
+    "qt_auto": (dict(F64_DPK, mode="qt", rate="auto", segment_elems=0), 5 * TILE_N - 11,
+                False, {"qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
+                        "dpk_unpack_expand", "dequant_idct_qt"}, {"dct_quant_qt"}),
+    "deflate_brsf": (dict(container="v2", ids_codec="deflate", segment_elems=0,
+                          verify=True, brsf=2.0), 4 * TILE_N, False,
+                     {"chunk_compact", "chunk_expand", "dequant_idct"},
+                     {"dct_quant", "dct_quant_verify"}),
+    "dpk_bs128": (dict(F64_DPK, block_size=128, segment_elems=0), 4 * TILE_N - 3, False,
+                  {"chunk_compact_unified"},
+                  {"dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
+                   "dequant_idct"}),
+    "deflate_nbins63": (dict(container="v2", ids_codec="deflate", segment_elems=0,
+                             verify=True, nbins=63), 4 * TILE_N, False,
+                        {"chunk_compact", "chunk_expand"},
+                        {"dequant_idct", "dct_quant", "dct_quant_verify"}),
+    "v1_f64_full": (dict(truncate=False), 3 * TILE_N, True, set(),
+                    {"chunk_compact", "chunk_expand", "dequant_idct"}),
+    "dtzs_f64_full": (dict(F64_DPK, truncate=False, segment_elems=2 * TILE_N),
+                      4 * TILE_N + 1025, True, set(),
+                      {"chunk_compact", "chunk_expand", "dequant_idct"}),
+}
+
+
+@pytest.mark.parametrize("route", list(ITEM9_ROUTES))
+def test_item9_route_on_card(dev, route):
+    """rate="auto", brsf, a non-default geometry and truncate=False through
+    dz.compress and dz.decompress on the card: the route's kernels launch
+    and the kernels its gates exclude do not, the bound holds, the card
+    and the plain path pick the same brsf and match in ratio within 0.1%,
+    and each decodes the other's container within the bound."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.core import container as ct
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    kw, n, f64, want, never = ITEM9_ROUTES[route]
+    x = _signal64(n, n) if f64 else _qt_input(n, n)
+    cfg = dz.CodecConfig(**dict(dict(error_bound=1e-3), **kw))
+    fk.reset_launches()
+    blob = dz.compress(x, config=cfg, device="cuda")
+    y = dz.decompress(blob, device="cuda")
+    launched = {k for k, v in fk.LAUNCHES.items() if v}
+    assert want <= launched and not (launched & never), launched
+    assert y.dtype == x.dtype and dz.evaluate(x, y, 1e-3)["bound_satisfied"]
+    blob_cpu = dz.compress(x, config=cfg, device="cpu")
+    assert abs(len(blob) / len(blob_cpu) - 1.0) <= 1e-3
+
+    def head(b):
+        f = b if b[:4] != b"DTZS" else b[24:24 + int.from_bytes(b[16:24], "little")]
+        return ct.parse_v1(f)[0] if ct.detect_format(f) == "v1" else ct.parse_v2(f)[0]
+
+    assert head(blob).brsf == head(blob_cpu).brsf
+    tol = 1e-3 * float(x.max() - x.min())
+    assert np.abs(dz.decompress(blob_cpu, device="cuda") - x).max() <= tol
+    assert np.abs(dz.decompress(blob, device="cpu") - x).max() <= tol

@@ -396,7 +396,10 @@ def test_f64_streams_decode_to_float64():
 
 def test_truncate_off_f64_container_raises():
     """A float64 container with full-width (8-byte) DC and AC streams, as
-    dctz_tpu writes with truncate=False, is still outside the slice."""
+    dctz_tpu writes with truncate=False, decodes in the port (it raised
+    until ROADMAP item 9 was ported): float64, within the bound, and within
+    8 eps64 * max|y| of the reference's decode (tests/test_torch_truncate.py
+    holds the port's own such containers to the reference)."""
     import dctz_tpu
     import dctz_tpu_torch as dz
 
@@ -404,8 +407,10 @@ def test_truncate_off_f64_container_raises():
     for kw in (dict(container="v2", ids_codec="deflate"), dict(container="v1")):
         blob = dctz_tpu.compress(x, config=dctz_tpu.CodecConfig(truncate=False,
                                                                 **kw))
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            dz.decompress(blob, device="cpu")
+        got = dz.decompress(blob, device="cpu")
+        want = np.asarray(dctz_tpu.decompress(blob))
+        assert got.dtype == np.float64 and np.abs(got - x).max() <= bound(x)
+        assert np.abs(got - want).max() <= 8 * EPS64 * np.abs(want).max()
 
 
 # ---------------------------------------------------------------------------

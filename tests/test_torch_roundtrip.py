@@ -1,7 +1,8 @@
 """The DPK EC path end to end on the CPU: round trips, containers decoded
 both ways between the port and dctz_tpu, the DPK EC goldens, the ratio, the
 configurations that are not ported yet, and those that were ported last
-(host-coded DTZS frames and dc_delta; QT mode and DTZS streams:
+(host-coded DTZS frames, dc_delta and the codec options of ROADMAP item
+9; QT mode and DTZS streams:
 test_torch_qt.py, test_torch_stream.py, test_torch_stream_generic.py; v1
 and host-coded v2: test_torch_v1.py; dc_delta: test_torch_dc_delta.py)."""
 
@@ -124,28 +125,28 @@ def test_overflow_retry_round_trip():
     assert exc_rows.shape[1] > idpack.CAPE  # some chunk row overflowed
 
 
-#: what stays outside the ported slice: the rate and codec options of
-#: ROADMAP item 9 (float64 is ported: tests/test_torch_f64.py)
-OUTSIDE = {
-    "rate_auto": dict(rate="auto"),
-    "brsf": dict(brsf=2.0),
-    "truncate_off": dict(truncate=False),
-    "nbins": dict(nbins=127),
-    "block_size": dict(block_size=32),
-}
-
-
-@pytest.mark.parametrize("kw", list(OUTSIDE.values()), ids=list(OUTSIDE))
-def test_outside_the_slice_raises(kw):
+def test_outside_the_slice_raises():
+    """What stays outside the ported codec: a DPK container whose tiles are
+    not 256 blocks (no writer of either package makes one; ROADMAP item 10
+    with the tile-range decode) raises NotImplementedError naming its
+    item. The container here is the port's own XLA-chain DPK route coded at
+    tiles of 64 blocks."""
     import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops import idpack
 
-    x = signal(3 * 4096, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        dz.compress(x, config=slice_cfg(dz, **kw), device="cpu")
+    x = signal(3 * 4096 + 5, 0).astype(np.float64)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(idpack, "B_DEFAULT", 64)
+        blob = dz.compress(x, config=slice_cfg(dz), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        dz.decompress(blob, device="cpu")
 
 
 #: the configurations that raised ROADMAP item 8 (host-coded DTZS frames)
-#: or item 9 (dc_delta) until both were ported, and more of their kind
+#: or item 9 (dc_delta; rate="auto", brsf != 1, truncate=False and a
+#: non-default block size or bin count) until they were ported, and more of
+#: their kind (tests/test_torch_rate.py, test_torch_geometry.py and
+#: test_torch_truncate.py hold the last five's containers byte for byte)
 PORTED = {
     "v1_dtzs": dict(container="v1", segment_elems=4096),
     "v1_qt_dtzs": dict(container="v1", mode="qt", segment_elems=4096),
@@ -156,6 +157,11 @@ PORTED = {
     "dc_delta_dtzs": dict(dc_delta=True, segment_elems=4096),
     "dc_delta_deflate": dict(dc_delta=True, ids_codec="deflate"),
     "dc_delta_v1_dtzs": dict(dc_delta=True, container="v1", segment_elems=4096),
+    "rate_auto": dict(rate="auto"),
+    "brsf": dict(brsf=2.0),
+    "truncate_off": dict(truncate=False),
+    "nbins": dict(nbins=127),
+    "block_size": dict(block_size=32),
 }
 
 
@@ -193,8 +199,9 @@ def test_compress_requires_config():
 
 def test_float64_and_foreign_containers_raise():
     """Float64 input and float64 containers are ported (tests/test_torch_f64.py
-    holds them to the reference); what still raises of float64 is a
-    container with full-width streams (truncate=False, ROADMAP item 9)."""
+    holds them to the reference), and so are the containers with full-width
+    streams (truncate=False: tests/test_torch_truncate.py), which decode
+    within the bound."""
     import dctz_tpu
     import dctz_tpu_torch as dz
 
@@ -208,8 +215,8 @@ def test_float64_and_foreign_containers_raise():
     assert golden.dtype == np.float64 and np.abs(golden - x64).max() <= bound(x64)
     with jax.enable_x64(True):  # other tests of this module turn it off
         wide = dctz_tpu.compress(x64, config=dctz_tpu.CodecConfig(truncate=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        dz.decompress(wide, device="cpu")
+    got = dz.decompress(wide, device="cpu")
+    assert got.dtype == np.float64 and np.abs(got - x64).max() <= bound(x64)
     # the float32 non-DPK goldens decode (all 28 goldens: test_torch_v1.py
     # and test_torch_f64.py)
     x = np.fromfile(GOLDEN / "golden_input_f64.bin", np.float64).astype(np.float32)

@@ -279,11 +279,17 @@ def test_v2_auto_ids_codec_writes_dpk(mode):
 
 
 def test_v1_geometry_upgrades_to_v2():
-    """v1 cannot record a bin count: it warns and writes v2, which then
-    raises for the geometry (ROADMAP item 9)."""
+    """v1 cannot record a bin count: it warns and writes v2 (host-coded, the
+    ids codec "auto" of a v1 configuration), which records it and, with
+    verify on, decodes within the bound (tests/test_torch_geometry.py holds
+    such containers to the reference)."""
     import dctz_tpu_torch as dz
+    from dctz_tpu_torch.core import container as ct
 
+    x = signal(4096, 0)
     with pytest.warns(UserWarning, match="writing v2 instead"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            dz.compress(signal(4096, 0), config=dz.CodecConfig(nbins=127),
-                        device="cpu")
+        blob = dz.compress(x, config=dz.CodecConfig(nbins=127, verify=True),
+                           device="cpu")
+    assert ct.detect_format(blob) == "v2"
+    assert ct.parse_v2(blob)[0].nbins == 127
+    assert np.abs(dz.decompress(blob, device="cpu") - x).max() <= bound(x)
