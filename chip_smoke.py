@@ -181,6 +181,31 @@ Phases, each printed as one JSON line:
      from their plain versions in summation order, so it is held to the
      float32 paths' rule instead (the ratio within 0.1%, each decoding the
      other within the bound) and its byte equality is printed
+  4d. drivers: the drivers and tools (ROADMAP item 11) through their entry
+     points at their default device, the card. The CLI in process
+     (dctz_tpu_torch.cli.main, --json), the launch counters reset before
+     each run and read where it calls decompress: v1_ec (-f 1E-3 on the
+     bench array: F and H on compress, I and D on decode), v2_dpk (bench.py's
+     configuration, --container v2 --ids-codec device --verify: A and B,
+     then C and D, once a DTZS frame), v1_qt (--mode qt: E, G and H; I and
+     D-QT) and v1_f64_cesm (-d on the CESM-length formula in float64, dims
+     1800 3600 and a solName, --verify: H and I, never D); each .z
+     byte-equal to dz.compress of the same configuration in this process,
+     each .z.r to dz.decompress of the .z, the bound satisfied, the CLI's
+     own compress_s and decompress_s beside the API twin's. The harness:
+     sweep("msst19") over the bounds 1e-3, 1e-4, 1e-5, EC and QT, the
+     torch, native (where cpp/ builds) and auto engines, each torch row
+     equal to its device="cpu" twin but the two speeds; sweep("cesm-atm")
+     at 1e-3 (five synthetic 1800x3600 float32 fields, no sz_like: a
+     Python loop), H on every dctz row; every dctz row within the bound.
+     dctz_dump: dump on the four CLI containers and phase 4's ec
+     container; extract on that one (its id stream's exception bytes on
+     kernel I, which must launch once) and the v1_ec one (host code, no
+     launch), the card's files byte-equal to the CPU's. dct_test on 1Mi prefixes of the bench array
+     (float32) and the CESM-length formula (float64): max_diff and the scipy
+     oracle's within 32 eps of max |x| (the transform's budget), the .x and
+     .r within 32 eps of each block's max |x| of the CPU run's. Then the
+     phase's wall time
   5. times, per path: compress and decompress GB/s (median of warm runs;
      the float64 paths in GB/s of their float64 input bytes, REPS_F64 runs)
      and their split into stages; a torch.profiler pass over one call of each
@@ -375,7 +400,7 @@ PATHS = {
     "v2_deflate_brsf": (dict(container="v2", ids_codec="deflate", segment_elems=0,
                              verify=True, brsf=2.0), "bench", GENERIC_KERNELS),
     "ec_bs128": (dict(DPK, mode="ec", segment_elems=0, block_size=128), "bench",
-                 ("chunk_compact_unified",)),
+                 ("chunk_compact_unified", "chunk_expand")),
     "v2_nbins63": (dict(container="v2", ids_codec="deflate", segment_elems=0,
                         verify=True, nbins=63), "bench", ("chunk_compact", "chunk_expand")),
     "v1_f64_full_cesm": (dict(truncate=False), "cesm64", ()),
@@ -833,6 +858,278 @@ def item9_checks(dz, api, path, pcfg, x, blob, y, heads, timer, ratio, e2e, laun
     require(same_decode, f"{path}: the card's and the CPU's decodes differ")
     return {"ratio": ratio, "launches": launched, "item9": row, "card_vs_cpu": cc,
             "evaluate": dz.evaluate(x, y, cfg.error_bound)}
+
+
+#: the drivers phase's CLI runs on the bench array (32Mi float32) and the
+#: CESM-length formula in float64: the options after the protocol's
+#: positionals, the input, the API configuration whose container the .z
+#: must equal (None: dz.compress(x) with no config), the kernels that must
+#: launch at least once a frame on compress and on decode, and the kernels
+#: that must not launch
+DRIVER_RUNS = {
+    "v1_ec": ([], "bench", None, ("dct_quant", "chunk_compact"),
+              ("chunk_expand", "dequant_idct"), ()),
+    "v2_dpk": (["--container", "v2", "--ids-codec", "device", "--verify"], "bench",
+               dict(container="v2", ids_codec="device", verify=True),
+               ("dct_quant_verify", "dpk_pack_compact"),
+               ("dpk_unpack_expand", "dequant_idct"), ()),
+    "v1_qt": (["--mode", "qt"], "bench", dict(mode="qt"),
+              ("qtable_qmax", "dct_quant_qt", "chunk_compact"),
+              ("chunk_expand", "dequant_idct_qt"), ()),
+    "v1_f64_cesm": (["--verify"], "cesm64", dict(verify=True), ("chunk_compact",),
+                    ("chunk_expand",), D_KERNELS),
+}
+#: the bounds of the msst19 sweep (the reference's tests/test-dctz.sh:15)
+MSST19_BOUNDS = (1e-3, 1e-4, 1e-5)
+#: the fields of a harness row that are clocks
+ROW_SPEEDS = ("compress_mb_s", "decompress_mb_s")
+
+
+def run_cli(dz, fk, argv: list) -> tuple:
+    """dctz_tpu_torch.cli.main in this process, its stdout caught: (exit
+    code, stdout lines, launches of its compress, launches of its
+    decompress). The counters are reset first and read again where the CLI
+    calls decompress (a wrapper around dz.decompress, which the CLI looks
+    up at the call)."""
+    import io
+
+    from dctz_tpu_torch import cli
+
+    at_decode: dict = {}
+    api_decompress = dz.decompress
+
+    def decompress(*a, **kw):
+        at_decode.update(fk.LAUNCHES)
+        return api_decompress(*a, **kw)
+
+    out = io.StringIO()
+    fk.reset_launches()
+    dz.decompress = decompress
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        dz.decompress = api_decompress
+    total = dict(fk.LAUNCHES)
+    return (rc, out.getvalue().splitlines(), dict(at_decode),
+            {k: v - at_decode.get(k, 0) for k, v in total.items()})
+
+
+def caught(fn, argv: list) -> tuple:
+    """(exit code, stdout lines) of a tool's main(argv)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    return rc, out.getvalue().splitlines()
+
+
+def drivers_phase(dz, fk, native, inputs: dict, dpk_blob: bytes, card: str) -> dict:
+    """4d. The drivers and tools through their entry points on the card:
+    the CLI's four runs (DRIVER_RUNS), the harness's msst19 and cesm-atm
+    sweeps, dctz_dump's dump and extract, dct_test on 1Mi prefixes. Prints
+    one line a surface and the phase's wall time."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dctz_tpu_torch.eval import harness
+    from dctz_tpu_torch.eval.datasets import SUITES
+    from dctz_tpu_torch.tools import dct_test, dctz_dump
+
+    t_phase = time.perf_counter()
+    out: dict = {"cli": {}, "harness": [], "dump": {}, "extract": {}, "dct_test": {}}
+    os.makedirs("build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="drivers-", dir="build")
+    try:
+        files = {"bench": os.path.join(tmp, "bench.bin"),
+                 "cesm64": os.path.join(tmp, "cesm64.bin")}
+        for k, path in files.items():
+            inputs[k].tofile(path)
+        containers = {}
+        for name, (opts, inp, kw, comp_k, dec_k, never) in DRIVER_RUNS.items():
+            x = inputs[inp]
+            head = (["-d", "1E-3", "CLDHGH", files[inp], "1800", "3600", "sol(1E-3)"]
+                    if inp == "cesm64" else ["-f", "1E-3", "var", files[inp], str(x.size)])
+            argv = head + opts + ["--json"]
+            rc, lines, l_comp, l_dec = run_cli(dz, fk, argv)
+            require(rc == 0, f"drivers: cli {name} exited {rc}")
+            m = json.loads(next(ln for ln in lines if ln.startswith("{")))
+            mode = "qt" if "qt" in opts else "ec"
+            z_path = f"{files[inp]}.{mode}.1E-3.z"
+            with open(z_path, "rb") as f:
+                z = f.read()
+            # each run's own name: v1_ec and v2_dpk write the same file name
+            containers[name] = os.path.join(tmp, f"{name}.z")
+            os.replace(z_path, containers[name])
+            frames = len(dtzs_frames(z))
+            # the API twin in the same process: the same container, its decode
+            # the CLI's .z.r
+            cfg_api = None if kw is None else dz.CodecConfig(**kw)
+            t0 = time.perf_counter()
+            z_api = dz.compress(x, config=cfg_api, device="cuda")
+            t1 = time.perf_counter()
+            y_api = dz.decompress(z, device="cuda")
+            t2 = time.perf_counter()
+            r = np.fromfile(z_path + ".r", x.dtype)
+            row = {"run": name, "card": card, "argv": argv[:3] + ["<file>"] + argv[4:],
+                   "n": int(x.size), "input_dtype": str(x.dtype), "frames": frames,
+                   "bytes_out": len(z), "ratio": x.nbytes / len(z),
+                   "compress_s": m["compress_s"], "decompress_s": m["decompress_s"],
+                   "compress_gb_s": x.nbytes / m["compress_s"] / 1e9,
+                   "decompress_gb_s": x.nbytes / m["decompress_s"] / 1e9,
+                   "api_compress_s": t1 - t0, "api_decompress_s": t2 - t1,
+                   "z_equals_api": z == z_api, "zr_equals_api_decode":
+                   r.tobytes() == y_api.tobytes(),
+                   "bound_satisfied": m["bound_satisfied"], "max_rel_err": m["max_rel_err"],
+                   "launches_compress": {k: v for k, v in l_comp.items() if v},
+                   "launches_decode": {k: v for k, v in l_dec.items() if v},
+                   "stdout": [ln for ln in lines if not ln.startswith("{")]}
+            emit("drivers_cli", **row)
+            out["cli"][name] = row
+            require(lines[0] == f"total number of elements = {x.size}" and lines[-1] == "done",
+                    f"drivers: cli {name}: stdout {lines[:1]} ... {lines[-1:]}")
+            require(row["z_equals_api"], f"drivers: cli {name}: .z differs from the API's")
+            require(row["zr_equals_api_decode"],
+                    f"drivers: cli {name}: .z.r differs from dz.decompress of the .z")
+            require(y_api.dtype == x.dtype, f"drivers: cli {name}: decoded to {y_api.dtype}")
+            require(m["bound_satisfied"], f"drivers: cli {name}: bound violated")
+            short = [k for k in comp_k if l_comp[k] < frames] + [
+                k for k in dec_k if l_dec[k] < frames]
+            require(not short, f"drivers: cli {name}: fewer launches than frames: {short}")
+            ran = [k for k in never if l_comp[k] or l_dec[k]]
+            require(not ran, f"drivers: cli {name}: launched {ran}")
+            os.remove(z_path + ".r")
+
+        # the harness: msst19 (six float64 datasets; each torch row against
+        # its CPU twin) and cesm-atm (five 1800x3600 float32 fields,
+        # synthetic here; kernel H on every dctz row)
+        launched_rows: list = []
+
+        def progress(_line):
+            launched_rows.append({k: v for k, v in fk.LAUNCHES.items() if v})
+            fk.reset_launches()
+
+        engines = ("torch", "native", "auto") if native.available() else ("torch", "auto")
+        for suite, kw in (
+                ("msst19", dict(bounds=MSST19_BOUNDS, modes=("ec", "qt"), engines=engines)),
+                ("cesm-atm", dict(bounds=(1e-3,), modes=("ec", "qt"), engines=("torch",),
+                                  sz_baseline=False))):
+            launched_rows.clear()
+            fk.reset_launches()
+            t0 = time.perf_counter()
+            rows = harness.sweep(suite, device="cuda", progress=progress, **kw)
+            t_suite = time.perf_counter() - t0
+            by_name = {d.name: d for d in SUITES[suite]}
+            for row, launched in zip(rows, launched_rows):
+                rec = dict(row, suite=suite, card=card, launches=launched)
+                if suite == "msst19" and row["compressor"].endswith("_torch"):
+                    mode = row["compressor"].split("_")[1]
+                    twin = harness.run_one(by_name[row["dataset"]], row["error_bound"], mode,
+                                           device="cpu")
+                    rec["equals_cpu_row"] = all(twin[k] == row[k] for k in row
+                                                if k not in ROW_SPEEDS)
+                    require(rec["equals_cpu_row"],
+                            f"drivers: {row['dataset']} {row['compressor']} "
+                            f"{row['error_bound']}: differs from the CPU row {twin}")
+                emit("drivers_harness", **rec)
+                out["harness"].append(rec)
+                if row["compressor"].startswith("dctz_"):
+                    require(row["bound_satisfied"],
+                            f"drivers: {row['dataset']} {row['compressor']}: bound violated")
+                    if suite == "cesm-atm":
+                        require(launched.get("chunk_compact", 0) > 0,
+                                f"drivers: {row['dataset']} {row['compressor']}: no H")
+            emit("drivers_sweep", card=card, suite=suite, rows=len(rows), seconds=t_suite,
+                 engines=list(kw["engines"]))
+            out[f"{suite}_seconds"] = t_suite
+
+        # dctz_dump: dump on the CLI's containers and on phase 4's monolithic
+        # DPK container; extract on the DPK one and the v1 EC one, the card's
+        # files byte-equal to the CPU's
+        containers["ec_dpk"] = os.path.join(tmp, "ec_dpk.z")
+        with open(containers["ec_dpk"], "wb") as f:
+            f.write(dpk_blob)
+        for name, path in containers.items():
+            info = dctz_dump.dump(path)
+            out["dump"][name] = info
+            # a DTZS stream's dict: its total and its frames' headers
+            frames = info.get("frames", [info])
+            emit("drivers_dump", card=card, container=name, format=info["format"],
+                 elements=info.get("num_elements", info.get("total_elements")),
+                 total_bytes=info["total_bytes"], frames=len(frames),
+                 modes=sorted({f["mode"] for f in frames}),
+                 dpk=[f["dpk"] if "dpk" in f else f["filters"]["dpk"] for f in frames])
+            require(info.get("num_elements", info.get("total_elements")) == (
+                inputs["cesm64"] if name == "v1_f64_cesm" else inputs["bench"]).size,
+                f"drivers: dump {name}: {info}")
+        for name in ("ec_dpk", "v1_ec"):
+            fk.reset_launches()
+            t0 = time.perf_counter()
+            got = dctz_dump.extract(containers[name], os.path.join(tmp, "card"), device="cuda")
+            t_card = time.perf_counter() - t0
+            launched = {k: v for k, v in fk.LAUNCHES.items() if v}
+            want = dctz_dump.extract(containers[name], os.path.join(tmp, "cpu"), device="cpu")
+            same = {}
+            for a, b in zip(got, want):
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    same[os.path.basename(a).split(".", 1)[1]] = fa.read() == fb.read()
+                os.remove(a)
+                os.remove(b)
+            row = {"container": name, "card": card, "files": len(got), "equal": same,
+                   "card_s": t_card, "launches": launched}
+            emit("drivers_extract", **row)
+            out["extract"][name] = row
+            require(len(got) == len(want) and all(same.values()),
+                    f"drivers: extract {name}: the card's files differ from the CPU's {same}")
+            # the DPK id stream's exception bytes expand on kernel I; a v1
+            # container's streams are host code on either device
+            require(launched == ({"chunk_expand": 1} if name == "ec_dpk" else {}),
+                    f"drivers: extract {name}: launched {launched}")
+
+        # dct_test on 1Mi prefixes: the bench array (float32) and the
+        # CESM-length formula in float64; max_diff and the scipy oracle's
+        # within 32 eps of max |x|, the .x and .r within 32 eps of each
+        # block's max |x| of the CPU run's
+        for label, arr, flag in (("bench_f32", inputs["bench"][:PREFIX], "-f"),
+                                 ("cesm_f64", inputs["cesm64"][:PREFIX], "-d")):
+            paths = {d: os.path.join(tmp, f"{label}_{d}.bin") for d in ("cuda", "cpu")}
+            printed = {}
+            for d, path in paths.items():
+                arr.tofile(path)
+                rc, lines = caught(dct_test.main, [flag, path, str(arr.size)]
+                                   + (["--device", "cpu"] if d == "cpu" else []))
+                require(rc == 0 and len(lines) == 3, f"drivers: dct_test {label} {d}: {lines}")
+                printed[d] = [float(ln.split(":" if i == 0 else "=")[1])
+                              for i, ln in enumerate(lines)]
+            eps = float(np.finfo(arr.dtype).eps)
+            lim = 32 * eps * float(np.abs(arr).max())
+            blocks = np.concatenate([arr, np.zeros(-arr.size % 64, arr.dtype)]).reshape(-1, 64)
+            budget = np.repeat(32 * eps * np.abs(blocks).max(axis=1), 64)[:arr.size]
+            worst = {}
+            for ext in (".x", ".r"):
+                a = np.fromfile(paths["cuda"] + ext, arr.dtype).astype(np.float64)
+                b = np.fromfile(paths["cpu"] + ext, arr.dtype).astype(np.float64)
+                worst[ext] = float(np.max(np.abs(a - b) / budget))
+            row = {"input": label, "card": card, "n": int(arr.size), "dtype": str(arr.dtype),
+                   "outliers": int(printed["cuda"][0]), "max_diff": printed["cuda"][1],
+                   "oracle_max_diff": printed["cuda"][2], "cpu": printed["cpu"],
+                   "eps_max_abs": eps * float(np.abs(arr).max()), "limit_32ulp": lim,
+                   "card_vs_cpu_in_budget": worst}
+            emit("drivers_dct_test", **row)
+            out["dct_test"][label] = row
+            require(row["max_diff"] <= lim and row["oracle_max_diff"] <= lim,
+                    f"drivers: dct_test {label}: beyond 32 eps of max|x|: {row}")
+            require(max(worst.values()) <= 1.0,
+                    f"drivers: dct_test {label}: card and CPU .x/.r beyond the budget {worst}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("drivers", card=card, seconds=out["seconds"],
+         msst19_seconds=out["msst19_seconds"], cesm_atm_seconds=out["cesm-atm_seconds"])
+    return out
 
 
 def main() -> int:
@@ -1915,6 +2212,9 @@ def main() -> int:
         else:
             require(same, f"f64_card_vs_cpu: {path}: the card's container differs "
                           "from the CPU run's")
+
+    # 4d. the drivers and tools (the CLI, the harness, dctz_dump, dct_test)
+    report["drivers"] = drivers_phase(dz, fk, native, inputs, blobs["ec"], card)
 
     # 5. times (the card's name and power limit go beside every number)
     report["throughput"], report["stages"], report["profile"] = {}, {}, {}

@@ -124,6 +124,15 @@ def _todo(what: str, item: str) -> NotImplementedError:
     )
 
 
+def checked_device(device) -> torch.device:
+    """torch.device(device); "cuda" without a card raises (an entry point
+    never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    return device
+
+
 def _check_internal_dtype(cfg: CodecConfig) -> None:
     if cfg.internal_dtype not in ("auto", "float32"):
         raise ValueError(f"internal_dtype {cfg.internal_dtype!r}")
@@ -526,9 +535,7 @@ def _resolve_input(x, device, cfg: CodecConfig):
         arr = torch.from_numpy(np.ascontiguousarray(a))
     if arr.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {arr.dtype}; use float32/float64")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    device = checked_device(device)
     src_dtype = np.dtype(np.float64 if arr.dtype == torch.float64 else np.float32)
     arr = arr.reshape(-1).to(device)
     if cfg.internal_dtype == "float32":
@@ -963,10 +970,12 @@ def _decode_float_section(header: ct.Header, chunks, dc: bool = False) -> bytes:
     return raw
 
 
-def _dpk_host_rebuild(header: ct.Header, streams):
+def _dpk_host_rebuild(header: ct.Header, streams, planes_ok: bool = True):
     """Re-inflate a DPK container's side streams and re-pad the tight layouts
     into fixed-capacity rows. Returns (width (T,bs), rows, exc_rows, dc_raw,
-    ac_raw, n_stream, tile_b, cw, ac_counts, nblk)."""
+    ac_raw, n_stream, tile_b, cw, ac_counts, nblk); planes_ok=False gives
+    the DC and AC sections as bytes also where they are 4-byte PLC planes
+    (_float_raw)."""
     from . import native
     from .ops import idpack
 
@@ -995,8 +1004,8 @@ def _dpk_host_rebuild(header: ct.Header, streams):
     f_width = pool.submit(_side, widths_z)
     f_tight = pool.submit(_tight_task)
     f_exc = pool.submit(_exc_task)
-    f_dc = pool.submit(_float_raw, header, dz, True)
-    f_ac = pool.submit(_float_raw, header, az, True)
+    f_dc = pool.submit(_float_raw, header, dz, planes_ok)
+    f_ac = pool.submit(_float_raw, header, az, planes_ok)
 
     meta = _side(meta_z)
     n_stream, tile_b, cw = struct.unpack_from(_DPK_META_FMT, meta, 0)
@@ -1266,9 +1275,7 @@ def decompress(blob: bytes | memoryview, *, timer=None,
     from .utils.timing import StageTimer
 
     timer = timer or StageTimer()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    device = checked_device(device)
     if bytes(memoryview(blob)[:4]) == b"DTZS":
         # a segmented stream (stream.py): zero-copy frame reads, the output
         # allocated once

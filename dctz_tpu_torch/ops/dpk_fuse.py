@@ -31,7 +31,7 @@ wrappers count their launches in LAUNCHES, only where a kernel launches.
 Plain versions, composed from the ported modules:
   A: core.transform.block_dct + core.quantize.encode_ids(_qt) + ops.repair
   B: ops.idpack._pack_ids_with_ac_plain
-  C: ops.idpack.unpack_ids + ops.compaction.expand_rows
+  C: ops.idpack.unpack_ids(plain=True) + ops.compaction.expand_rows
   D: core.quantize.decode_dense + core.transform.block_idct
   E: ops.fused_encode._qtable_qmax_plain
 """
@@ -388,7 +388,8 @@ def encode_x_fused(x, sf, tol, n_valid: int, cfg_eb: float, cape: int,
 
 def _dpk_unpack_expand_plain(width, packed, exc_rows, ac_rows, nblk,
                              n_stream, cw):
-    ids = idpack.unpack_ids(width, packed, exc_rows, nblk, BS, TILE_B, cw)
+    ids = idpack.unpack_ids(width, packed, exc_rows, nblk, BS, TILE_B, cw,
+                            plain=True)
     esc = qz.ac_mask(nblk, BS, n_stream, ids.device) & (ids == C.ESCAPE)
     acv = cp.expand_rows(esc.reshape(-1, cw), ac_rows.to(torch.float32))
     return ids, acv.reshape(nblk, BS)

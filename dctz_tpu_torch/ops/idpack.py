@@ -5,7 +5,9 @@ min(id, 15) pack at the width w in 0..4 that minimises w*B + 8*#exceptions
 (first minimum wins); nibbles >= 2^w - 1 pack as that marker and their
 original id byte goes to the exception stream, compacted in block-major
 chunk rows like the AC stream. _pack_ids_with_ac_plain is kernel B's twin
-and unpack_ids is the id half of kernel C's twin (ops/dpk_fuse.py).
+and unpack_ids(plain=True) the id half of kernel C's twin (ops/dpk_fuse.py);
+unpack_ids expands its exception bytes through compaction.expand_chunked
+(kernel I where it applies).
 pack_ids_with_ac dispatches as the JAX package does: kernel B at B's
 geometry, kernel J (ops/shuffle.compact_unified) at any other tile or block
 size whose chunk width J takes (compaction.kernel_eligible), for CUDA
@@ -219,11 +221,15 @@ def _pack_ids_with_ac_unified(ids2d: torch.Tensor, dcac2d: torch.Tensor,
 
 
 def unpack_ids(width: torch.Tensor, packed: torch.Tensor, exc_rows: torch.Tensor,
-               nblk: int, bs: int, b: int, cw: int) -> torch.Tensor:
+               nblk: int, bs: int, b: int, cw: int, plain: bool = False) -> torch.Tensor:
     """Inverse of the packing -> (nblk, bs) uint8 with DC marks restored.
 
     width (T, bs); packed (T*bs, b//2) capacity rows; exc_rows (nc, cape) in
-    block-major chunk order, cw the encoder's chunk width."""
+    block-major chunk order, cw the encoder's chunk width. The exception
+    bytes return through compaction.expand_chunked (kernel I on the card
+    where it takes the chunk width), as dctz_tpu's unpack_ids takes the
+    Pallas expansion; plain=True keeps them in torch ops (expand_rows), for
+    the plain versions of kernels C and M."""
     t = width.shape[0]
     wcol = width.reshape(t * bs).to(torch.int32)
     nib = torch.zeros((t * bs, b), dtype=torch.int32, device=packed.device)
@@ -233,7 +239,8 @@ def unpack_ids(width: torch.Tensor, packed: torch.Tensor, exc_rows: torch.Tensor
     mask_tm = nib == thr[:, None]
     nib_bm = nib.reshape(t, bs, b).transpose(1, 2).reshape(t * b, bs)[:nblk]
     mask = mask_tm.reshape(t, bs, b).transpose(1, 2).reshape(t * b, bs)[:nblk]
-    exc = cp.expand_rows(mask.reshape(-1, cw), exc_rows.to(torch.int32))
+    expand = cp.expand_rows if plain else cp.expand_chunked
+    exc = expand(mask.reshape(-1, cw), exc_rows.to(torch.int32))
     ids = torch.where(mask, exc.reshape(nblk, bs), nib_bm)
     ids[:, 0] = C.ESCAPE
     return ids.to(torch.uint8)

@@ -69,7 +69,8 @@ def _coefficients_plain(width, packed, exc_rows, dc, ac_rows, b, cw, cfg, qtable
     quantize.decode_dense."""
     nb = width.shape[0] * b
     rows = nb * BS // cw
-    ids = idpack.unpack_ids(width, packed, _pad_rows(exc_rows, rows), nb, BS, b, cw)
+    ids = idpack.unpack_ids(width, packed, _pad_rows(exc_rows, rows), nb, BS, b, cw,
+                            plain=True)
     esc = ids == C.ESCAPE
     esc[:, 0] = False
     acv = cp.expand_rows(esc.reshape(-1, cw),

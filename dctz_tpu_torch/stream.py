@@ -170,9 +170,7 @@ def compress_stream(
     from .ops.repair import _SLACK
 
     cfg = config
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    device = api.checked_device(device)
     if isinstance(x, torch.Tensor):
         x = x.reshape(-1)
         dtype = np.dtype(str(x.dtype).removeprefix("torch."))

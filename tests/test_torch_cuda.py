@@ -1580,10 +1580,16 @@ def _signal64(n, seed):
     return x
 
 
-def _same_f64_container(a: bytes, b: bytes) -> bool:
+#: tests/test_torch_oracle.py's MEAN_ULPS (that module imports jax): a
+#: float32 header mean, a sum in another order, within this many ulp of
+#: float32(mean |x|)
+MEAN_ULPS = 4
+
+
+def _same_f64_container(a: bytes, b: bytes, mean_tol: float | None = None) -> bool:
     """tests/test_torch_f64.py's rule without jax: every section and header
     field equal but the mean; a QT qtable within rtol 1e-15; frame by frame
-    for a DTZS stream."""
+    for a DTZS stream. mean_tol, where given, holds the means within it."""
     import dataclasses
 
     from dctz_tpu_torch import stream
@@ -1601,6 +1607,9 @@ def _same_f64_container(a: bytes, b: bytes) -> bool:
             out.append(raw[off: off + flen])
             off += flen
 
+    def mean_of(f):
+        return (ct.parse_v1(f) if ct.detect_format(f) == "v1" else ct.parse_v2(f))[0].mean
+
     def parse(f):
         if ct.detect_format(f) == "v1":
             h, *s, q = ct.parse_v1(f)
@@ -1614,6 +1623,8 @@ def _same_f64_container(a: bytes, b: bytes) -> bool:
     for x, y in zip(fa, fb):
         (ha, sa, qa), (hb, sb, qb) = parse(x), parse(y)
         if ha != hb or sa != sb or (qa is None) != (qb is None):
+            return False
+        if mean_tol is not None and abs(mean_of(x) - mean_of(y)) > mean_tol:
             return False
         if qa is not None and not np.allclose(qa, qb, rtol=1e-15, atol=0):
             return False
@@ -1770,7 +1781,7 @@ ITEM9_ROUTES = {
                      {"chunk_compact", "chunk_expand", "dequant_idct"},
                      {"dct_quant", "dct_quant_verify"}),
     "dpk_bs128": (dict(F64_DPK, block_size=128, segment_elems=0), 4 * TILE_N - 3, False,
-                  {"chunk_compact_unified"},
+                  {"chunk_compact_unified", "chunk_expand"},
                   {"dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
                    "dequant_idct"}),
     "deflate_nbins63": (dict(container="v2", ids_codec="deflate", segment_elems=0,
@@ -1816,3 +1827,76 @@ def test_item9_route_on_card(dev, route):
     tol = 1e-3 * float(x.max() - x.min())
     assert np.abs(dz.decompress(blob_cpu, device="cuda") - x).max() <= tol
     assert np.abs(dz.decompress(blob, device="cpu") - x).max() <= tol
+
+
+# ---------------------------------------------------------------------------
+# the drivers (ROADMAP item 11): the CLI and the evaluation harness, whose
+# default device is the card
+# ---------------------------------------------------------------------------
+
+#: CLI cases: the dtype flag, the input's dtype, the options beyond the
+#: protocol's positionals
+CLI_CARD = {
+    "f32_v1": ("-f", np.float32, []),
+    "f32_dpk": ("-f", np.float32, ["--container", "v2", "--ids-codec", "device",
+                                   "--verify"]),
+    "f64_v1": ("-d", np.float64, ["--verify"]),
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_CARD))
+def test_cli_on_card_matches_cpu(dev, tmp_path, capsys, case):
+    """dctz_tpu_torch.cli at its default device, the card, on 1Mi samples:
+    the .z equals the --device cpu run's but for the header's mean (a sum in
+    another order; a float32 one within MEAN_ULPS), the JSON line's metrics
+    but the timings equal, the card's .z.r the CPU's bit for bit, and the
+    .z.r within the bound where verify is on."""
+    import json
+
+    from dctz_tpu_torch.cli import main
+
+    flag, dtype, extra = CLI_CARD[case]
+    n = 1 << 20
+    x = _signal64(n, 7).astype(dtype)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        d = tmp_path / device
+        d.mkdir()
+        x.tofile(d / "v.bin")
+        argv = [flag, "1E-3", "v", str(d / "v.bin"), str(n), "--json"] + extra
+        assert main(argv + (["--device", "cpu"] if device == "cpu" else [])) == 0
+        m = json.loads(capsys.readouterr().out.splitlines()[-2])
+        runs[device] = (m, (d / "v.bin.ec.1E-3.z").read_bytes(),
+                        np.fromfile(d / "v.bin.ec.1E-3.z.r", dtype))
+    (mg, zg, rg), (mc, zc, rc) = runs["cuda"], runs["cpu"]
+    mean_tol = (MEAN_ULPS * float(np.spacing(np.float32(np.abs(x).mean())))
+                if dtype == np.float32 else None)
+    assert _same_f64_container(zg, zc, mean_tol)
+    clocks = {"compress_s", "decompress_s", "mb_per_s_compress", "mb_per_s_decompress"}
+    assert list(mg) == list(mc)
+    assert {k: v for k, v in mg.items() if k not in clocks} == {
+        k: v for k, v in mc.items() if k not in clocks}
+    assert rg.dtype == rc.dtype == dtype
+    assert np.array_equal(rg, rc)
+    if "--verify" in extra:
+        assert mg["bound_satisfied"]
+        assert np.abs(rg.astype(np.float64) - x).max() <= 1e-3 * float(x.max() - x.min())
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+@pytest.mark.parametrize("which", ["msst19", "f32"])
+def test_harness_rows_on_card_match_cpu(dev, which, mode):
+    """harness.run_one at its default device, the card: the row equals the
+    CPU run's in every field but the two speeds (msst19's first entry,
+    float64; a 70001-sample float32 entry, the generic chain)."""
+    from dctz_tpu_torch.eval import harness
+    from dctz_tpu_torch.eval.datasets import MSST19, Dataset
+
+    ds = MSST19[0] if which == "msst19" else Dataset("toy", (70001,), "f32", "climate")
+    got = harness.run_one(ds, 1e-3, mode)
+    want = harness.run_one(ds, 1e-3, mode, device="cpu")
+    speeds = ("compress_mb_s", "decompress_mb_s")
+    assert list(got) == list(want)
+    assert {k: v for k, v in got.items() if k not in speeds} == {
+        k: v for k, v in want.items() if k not in speeds}
+    assert got["compressor"] == f"dctz_{mode}_torch" and got["bound_satisfied"]

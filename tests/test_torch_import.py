@@ -12,7 +12,14 @@ import torch
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("mod", ["dctz_tpu_torch", "dctz_tpu_torch.api"])
+@pytest.mark.parametrize("mod", [
+    "dctz_tpu_torch", "dctz_tpu_torch.api", "dctz_tpu_torch.cli",
+    "dctz_tpu_torch.eval.harness", "dctz_tpu_torch.eval.datasets",
+    "dctz_tpu_torch.eval.sz_like", "dctz_tpu_torch.eval.zc_compat",
+    "dctz_tpu_torch.tools.rand_gen", "dctz_tpu_torch.tools.dct_test",
+    "dctz_tpu_torch.tools.dctz_dump", "dctz_tpu_torch.tools.ncvar2bin",
+    "dctz_tpu_torch.tools.bin2csv",
+])
 def test_import_loads_neither_jax_nor_triton(mod):
     code = (
         "import importlib, sys\n"

@@ -145,6 +145,25 @@ def ref_arithmetic(monkeypatch):
     use_ref_arithmetic(monkeypatch)
 
 
+@pytest.fixture
+def ref_inverse(monkeypatch):
+    """The QT inverse ((v - side) / (eb * qt_factor)) * q as XLA compiles it
+    on the CPU, where the divisor is a compile-time constant: the division
+    becomes a product with the reciprocal, and the two products reassociate
+    to (v - side) * (q * (1 / (eb * qt_factor))), rounded in the values'
+    dtype. The port divides first, as the C codec does
+    (dctz-decomp-lib.c:401-413)."""
+    from dctz_tpu_torch.core import quantize as qz
+
+    def qt_inverse(vals, qtable, cfg):
+        _, rmin, rmax = qz._geometry(cfg, vals.dtype)
+        side = torch.where(vals > 0, qz._c(rmax, vals), qz._c(rmin, vals))
+        recip = 1.0 / torch.tensor(qz.qt_denom(cfg, vals.dtype), dtype=vals.dtype)
+        return (vals - side) * (qtable.to(vals.dtype)[None, :] * recip)
+
+    monkeypatch.setattr(qz, "qt_inverse", qt_inverse)
+
+
 def use_ref_arithmetic(monkeypatch) -> None:
     """Two float operations of the port set to the reference's as XLA
     compiles them on the CPU, so that whole containers compare byte for
