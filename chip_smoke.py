@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (dctz_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out build/chip_smoke.json]
+    python3 chip_smoke.py --multi-card    # two or more cards: phases 1, 2
+                                          # and multi_card_phase alone
 
 Drives the port's paths once each at full size and checks them.
 Thirty-two paths, on 32Mi float32 elements (128 MB) unless named otherwise:
@@ -206,6 +208,32 @@ Phases, each printed as one JSON line:
      oracle's within 32 eps of max |x| (the transform's budget), the .x and
      .r within 32 eps of each block's max |x| of the CPU run's. Then the
      phase's wall time
+  4e. sharded: multi-GPU (ROADMAP item 10) on the one card, at full width
+     on the bench array. compress_sharded on sharding.make_mesh() (the
+     card's count, 1) and on SHARDS (4) shards of cuda:0, bench.py's
+     configuration: each container the monolithic ec container but for the
+     mean (within MEAN_ULPS), A and B once a shard (a full-width retry
+     counted and printed), C and D once a shard in decompress_sharded, whose
+     output equals decompress of the same container bit for bit and holds
+     the bound. QT on the x30 input over 4 shards (the chain body: H on
+     encode, never A-QT; C and D-QT once a shard): the ratio within 0.1% of
+     qt_x30's, and whether its sections equal qt_x30's (the mean and
+     qtable[0] aside) printed, a finding, not a gate. ids_codec="deflate"
+     over 4 shards: H on encode, I and D once a shard on decode. N - 12345
+     samples over 4 shards (the last shard carries the padding): the bound,
+     and the sharded decode equal to decompress. A CUDA tensor: padded and
+     split on the card (Tensor.cpu, .numpy, .tolist and .to a host device
+     raise meanwhile), the numpy input's bytes. Times (median of REPS warm
+     runs): compress_sharded and decompress_sharded at 1 and 4 shards beside
+     ec's compress and decompress. Then two ranks on the card, spawned as
+     this script with --rank (rank_main; gloo on 127.0.0.1, NCCL refusing
+     two ranks on one GPU; each with a timeout, a failure in any failing the
+     phase): compress_multihost over N + 7 samples (the write's wall time,
+     median of REPS warm runs), the concatenated parts decoded within the
+     bound, decompress_multihost giving each rank its own frame equal to
+     the full decode's slice, and the tile-range restore of the monolithic
+     ec container equal to its decode's slices; A, B, C and D launched in
+     every rank. Then the phase's wall time
   5. times, per path: compress and decompress GB/s (median of warm runs;
      the float64 paths in GB/s of their float64 input bytes, REPS_F64 runs)
      and their split into stages; a torch.profiler pass over one call of each
@@ -1132,10 +1160,417 @@ def drivers_phase(dz, fk, native, inputs: dict, dpk_blob: bytes, card: str) -> d
     return out
 
 
+#: tests/test_torch_oracle.py's MEAN_ULPS (that module imports jax): the
+#: headers' float32 means of one array, summed in two orders, agree within
+#: this many ulp of float32(mean |x|)
+MEAN_ULPS = 4
+#: the sharded phase's mesh on the one card: this many shards of cuda:0
+SHARDS = 4
+#: the two-rank run of the sharded phase: ranks, and each rank's timeout
+RANKS = 2
+RANK_TIMEOUT_S = 300
+
+
+def compare_v2(a: bytes, b: bytes, x) -> dict:
+    """How two v2 containers of the same array compare: every section
+    equal, every header field but the mean equal, the qtables equal (and
+    equal but for slot 0, the last blocks' DC, which the decoder never
+    reads), and the means' difference in ulp of float32(mean |x|)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dctz_tpu_torch.core import container as ct
+
+    (ha, sa, qa, _), (hb, sb, qb, _) = ct.parse_v2(a), ct.parse_v2(b)
+    ulp = float(np.spacing(np.float32(np.abs(x).mean())))
+    same_q = (qa is None) == (qb is None) and (qa is None or qa.tobytes() == qb.tobytes())
+    return {"sections_equal": sa == sb,
+            "header_equal_but_mean": (dataclasses.replace(ha, mean=0.0)
+                                      == dataclasses.replace(hb, mean=0.0)),
+            "qtable_equal": same_q,
+            "qtable_equal_but_slot0": same_q or (
+                qa is not None and qb is not None and qa[1:].tobytes() == qb[1:].tobytes()),
+            "mean_ulps": abs(ha.mean - hb.mean) / ulp}
+
+
+def rank_main(args) -> int:
+    """One rank of a multi-rank run (chip_smoke.py --rank R --world W
+    --port P --n N --work DIR --backend B, started by run_ranks): a
+    process group on 127.0.0.1 (gloo for ranks that share a card, which
+    NCCL refuses; NCCL for one rank a card), the rank's mesh its card. compress_multihost of its slice of the bench
+    formula at N samples, 1 + REPS times between barriers (the wall time
+    of each write); its part to DIR/part{R}.bin; then decompress_multihost
+    of the concatenated parts and of DIR/mono.bin (a monolithic DPK
+    container: the tile-range decode); each run's launch counts. Writes
+    DIR/rank{R}.npz."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.ops import idpack
+    from dctz_tpu_torch.parallel import multihost as mh
+    from dctz_tpu_torch.utils.bench_data import climate_formula_np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mh.init(f"tcp://127.0.0.1:{args.port}", args.world, args.rank, backend=args.backend)
+    work, n = args.work, args.n
+    cfg = dz.CodecConfig(**dict(DPK, mode="ec", segment_elems=0))
+    lo, hi = mh.host_slice(n, quantum_blocks=idpack.B_DEFAULT)
+    local = climate_formula_np(n)[lo:min(hi, n)]
+    times, launches = [], {}
+    for rep in range(1 + REPS):
+        fk.reset_launches()
+        dist.barrier()
+        t0 = time.perf_counter()
+        part = mh.compress_multihost(local, n, config=cfg)
+        dist.barrier()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches["write"] = dict(fk.LAUNCHES)
+    with open(os.path.join(work, f"part{args.rank}.bin"), "wb") as f:
+        f.write(part)
+    dist.barrier()
+    stream = b"".join(open(os.path.join(work, f"part{r}.bin"), "rb").read()
+                      for r in range(args.world))
+    fk.reset_launches()
+    res = mh.decompress_multihost(stream)
+    launches["restore"] = dict(fk.LAUNCHES)
+    fk.reset_launches()
+    mono = mh.decompress_multihost(open(os.path.join(work, "mono.bin"), "rb").read())
+    launches["restore_mono"] = dict(fk.LAUNCHES)
+    np.savez(os.path.join(work, f"rank{args.rank}.npz"), data=res.data, start=res.start,
+             frames=np.asarray(res.frames, np.int64), mono=mono.data,
+             mono_start=mono.start, write_s=np.asarray(times),
+             launches=np.asarray(json.dumps(launches)))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(dz, n_ranks: int, backend: str, mono_blob: bytes, y_mono, card: str) -> dict:
+    """Spawns n_ranks ranks of this script (rank_main) on `backend`, each
+    with a timeout, a failure in any failing the run: compress_multihost
+    over N + 7 samples of the bench formula, the concatenated parts
+    decoded within the bound, decompress_multihost giving each rank its
+    own frame, equal to the full decode's slice, and the tile-range
+    restore of mono_blob (the monolithic ec container) equal to y_mono's
+    slices; A, B, C and D launched in every rank. Prints one
+    "sharded_ranks" line."""
+    import shutil
+    import socket
+
+    import numpy as np
+
+    from dctz_tpu_torch.utils.bench_data import climate_formula_np
+
+    work = os.path.join("build", f"ranks_{backend}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(work, "mono.bin"), "wb") as f:
+        f.write(mono_blob)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    n7 = N + 7
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--world", str(n_ranks),
+         "--port", str(port), "--n", str(n7), "--work", work, "--backend", backend],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(n_ranks)]
+    try:
+        for r, p in enumerate(procs):
+            _o, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            require(p.returncode == 0,
+                    f"ranks: rank {r} exited {p.returncode}: {err.decode()[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - t0
+    stream = b"".join(open(os.path.join(work, f"part{r}.bin"), "rb").read()
+                      for r in range(n_ranks))
+    x7 = climate_formula_np(n7)
+    y7 = dz.decompress(stream, device="cuda")
+    err7 = float(np.abs(y7 - x7).max())
+    tol7 = DPK["error_bound"] * float(x7.max() - x7.min())
+    ranks = []
+    for r in range(n_ranks):
+        z = np.load(os.path.join(work, f"rank{r}.npz"))
+        st, data, mst, mdata = int(z["start"]), z["data"], int(z["mono_start"]), z["mono"]
+        launches = json.loads(str(z["launches"]))
+        ranks.append({"rank": r, "start": st, "n": int(data.size),
+                      "frames": z["frames"].tolist(), "mono_start": mst,
+                      "mono_n": int(mdata.size),
+                      "slice_equal": data.tobytes() == y7[st : st + data.size].tobytes(),
+                      "mono_slice_equal": mdata.tobytes() == y_mono[mst : mst + mdata.size].tobytes(),
+                      "write_s": z["write_s"].tolist(),
+                      "launches": {k: {kk: v for kk, v in d.items() if v}
+                                   for k, d in launches.items()}})
+    write_s = statistics.median(max(rk["write_s"][i] for rk in ranks)
+                                for i in range(1, 1 + REPS))
+    mr = {"ranks": n_ranks, "backend": backend, "n": n7, "bytes_out": len(stream),
+          "ratio": x7.nbytes / len(stream), "max_err": err7, "bound": tol7,
+          "write_wall_s": write_s, "write_gb_s": x7.nbytes / write_s / 1e9,
+          "spawn_to_exit_s": ranks_s, "per_rank": ranks}
+    emit("sharded_ranks", card=card, **mr)
+    require(err7 <= tol7, "ranks: the ranks' stream violates the bound")
+    require(sum(rk["n"] for rk in ranks) == n7 and sum(rk["mono_n"] for rk in ranks) == N,
+            "ranks: the ranks' restores do not cover the array")
+    for rk in ranks:
+        require(rk["slice_equal"] and rk["mono_slice_equal"],
+                f"ranks: rank {rk['rank']}'s restore differs from the full decode")
+        w, rs, rm = (rk["launches"][k] for k in ("write", "restore", "restore_mono"))
+        require(w.get("dct_quant_verify") and w.get("dpk_pack_compact"),
+                f"ranks: rank {rk['rank']}'s write launched {w}")
+        require(rs.get("dpk_unpack_expand") and rs.get("dequant_idct")
+                and rm.get("dpk_unpack_expand") and rm.get("dequant_idct"),
+                f"ranks: rank {rk['rank']}'s restores launched {rs}, {rm}")
+        require(rk["frames"] == [rk["rank"]],
+                f"ranks: rank {rk['rank']} decoded frames {rk['frames']}")
+    shutil.rmtree(work, ignore_errors=True)
+    return mr
+
+
+def multi_card_phase(dz, fk, card: str) -> dict:
+    """chip_smoke.py --multi-card, on a machine with two or more cards:
+    compress_sharded / decompress_sharded over sharding.make_mesh() (every
+    card) on the bench array, EC (each container the single-card
+    monolithic container but for the mean, A and B once a card, C and D
+    once a card, the decode equal to decompress's) and QT on the x30
+    input (the ratio within 0.1% of the single-card container's); times
+    beside the single-card mesh and the monolithic path; then one NCCL
+    rank a card (run_ranks). Prints one line a check."""
+    import numpy as np
+    import torch
+
+    from dctz_tpu_torch.parallel import sharding as sh
+    from dctz_tpu_torch.utils.bench_data import climate_formula_np
+
+    mesh = sh.make_mesh()
+    k = len(mesh)
+    require(k >= 2, f"--multi-card: {k} card(s) visible")
+    x = climate_formula_np(N)
+    x30 = x.copy()
+    x30[::977] *= np.float32(30.0)
+    out: dict = {"cards": k}
+    for mode, xin in (("ec", x), ("qt", x30)):
+        cfg = dz.CodecConfig(**dict(DPK, mode=mode, segment_elems=0))
+        mono = dz.compress(xin, config=cfg, device="cuda:0")
+        fk.reset_launches()
+        blob = dz.compress_sharded(xin, config=cfg, mesh=mesh)
+        enc = {kk: v for kk, v in fk.LAUNCHES.items() if v}
+        fk.reset_launches()
+        y = dz.decompress_sharded(blob, mesh=mesh)
+        dec = {kk: v for kk, v in fk.LAUNCHES.items() if v}
+        row = {"mode": mode, "cards": k, "ratio": xin.nbytes / len(blob),
+               "single_card_ratio": xin.nbytes / len(mono), **compare_v2(blob, mono, xin),
+               "encode_launches": enc, "decode_launches": dec,
+               "max_err": float(np.abs(y - xin).max()),
+               "bound": DPK["error_bound"] * float(xin.max() - xin.min()),
+               "decode_equals_decompress":
+                   y.tobytes() == dz.decompress(blob, device="cuda:0").tobytes()}
+        emit("multi_card", card=card, **row)
+        out[mode] = row
+        require(row["max_err"] <= row["bound"] and row["decode_equals_decompress"],
+                f"multi_card {mode}: the decode is out of bound or differs from decompress")
+        require(abs(row["ratio"] / row["single_card_ratio"] - 1.0) <= RATIO_REL_TOL,
+                f"multi_card {mode}: the ratio differs from the single card's")
+        if mode == "ec":
+            require(row["sections_equal"] and row["header_equal_but_mean"]
+                    and row["mean_ulps"] <= MEAN_ULPS,
+                    "multi_card ec: the container differs from the single card's")
+            require(enc.get("dct_quant_verify", 0) % k == 0 and enc.get("dpk_pack_compact")
+                    == enc.get("dct_quant_verify") and dec == {
+                        "dpk_unpack_expand": k, "dequant_idct": k},
+                    f"multi_card ec: launches {enc}, {dec}")
+            blob_ec, mono_ec = blob, mono
+    cfg = dz.CodecConfig(**dict(DPK, mode="ec", segment_elems=0))
+    fns = {"ec_compress": lambda: dz.compress(x, config=cfg, device="cuda:0"),
+           "ec_decompress": lambda: dz.decompress(mono_ec, device="cuda:0")}
+    for label, m in (("mesh1", mesh[:1]), (f"x{k}", mesh)):
+        fns[f"sharded_{label}_compress"] = lambda m=m: dz.compress_sharded(x, config=cfg, mesh=m)
+        fns[f"sharded_{label}_decompress"] = lambda m=m: dz.decompress_sharded(blob_ec, mesh=m)
+    out["times"] = {}
+    for label, fn in fns.items():
+        t = wall_s(fn, REPS)
+        out["times"][label] = {"s": t, "gb_s": x.nbytes / t / 1e9}
+    emit("multi_card_times", card=card, cards=k, n=N, reps=REPS, times=out["times"])
+    torch.cuda.synchronize()
+    out["ranks"] = run_ranks(dz, k, "nccl", mono_ec, dz.decompress(mono_ec, device="cuda:0"),
+                             card)
+    return out
+
+
+def sharded_phase(dz, fk, inputs: dict, blobs: dict, decoded: dict, card: str) -> dict:
+    """4e. Multi-GPU (ROADMAP item 10) on the one card: compress_sharded /
+    decompress_sharded over sharding.make_mesh() and over SHARDS shards of
+    cuda:0, multi-rank writes and restores over torch.distributed (gloo),
+    and their times. Prints one line a check and the phase's wall time."""
+    import numpy as np
+    import torch
+
+    from dctz_tpu_torch.parallel import sharding as sh
+
+    t_phase = time.perf_counter()
+    out: dict = {"runs": {}}
+    x, x30 = inputs["bench"], inputs["x30"]
+    tol = DPK["error_bound"] * float(x.max() - x.min())
+    tol30 = DPK["error_bound"] * float(x30.max() - x30.min())
+    ec_cfg = dz.CodecConfig(**dict(DPK, mode="ec", segment_elems=0))
+    mesh1, mesh4 = sh.make_mesh(), ["cuda:0"] * SHARDS
+
+    def run(name, xin, cfg, mesh, bound, twin, **extra):
+        k = len(mesh)
+        fk.reset_launches()
+        blob = dz.compress_sharded(xin, config=cfg, mesh=mesh)
+        enc = {kk: v for kk, v in fk.LAUNCHES.items() if v}
+        fk.reset_launches()
+        y = dz.decompress_sharded(blob, mesh=mesh)
+        dec = {kk: v for kk, v in fk.LAUNCHES.items() if v}
+        y_one = dz.decompress(blob, device="cuda")
+        row = {"path": name, "shards": k, "n": int(xin.size), "bytes_out": len(blob),
+               "ratio": xin.nbytes / len(blob), "encode_launches": enc,
+               "decode_launches": dec, "max_err": float(np.abs(y - xin).max()),
+               "bound": bound, "decode_equals_decompress": y.tobytes() == y_one.tobytes()}
+        if twin is not None:
+            row.update(twin=twin, twin_ratio=xin.nbytes / len(blobs[twin]),
+                       **compare_v2(blob, blobs[twin], xin))
+            row["ratio_rel_diff"] = row["ratio"] / row["twin_ratio"] - 1.0
+        row.update(extra)
+        emit("sharded", card=card, **row)
+        out["runs"][name] = row
+        require(row["max_err"] <= bound, f"sharded {name}: pointwise bound violated")
+        require(row["decode_equals_decompress"],
+                f"sharded {name}: decompress_sharded differs from decompress")
+        return blob, row
+
+    # EC, bench.py's configuration: the card's own mesh and SHARDS shards of
+    # it, each container the monolithic ec container but for the mean
+    for name, mesh in (("ec_mesh", mesh1), ("ec_x4", mesh4)):
+        blob, row = run(name, x, ec_cfg, mesh, tol, "ec")
+        k = len(mesh)
+        enc, dec = row["encode_launches"], row["decode_launches"]
+        retries = enc.get("dct_quant_verify", 0) // k - 1
+        row["full_width_retries"] = retries
+        emit("sharded_retries", card=card, path=name, full_width_retries=retries)
+        require(row["sections_equal"] and row["header_equal_but_mean"] and row["qtable_equal"],
+                f"sharded {name}: the container differs from the monolithic ec container")
+        require(row["mean_ulps"] <= MEAN_ULPS, f"sharded {name}: mean {row['mean_ulps']} ulp off")
+        require(set(enc) == {"dct_quant_verify", "dpk_pack_compact"}
+                and enc["dct_quant_verify"] == enc["dpk_pack_compact"] == k * (1 + retries),
+                f"sharded {name}: encode launches {enc}, not A and B once a shard")
+        require(set(dec) == {"dpk_unpack_expand", "dequant_idct"}
+                and dec["dpk_unpack_expand"] == dec["dequant_idct"] == k,
+                f"sharded {name}: decode launches {dec}, not C and D once a shard")
+        if name == "ec_x4":
+            blob_x4 = blob
+
+    # QT on the x30 input: the chain body (kernel H per shard), C and D-QT
+    # on decode; the ratio beside qt_x30's (A-QT's), and whether the
+    # sections are that container's, for the record
+    qt_cfg = dz.CodecConfig(**dict(DPK, mode="qt", segment_elems=0))
+    _b, row = run("qt_x30_x4", x30, qt_cfg, mesh4, tol30, "qt_x30")
+    enc, dec = row["encode_launches"], row["decode_launches"]
+    require(abs(row["ratio_rel_diff"]) <= RATIO_REL_TOL,
+            f"sharded qt_x30_x4: ratio {row['ratio_rel_diff']:+.2e} off qt_x30's")
+    require(enc.get("chunk_compact", 0) >= SHARDS and not enc.get("dct_quant_verify_qt"),
+            f"sharded qt_x30_x4: encode launches {enc}: not the chain's H")
+    require(dec.get("dpk_unpack_expand") == SHARDS and dec.get("dequant_idct_qt") == SHARDS,
+            f"sharded qt_x30_x4: decode launches {dec}, not C and D-QT once a shard")
+
+    # host-coded ids (deflate): H on encode, I and D on decode
+    dfl_cfg = dz.CodecConfig(error_bound=DPK["error_bound"], container="v2",
+                             ids_codec="deflate", segment_elems=0, verify=True)
+    _b, row = run("v2_deflate_x4", x, dfl_cfg, mesh4, tol, None,
+                  twin_ratio=x.nbytes / len(blobs["v2_deflate"]))
+    enc, dec = row["encode_launches"], row["decode_launches"]
+    require(enc.get("chunk_compact", 0) >= SHARDS,
+            f"sharded v2_deflate_x4: encode launches {enc}: H not once a shard")
+    require(dec.get("chunk_expand") == SHARDS and dec.get("dequant_idct") == SHARDS,
+            f"sharded v2_deflate_x4: decode launches {dec}, not I and D once a shard")
+
+    # a length whose last shard carries the padding
+    x_pad = x[: N - 12345]
+    run("ec_pad_x4", x_pad, ec_cfg, mesh4,
+        DPK["error_bound"] * float(x_pad.max() - x_pad.min()), None)
+
+    # a CUDA tensor: padded and split on the card (Tensor.cpu, .numpy,
+    # .tolist and .to a host device raise meanwhile), the numpy input's bytes
+    x_dev = torch.from_numpy(x).cuda()
+    guarded = ("cpu", "numpy", "tolist", "to")
+    saved = {k: getattr(torch.Tensor, k) for k in guarded}
+    own = {k for k in guarded if k in vars(torch.Tensor)}
+
+    def no_host(*_a, **_k):
+        raise AssertionError("shard_input_device made a host copy")
+
+    def to_guarded(t, *a, **kw):
+        dst = kw.get("device", a[0] if a else None)
+        if isinstance(dst, (str, torch.device)) and torch.device(dst).type == "cpu":
+            no_host()
+        return saved["to"](t, *a, **kw)
+
+    try:
+        for k in ("cpu", "numpy", "tolist"):
+            setattr(torch.Tensor, k, no_host)
+        torch.Tensor.to = to_guarded
+        shards, n_pad = sh.shard_input_device(x_dev, sh.make_mesh(mesh4), 64, 256)
+    finally:
+        for k, v in saved.items():
+            if k in own:
+                setattr(torch.Tensor, k, v)
+            else:
+                delattr(torch.Tensor, k)
+    require(n_pad == N and all(s.is_cuda and s.numel() == N // SHARDS for s in shards),
+            "sharded: shard_input_device's shards are not on the card")
+    same_dev = dz.compress_sharded(x_dev, config=ec_cfg, mesh=mesh4) == blob_x4
+    emit("sharded_device_input", card=card, shards=SHARDS, bytes_equal_numpy_input=same_dev,
+         host_copy=False)
+    require(same_dev, "sharded: a CUDA tensor's container differs from the numpy input's")
+    del x_dev, shards
+
+    # times (median of REPS warm runs): the sharded entry points at 1 and
+    # SHARDS shards beside the monolithic ec path, in this phase
+    fns = {"ec_compress": lambda: dz.compress(x, config=ec_cfg, device="cuda"),
+           "ec_decompress": lambda: dz.decompress(blobs["ec"], device="cuda")}
+    for label, mesh in (("mesh1", mesh1), (f"x{SHARDS}", mesh4)):
+        fns[f"sharded_{label}_compress"] = (
+            lambda mesh=mesh: dz.compress_sharded(x, config=ec_cfg, mesh=mesh))
+        fns[f"sharded_{label}_decompress"] = (
+            lambda mesh=mesh: dz.decompress_sharded(blob_x4, mesh=mesh))
+    out["times"] = {}
+    for label, fn in fns.items():
+        t = wall_s(fn, REPS)
+        out["times"][label] = {"s": t, "gb_s": x.nbytes / t / 1e9}
+    emit("sharded_times", card=card, n=N, reps=REPS, times=out["times"])
+
+    # two ranks on the one card (gloo), spawned: the write over N + 7
+    # samples, the restore of the concatenated parts, and the tile-range
+    # restore of the monolithic ec container
+    out["ranks"] = run_ranks(dz, RANKS, "gloo", blobs["ec"], decoded["ec"], card)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("sharded_phase", card=card, seconds=out["seconds"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/chip_smoke.json",
                     help="where the full JSON report is written")
+    # one rank of the sharded phase's multi-rank run (rank_main), which the
+    # script starts itself
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--n", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
+    ap.add_argument("--backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--multi-card", action="store_true",
+                    help="on a machine with two or more cards: only the multi-card "
+                         "checks (multi_card_phase)")
     args = ap.parse_args()
 
     import torch
@@ -1143,6 +1578,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
+    if args.rank is not None:
+        return rank_main(args)
     import numpy as np
 
     import dctz_tpu_torch as dz
@@ -1206,6 +1643,16 @@ def main() -> int:
     for k in PERSISTENT_KERNELS:
         require(ctas[k] >= MIN_CTAS_PER_SM, f"{k}: {ctas[k]} resident CTAs per SM")
     report["build"] = {"seconds": build.last_build_s, "ptxas": ptxas, "ctas_per_sm": ctas}
+
+    if args.multi_card:
+        report["multi_card"] = multi_card_phase(dz, fk, card)
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # 3. kernels against their plain versions, at the main paths' shapes
     def cfg_of(path):
@@ -2215,6 +2662,9 @@ def main() -> int:
 
     # 4d. the drivers and tools (the CLI, the harness, dctz_dump, dct_test)
     report["drivers"] = drivers_phase(dz, fk, native, inputs, blobs["ec"], card)
+
+    # 4e. multi-GPU on the one card: the sharded entry points, two ranks
+    report["sharded"] = sharded_phase(dz, fk, inputs, blobs, decoded, card)
 
     # 5. times (the card's name and power limit go beside every number)
     report["throughput"], report["stages"], report["profile"] = {}, {}, {}

@@ -16,13 +16,18 @@ jax or triton.
     blob = dz.compress(x, config=cfg, device="cuda")  # DPK; DTZS from 32Mi on
     y = dz.decompress(blob, device="cuda")
 
+compress_sharded / decompress_sharded run the same kernels once per shard of
+a device mesh (parallel/sharding.py; mesh=["cuda:0", "cuda:1"], or every
+visible card by default), and parallel/multihost.py writes and restores one
+DTZS stream from several torch.distributed ranks.
+
 The stream writer and readers are in dz.stream, as in dctz_tpu.stream:
 compress_stream(x, out, config=cfg, device=...), decompress_stream(f) (one
 segment at a time), decompress_stream_all(f) and MemReader.
 """
 
 from . import stream
-from .api import compress, decompress
+from .api import compress, compress_sharded, decompress, decompress_sharded
 from .config import CodecConfig
 from .core.constants import BLK_SZ, NBINS, VERSION
 from .utils.metrics import evaluate
@@ -32,6 +37,8 @@ __version__ = VERSION
 __all__ = [
     "compress",
     "decompress",
+    "compress_sharded",
+    "decompress_sharded",
     "stream",
     "CodecConfig",
     "evaluate",

@@ -89,8 +89,16 @@ The other codec options are dispatched as the JAX package dispatches them:
     Float32 data with truncate=False takes the generic chain (float32
     stored values).
 
-A DPK container whose tiles are not 256 blocks raises NotImplementedError
-(ROADMAP item 10); nothing falls back silently.
+A DPK container whose tiles are not 256 blocks decodes through the torch
+ops that take any tile (idpack.unpack_ids, qz.expand_ac), then kernel D
+where its geometry holds, as the reference's XLA decode does
+(dctz_tpu/api.py:200-248).
+
+Multi-GPU (port of the reference's sharded and multi-host paths):
+compress_sharded / decompress_sharded run the single-device kernels once
+per shard of a device mesh (parallel/sharding.py), and
+_decompress_dpk_range decodes a tile range of a DPK container, the
+multi-rank restore of parallel/multihost.py.
 
 `device` is explicit ("cuda" by default; the CPU tests pass "cpu"). On a
 CUDA device every kernel of the path launches; on the CPU each kernel's
@@ -116,12 +124,6 @@ from .core import quantize as qz
 _DPK_META_FMT = "<QHH2x"  # n_stream (padded elements), tile_b, AC chunk width
 _DPK_META_SIZE = struct.calcsize(_DPK_META_FMT)
 _VERBATIM_CHUNK = 1 << 20  # split stored-verbatim sections for parallel crc
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to dctz_tpu_torch yet (ROADMAP item {item})"
-    )
 
 
 def checked_device(device) -> torch.device:
@@ -970,12 +972,25 @@ def _decode_float_section(header: ct.Header, chunks, dc: bool = False) -> bytes:
     return raw
 
 
-def _dpk_host_rebuild(header: ct.Header, streams, planes_ok: bool = True):
+def _dpk_host_rebuild(header: ct.Header, streams, tile_range=None,
+                      float_planes=True, meta=None):
     """Re-inflate a DPK container's side streams and re-pad the tight layouts
-    into fixed-capacity rows. Returns (width (T,bs), rows, exc_rows, dc_raw,
-    ac_raw, n_stream, tile_b, cw, ac_counts, nblk); planes_ok=False gives
-    the DC and AC sections as bytes also where they are 4-byte PLC planes
-    (_float_raw)."""
+    into fixed-capacity rows (dctz_tpu/api.py:936-1098). Returns (width
+    (T,bs), rows, exc_rows, dc_raw, ac_raw, n_stream, tile_b, cw,
+    ac_counts, nblk). float_planes: True gives 4-byte PLC DC and AC sections
+    as ("planes", [plane bytes]) (_float_raw), False as bytes, "skip" hands
+    back their chunk lists untouched (the tile-range decode decodes them
+    itself, _float_section_range). meta: the meta section already decoded
+    (_dpk_meta with_bytes=True).
+
+    tile_range=(t0, t1): rebuild only tiles [t0, t1), the multi-rank
+    restore (parallel/multihost.py). width, rows and exc_rows cover just
+    the slice: the bulk packed section is byte-range-sliced (zero-copy and
+    crc-checked over its covering chunks for a verbatim section,
+    chunk-range-decoded for the zstd and deflate ones), the exceptions are
+    decoded over their covering chunks; meta, dc_raw, ac_raw, ac_counts and
+    nblk stay GLOBAL (the caller slices DC and AC by its own count
+    prefixes)."""
     from . import native
     from .ops import idpack
 
@@ -993,6 +1008,22 @@ def _dpk_host_rebuild(header: ct.Header, streams, planes_ok: bool = True):
             return native.rans_decompress(entropy.join_chunks(packed_raw))
         return entropy.join_chunks(packed_raw)
 
+    def _tight_range(b0: int, b1: int):
+        """Decoded bytes [b0, b1) of the packed section, touching as little
+        of it as possible (the joined rANS stream has no random access:
+        decoded whole, then sliced)."""
+        if header.dpks:
+            return entropy.decode_chunk_range(packed_raw, b0, b1,
+                                              entropy.zstd_decompress)
+        if header.dpkz:
+            return entropy.decode_chunk_range(packed_raw, b0, b1, entropy.inflate)
+        if header.dpkr:
+            entropy.verify_chunk_range(packed_raw)
+            return memoryview(native.rans_decompress(
+                entropy.join_chunks(packed_raw)))[b0:b1]
+        entropy.verify_covering_chunks(packed_raw, b0, b1)
+        return memoryview(entropy.join_chunks(packed_raw))[b0:b1]
+
     def _exc_task():
         if header.zst:
             return entropy.chunked_unzstd(exc_z)
@@ -1001,13 +1032,27 @@ def _dpk_host_rebuild(header: ct.Header, streams, planes_ok: bool = True):
             return native.rans_decompress(b"".join(exc_z))
         return entropy.chunked_inflate(exc_z)
 
-    f_width = pool.submit(_side, widths_z)
-    f_tight = pool.submit(_tight_task)
-    f_exc = pool.submit(_exc_task)
-    f_dc = pool.submit(_float_raw, header, dz, planes_ok)
-    f_ac = pool.submit(_float_raw, header, az, planes_ok)
+    def _exc_range(e0: int, e1: int):
+        """Exception bytes [e0, e1), one byte an item."""
+        if header.zst:
+            return entropy.decode_chunk_range(exc_z, e0, e1, entropy.zstd_decompress)
+        if header.rans:
+            entropy.verify_chunk_range(exc_z)
+            return memoryview(native.rans_decompress(b"".join(exc_z)))[e0:e1]
+        return entropy.decode_chunk_range(exc_z, e0, e1, entropy.inflate)
 
-    meta = _side(meta_z)
+    f_width = pool.submit(_side, widths_z)
+    if tile_range is None:
+        f_tight = pool.submit(_tight_task)
+        f_exc = pool.submit(_exc_task)
+    if float_planes == "skip":
+        f_dc = f_ac = None
+    else:
+        f_dc = pool.submit(_float_raw, header, dz, bool(float_planes))
+        f_ac = pool.submit(_float_raw, header, az, bool(float_planes))
+
+    if meta is None:
+        meta = _side(meta_z)
     n_stream, tile_b, cw = struct.unpack_from(_DPK_META_FMT, meta, 0)
     bs = header.block_size
     nblk = -(-n_stream // bs)
@@ -1021,17 +1066,34 @@ def _dpk_host_rebuild(header: ct.Header, streams, planes_ok: bool = True):
 
     width = np.frombuffer(f_width.result(), np.uint8, bs * t).reshape(t, bs)
     bpr = idpack.packed_nbytes(width.reshape(-1), tile_b)
-    f_rows = pool.submit(
-        lambda: entropy.pad_row_prefixes(f_tight.result(), bpr, tile_b // 2, np.uint8)
-    )
-    exc_tight = np.frombuffer(f_exc.result(), np.uint8)
+    if tile_range is not None:
+        t0, t1 = tile_range
+        epc = (tile_b * bs) // cw  # chunk rows per tile
+        cum = np.concatenate(([0], np.cumsum(bpr, dtype=np.int64)))
+        tight = _tight_range(int(cum[t0 * bs]), int(cum[t1 * bs]))
+        width = width[t0:t1]
+        bpr = bpr[t0 * bs : t1 * bs]
+        c0, c1 = t0 * epc, min(t1 * epc, n_chunks)
+        ecum = np.concatenate(([0], np.cumsum(exc_counts, dtype=np.int64)))
+        exc_counts = exc_counts[c0:c1]
+        f_exc_r = pool.submit(_exc_range, int(ecum[c0]), int(ecum[c1]))
+        f_rows = pool.submit(
+            lambda: entropy.pad_row_prefixes(tight, bpr, tile_b // 2, np.uint8))
+        exc_tight = np.frombuffer(f_exc_r.result(), np.uint8)
+    else:
+        f_rows = pool.submit(
+            lambda: entropy.pad_row_prefixes(f_tight.result(), bpr, tile_b // 2,
+                                             np.uint8))
+        exc_tight = np.frombuffer(f_exc.result(), np.uint8)
     peak_e = int(exc_counts.max()) if exc_counts.size else 0
     cape = next(
         c for c in [c for c in (32, 64, 128, 256) if c < cw] + [cw]
         if c >= min(peak_e, cw)
     )
     exc_rows = entropy.pad_row_prefixes(exc_tight, exc_counts, cape, np.uint8)
-    return (width, f_rows.result(), exc_rows, f_dc.result(), f_ac.result(),
+    return (width, f_rows.result(), exc_rows,
+            dz if f_dc is None else f_dc.result(),
+            az if f_ac is None else f_ac.result(),
             n_stream, tile_b, cw, ac_counts, nblk)
 
 
@@ -1088,15 +1150,14 @@ def _decode_device_dpk(width, packed_rows, exc_rows, dc, ac_buf, n: int,
     _decode_device_dpk) -> (n,) of sf's dtype. dc/ac_buf may arrive as
     (4, ...) u8 byte planes, reassembled here; qtable (a device tensor)
     selects QT mode. The ids and the AC values come from kernel C where it
-    takes the container (dpk_fuse.decode_eligible, float32 stored values),
-    else from idpack.unpack_ids and qz.expand_ac (torch ops; kernel I at the
-    chunk widths it takes); the dequantization and inverse transform run on
+    takes the container (dpk_fuse.decode_eligible: tiles of 256 blocks,
+    float32 stored values), else from idpack.unpack_ids and qz.expand_ac
+    (torch ops at any tile; kernel I at the chunk widths it takes); the
+    dequantization and inverse transform run on
     kernel D (float32 at blocks of 64 and 255 bins) or in torch ops of sf's
     dtype (qz.decode_x), as the reference's _decode_core does (_dequantize)."""
     from .ops import dpk_fuse, idpack
 
-    if tile_b != dpk_fuse.TILE_B:
-        raise _todo(f"DPK tile_b={tile_b}", "10")
     if dc.dtype == torch.uint8:
         dc = _combine_planes(dc)
     if ac_buf.dtype == torch.uint8:
@@ -1292,3 +1353,332 @@ def decompress(blob: bytes | memoryview, *, timer=None,
         x = decode(dev, sf, qt)
     with timer.stage("transfer"):
         return x[:header.num_elements].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# tile-range decode of a DPK container (the multi-rank restore)
+# ---------------------------------------------------------------------------
+
+
+def _dpk_meta(header: ct.Header, streams, *, with_bytes: bool = False):
+    """(n_stream, tile_b, cw) from a DPK container's meta section alone
+    (dctz_tpu/api.py:1340-1349): a rank picks its tile range before any
+    bulk-section work. with_bytes=True appends the decoded meta section,
+    for _dpk_host_rebuild's meta=."""
+    _side = entropy.chunked_unzstd if header.zst else entropy.chunked_inflate
+    meta = _side(streams[3])
+    triple = struct.unpack_from(_DPK_META_FMT, meta, 0)
+    return triple + (meta,) if with_bytes else triple
+
+
+def _float_section_range(header: ct.Header, chunks, i0: int, i1: int):
+    """Items [i0, i1) of a DC or AC section as ("planes", [plane bytes]),
+    decoding only the chunks each plane needs, for a 4-byte-item PLC
+    section; other sections decode whole, ("bytes", raw)
+    (dctz_tpu/api.py:752-764)."""
+    if header.plc and chunks[0][0] == 4:  # directory byte 0 = itemsize
+        planes, _isz = entropy.decode_float_planes(chunks, item_range=(i0, i1))
+        return ("planes", planes)
+    return ("bytes", _decode_float_section(header, chunks))
+
+
+def _decompress_dpk_range(header: ct.Header, streams, qtable, t0: int, t1: int,
+                          meta=None, device: str | torch.device = "cuda") -> np.ndarray:
+    """Decode ONLY tiles [t0, t1) of a monolithic DPK container
+    (dctz_tpu/api.py:1352-1458), on `device`. The host rebuilds the
+    slice's rows (_dpk_host_rebuild tile_range: the bulk packed section
+    byte-range-sliced, crc-checked over the chunks it touches when the
+    container was parsed with chunk_crcs="defer") and the slice's DC and AC
+    items (_float_section_range); the device decodes only the slice's tiles
+    (_decode_device_dpk: kernels C + D where they take the container).
+    Returns the elements [t0*tile_b*bs, min(t1*tile_b*bs, num_elements)) in
+    the container's dtype."""
+    (width, rows, exc_rows, dc_chunks, ac_chunks, n_stream, tile_b, cw,
+     ac_counts, nblk) = _dpk_host_rebuild(header, streams, tile_range=(t0, t1),
+                                          float_planes="skip", meta=meta)
+    cfg = _header_config(header)
+    bs = header.block_size
+    n_chunks = (nblk * bs) // cw
+    epc = (tile_b * bs) // cw
+    b0, b1 = t0 * tile_b, min(t1 * tile_b, nblk)
+    c0, c1 = t0 * epc, min(t1 * epc, n_chunks)
+    acum = np.concatenate(([0], np.cumsum(ac_counts, dtype=np.int64)))
+    a0, a1 = int(acum[c0]), int(acum[c1])
+    dc_kind, dc_dat = _float_section_range(header, dc_chunks, b0, b1)
+    ac_kind, ac_dat = _float_section_range(header, ac_chunks, a0, a1)
+
+    stored = np.dtype(np.float32)
+    if dc_kind == "bytes":
+        stored, cfg = _stored_dtype(header, len(dc_dat), nblk, cfg)
+    counts_loc = ac_counts[c0:c1]
+    capc = _capc_tier(int(counts_loc.max()) if counts_loc.size else 0, cw)
+    if ac_kind == "planes":
+        pls = [np.frombuffer(p, np.uint8, a1 - a0) for p in ac_dat]
+        ac_rows = entropy.pad_row_prefixes(
+            np.concatenate(pls), np.tile(counts_loc, len(pls)), capc, np.uint8
+        ).reshape(len(pls), counts_loc.size, capc)
+    else:
+        ac_loc = np.frombuffer(ac_dat, stored, count=header.ac_count)[a0:a1]
+        ac_rows = entropy.pad_row_prefixes(ac_loc, counts_loc, capc, stored)
+    if dc_kind == "planes":
+        dc_loc = np.stack([np.frombuffer(p, np.uint8, b1 - b0) for p in dc_dat])
+    else:
+        dc_loc = np.frombuffer(dc_dat, stored, count=nblk)[b0:b1]
+
+    n_lo = t0 * tile_b * bs
+    n_loc = min(t1 * tile_b * bs, n_stream) - n_lo
+    dev, sf, qt = _to_device((width, rows, exc_rows, dc_loc, ac_rows), header,
+                             qtable, checked_device(device))
+    x = _decode_device_dpk(*dev, n_loc, cfg, tile_b, cw, sf, header.dcd, qt)
+    n_hi = min(t1 * tile_b * bs, header.num_elements)
+    return x[: n_hi - n_lo].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# sharded (multi-GPU) paths
+# ---------------------------------------------------------------------------
+
+
+def _gather(parts: list[torch.Tensor]) -> np.ndarray:
+    """The shards' outputs, in mesh order, as one host array."""
+    return np.concatenate([p.cpu().numpy() for p in parts])
+
+
+def _pull_shards(enc, dpk: bool):
+    """The host copies of a sharded encode's outputs (sharding.Encoded):
+    (per shard a dict of numpy arrays, the DC stream, the tight AC stream),
+    both streams in mesh order. Each shard's copies start before any is
+    waited for."""
+    from . import stream
+
+    keys = (("width", "packed", "exc_rows", "exc_counts", "dpk_ac_counts") if dpk
+            else ("bin_ids",)) + ("dc", "ac_rows", "ac_counts")
+    pulls = [stream._start_pull([s[k] for k in keys]) for s in enc.shards]
+    host = [dict(zip(keys, p())) for p in pulls]
+    dc = np.concatenate([h["dc"] for h in host])
+    ac = np.concatenate([entropy.take_row_prefixes(h["ac_rows"], h["ac_counts"])
+                         for h in host])
+    return host, dc, ac
+
+
+def _cat_rows(rows: list[np.ndarray]) -> np.ndarray:
+    """Row arrays of the shards stacked; a shard retried at full chunk width
+    has wider rows, so the narrower ones are zero-padded to the widest
+    (the host keeps row prefixes only)."""
+    cap = max(r.shape[1] for r in rows)
+    return np.concatenate([np.pad(r, ((0, 0), (0, cap - r.shape[1]))) for r in rows])
+
+
+def compress_sharded(
+    x: Any,
+    error_bound: float = 1e-3,
+    mode: str = "ec",
+    *,
+    config: CodecConfig | None = None,
+    mesh=None,
+    device: str | torch.device = "cuda",
+) -> bytes:
+    """Compress an array sharded over a device mesh into a v2 container
+    (dctz_tpu/api.py:2104-2257). The signature of dctz_tpu's plus `device`:
+    mesh (a list of devices, parallel/sharding.make_mesh) wins when given,
+    else `device` builds it ("cuda": every visible card). Per-shard work is
+    local (parallel/sharding.encode_sharded: kernels A + B per shard for EC
+    with the device ids, the chain with kernel H otherwise); only the
+    scaling factor, mean, tolerance, flags and QT table reduce across
+    shards. The container is forced to v2, brsf snapped, the ids codec
+    resolved. Float64 runs at full width unless internal_dtype="float32".
+    A tensor is padded and split where it lies (shard_input_device), never
+    through the host. The id stream has the padded length n_pad: a multiple
+    of len(mesh) * block_size, times the 256-block tile with the device
+    ids."""
+    from .ops import idpack
+    from .parallel import sharding as sh
+
+    cfg = config or CodecConfig(mode=mode, error_bound=error_bound, container="v2")
+    if cfg.container != "v2":
+        cfg = dataclasses.replace(cfg, container="v2")
+    cfg = _resolve_ids_codec(_quantize_brsf(cfg))
+    _check_internal_dtype(cfg)
+    mesh = sh.mesh_for(mesh, device)
+    dpk = cfg.ids_codec == "device"
+    quantum = idpack.B_DEFAULT if dpk else 1
+    bs = cfg.block_size
+    if isinstance(x, torch.Tensor):
+        if x.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"unsupported dtype {x.dtype}; use float32/float64")
+        src_dtype = np.dtype(np.float64 if x.dtype == torch.float64 else np.float32)
+        n = x.numel()
+        if n == 0:
+            raise ValueError("cannot compress an empty array")
+        shards, n_pad = sh.shard_input_device(
+            x, mesh, bs, quantum,
+            promote_f32=src_dtype == np.float64 and cfg.internal_dtype == "float32")
+    else:
+        src_dtype = np.dtype(getattr(x, "dtype", np.float64))
+        arr = np.asarray(x).reshape(-1)
+        if arr.dtype not in (np.float32, np.float64):
+            raise TypeError(f"unsupported dtype {arr.dtype}; use float32/float64")
+        if arr.dtype == np.float64 and cfg.internal_dtype == "float32":
+            arr = arr.astype(np.float32)
+        n = int(arr.shape[0])
+        if n == 0:
+            raise ValueError("cannot compress an empty array")
+        shards, n_pad = sh.shard_input(arr, mesh, bs, quantum)
+
+    enc = sh.encode_sharded(shards, n_real=n, cfg=cfg, dpk=dpk)
+    host, dc, ac = _pull_shards(enc, dpk)
+    if enc.ok is not None and not bool(enc.ok):
+        _warn_bound()
+    qtable = enc.qtable.cpu().numpy() if enc.qtable is not None else None
+    header = _header(cfg, n, ac.shape[0], float(enc.sf), float(enc.mean), src_dtype)
+    header.shuffle = cfg.shuffle
+    dc_ac_z = (
+        _float_sections(dc.tobytes(), dc.dtype.itemsize, cfg, header, dc=True),
+        _float_sections(ac.tobytes(), ac.dtype.itemsize, cfg, header),
+    )
+    if dpk:
+        # the shards' tile- and chunk-major outputs, in mesh order, ARE the
+        # single-device layout
+        cat = {k: np.concatenate([h[k] for h in host]) for k in
+               ("width", "packed", "exc_counts", "dpk_ac_counts")}
+        streams = _dpk_sections(
+            cat["width"], cat["packed"], _cat_rows([h["exc_rows"] for h in host]),
+            cat["exc_counts"], cat["dpk_ac_counts"], idpack.B_DEFAULT,
+            qz.chunk_width(n_pad // len(mesh), bs), n_pad, cfg, header,
+        ) + dc_ac_z
+    else:
+        ids = np.concatenate([h["bin_ids"] for h in host])
+        streams = _ids_streams(ids.reshape(-1).tobytes(), cfg, header) + dc_ac_z
+    return ct.pack_v2(header, streams, qtable if cfg.mode == "qt" else None,
+                      cfg.chunk_bytes)
+
+
+def _decode_dpk_on(header: ct.Header, streams, qtable, device) -> np.ndarray:
+    """The single-device decode of a parsed DPK container on `device`."""
+    host_arrays, (n_stream, tile_b, cw, cfg) = _dpk_decode_prep(header, streams)
+    dev, sf, qt = _to_device(host_arrays, header, qtable, device)
+    x = _decode_device_dpk(*dev, n_stream, cfg, tile_b, cw, sf, header.dcd, qt)
+    return x[:header.num_elements].cpu().numpy()
+
+
+def _decompress_dpk_sharded(header: ct.Header, streams, qtable, mesh) -> np.ndarray:
+    """The sharded decode of a DPK container (dctz_tpu/api.py:1251-1337):
+    the host re-pads the tile- and chunk-major layouts to a whole-tile
+    multiple of the mesh (zero tiles decode to zero blocks) and every shard
+    decodes its own tiles (parallel/sharding.decode_sharded_dpk). A
+    container whose stream length is not a block multiple (the XLA chain's
+    rem-point tail) decodes on the single-device path of the mesh's first
+    device."""
+    from .parallel import sharding as sh
+
+    (width, rows, exc_rows, dc_raw, ac_raw, n_stream, tile_b, cw, ac_counts,
+     nblk) = _dpk_host_rebuild(header, streams, float_planes=False)
+    cfg = _header_config(header)
+    bs = header.block_size
+    n_dev = len(mesh)
+    if n_stream % bs:
+        return _decode_dpk_on(header, streams, qtable, mesh[0])
+    stored, cfg = _stored_dtype(header, len(dc_raw), nblk, cfg)
+    dc = np.frombuffer(dc_raw, dtype=stored, count=nblk)
+    if header.dcd:  # the shards take DC values, not deltas
+        dc = entropy.f32_delta_inv(dc)
+    ac = np.frombuffer(ac_raw, dtype=stored, count=header.ac_count)
+    capc = _capc_tier(int(ac_counts.max()) if ac_counts.size else 0, cw)
+    ac_rows = entropy.pad_row_prefixes(ac, ac_counts, capc, stored)
+
+    tpd = -(-width.shape[0] // n_dev) * n_dev
+    epc = tile_b * bs // cw
+
+    def _pad_rows(a: np.ndarray, want: int) -> np.ndarray:
+        if a.shape[0] == want:
+            return a
+        pad = np.zeros((want - a.shape[0],) + a.shape[1:], a.dtype)
+        return np.concatenate([a, pad])
+
+    parts = sh.decode_sharded_dpk(
+        _pad_rows(width, tpd), _pad_rows(rows, tpd * bs), _pad_rows(exc_rows, tpd * epc),
+        _pad_rows(dc, tpd * tile_b), _pad_rows(ac_rows, tpd * epc),
+        header.scaling_factor, qtable, tile_b=tile_b, cw=cw, cfg=cfg,
+        dtype=_work_dtype(header), mesh=mesh)
+    return _gather(parts)[:header.num_elements]
+
+
+def decompress_sharded(blob: bytes | memoryview, *, mesh=None,
+                       device: str | torch.device = "cuda") -> np.ndarray:
+    """Decompress a v2 container (or a DTZS stream of them) with the device
+    stage sharded over a mesh (dctz_tpu/api.py:2260-2375); mesh and device
+    as in compress_sharded. DPK containers: _decompress_dpk_sharded.
+    Host-coded ones: the host inflates the streams, pads the id stream to
+    the mesh quantum (bin 0 and a DC mark on the padding, which decodes to
+    zero blocks), cuts the AC stream into chunk rows by the per-chunk
+    escape counts of the ids, and every shard decodes its rows
+    (parallel/sharding.decode_sharded: kernels I + D where they apply). An
+    id stream whose length is not a block multiple (the generic chain's
+    rem-point tail) decodes on the single-device path of the mesh's first
+    device, as the DPK branch does. A DTZS stream restores frame by frame
+    into one output."""
+    from .parallel import sharding as sh
+
+    mesh = sh.mesh_for(mesh, device)
+    if bytes(memoryview(blob)[:4]) == b"DTZS":
+        from . import stream as _stream
+
+        reader = _stream.MemReader(blob)
+        total = _stream._read_stream_header(reader)
+        out: np.ndarray | None = None
+        off = 0
+        while True:
+            raw = reader.read(_stream._FRAME.size)
+            if len(raw) != _stream._FRAME.size:
+                raise ValueError("truncated stream: missing frame header")
+            (length,) = _stream._FRAME.unpack(raw)
+            if not length:
+                break
+            body = reader.read(length)
+            if len(body) != length:
+                raise ValueError("truncated stream: frame body cut short")
+            part = decompress_sharded(body, mesh=mesh)
+            if out is None:
+                if part.size == total:
+                    return part
+                out = np.empty(total, part.dtype)
+            out[off : off + part.size] = part
+            off += part.size
+        if out is None or off != total:
+            raise ValueError(f"truncated stream: {off} of {total} elements restored")
+        return out
+
+    header, streams, qtable, _cb = ct.parse_v2(blob)
+    qtable = qtable if header.mode == "qt" else None
+    if header.dpk:
+        return _decompress_dpk_sharded(header, streams, qtable, mesh)
+    bindex, dc_raw, ac_raw = _inflate_v2_streams(header, streams)
+    bs = header.block_size
+    n_dev = len(mesh)
+    if len(bindex) % bs:
+        return decompress(blob, device=mesh[0])
+
+    cfg = _header_config(header)
+    ids = np.frombuffer(bindex, np.uint8)
+    nblk_real = len(ids) // bs
+    n_pad = sh.padded_size(len(ids), n_dev, bs)
+    padded = n_pad != len(ids)
+    if padded:
+        ids = np.concatenate([ids, np.zeros(n_pad - len(ids), np.uint8)])
+    nblk = n_pad // bs
+    ids2d = ids.reshape(nblk, bs)
+    stored, cfg = _stored_dtype(header, len(dc_raw), nblk_real, cfg)
+    dc = np.zeros(nblk, stored)
+    dc[:nblk_real] = np.frombuffer(dc_raw, stored, count=nblk_real)
+    ac = np.frombuffer(ac_raw, stored, count=header.ac_count)
+    if padded:
+        # a DC mark on every block, so that each chunk's escape count
+        # holds one per block (the real blocks have theirs)
+        ids2d[:, 0] = C.ESCAPE
+    cw = qz.chunk_width(n_pad // n_dev, bs)
+    counts = _chunk_escape_counts(ids2d.reshape(-1), cw, bs)
+    capc = _capc_tier(int(counts.max()) if counts.size else 0, cw)
+    ac_rows = entropy.pad_row_prefixes(ac, counts, capc, stored)
+    parts = sh.decode_sharded(ids2d, dc, ac_rows, header.scaling_factor, qtable,
+                              cfg=cfg, dtype=_work_dtype(header), mesh=mesh)
+    return _gather(parts)[:header.num_elements]

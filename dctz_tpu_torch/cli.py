@@ -16,8 +16,9 @@ error`, `CR = ..., PSNR = ...` (dctz-test.c:94,184,277; util.c:95).
 The port of dctz_tpu.cli: the same protocol, options, files and lines,
 plus --device (the CUDA card unless "cpu" is given). Float64 (-d) runs at
 full width, as dctz_tpu does with x64 on. --native runs
-dctz_tpu_torch.native (the C++ codec); --sharded raises until the
-multi-GPU API is ported (ROADMAP item 10).
+dctz_tpu_torch.native (the C++ codec); --sharded runs compress_sharded
+over every visible card (one device with --device cpu or cuda:N) and
+decompresses with decompress.
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--sharded",
         action="store_true",
-        help="shard over the devices (not ported yet: ROADMAP item 10)",
+        help="compress sharded over the devices (compress_sharded)",
     )
     p.add_argument(
         "--segment-elems",
@@ -159,9 +160,9 @@ def main(argv: list[str] | None = None) -> int:
 
         blob = native.compress(data, eb, args.mode)
     elif args.sharded:
-        from .api import _todo
+        from .api import compress_sharded
 
-        raise _todo("compress_sharded", "10")
+        blob = compress_sharded(data, eb, args.mode, device=args.device)
     else:
         from . import compress
         from .config import CodecConfig

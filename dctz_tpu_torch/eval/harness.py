@@ -14,8 +14,8 @@ eb, CR, PSNR) so real Z-Checker results can be merged in later.
 The port of dctz_tpu.eval.harness: the same rows in the same CSV columns.
 The JAX engine "jax" is "torch" here (compressor dctz_{mode}_torch), and
 every run takes a device, the CUDA card unless "cpu" is given (--device);
-"native" and "auto" are kept; "sharded" raises until the multi-GPU API is
-ported (ROADMAP item 10).
+"native", "auto" and "sharded" (compress_sharded / decompress_sharded over
+every visible card, or the given device) are kept.
 
 Usage:
     python -m dctz_tpu_torch.eval.harness --suite msst19 --out eval/results.csv
@@ -60,10 +60,6 @@ def run_one(
     from ..config import CodecConfig
     from ..utils.metrics import evaluate
 
-    if engine == "sharded":
-        from ..api import _todo
-
-        raise _todo("compress_sharded", "10")
     x = ds.load(data_dir)
     t0 = time.perf_counter()
     if engine == "native":
@@ -85,6 +81,15 @@ def run_one(
         blob = compress(x, config=cfg, device=device)
         t1 = time.perf_counter()
         rec = decompress(blob, device=device)
+    elif engine == "sharded":
+        from .. import compress_sharded, decompress_sharded
+
+        cfg = CodecConfig(
+            mode=mode, error_bound=error_bound, container="v2", verify=verify
+        )
+        blob = compress_sharded(x, config=cfg, device=device)
+        t1 = time.perf_counter()
+        rec = decompress_sharded(blob, device=device)
     else:
         from .. import compress, decompress
 

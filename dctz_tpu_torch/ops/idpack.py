@@ -220,6 +220,17 @@ def _pack_ids_with_ac_unified(ids2d: torch.Tensor, dcac2d: torch.Tensor,
         lambda m, i, v, c: shuffle.compact_unified(m, i, v, c, c))
 
 
+def ac_chunk_counts(ids2d: torch.Tensor, n_valid: int, cw: int) -> torch.Tensor:
+    """Per-chunk AC escape counts of an id grid (dctz_tpu/ops/idpack.py:
+    326-339): the ESCAPE ids at AC positions below n_valid in each chunk row
+    of cw ids -> (nblk*bs/cw,) int32. A DPK container stores them, so its
+    decode never rescans the id stream."""
+    nblk, bs = ids2d.shape
+    pos = torch.arange(nblk * bs, device=ids2d.device).reshape(nblk, bs)
+    esc = (ids2d.to(torch.int32) == C.ESCAPE) & (pos % bs >= 1) & (pos < n_valid)
+    return esc.reshape(-1, cw).sum(dim=1, dtype=torch.int32)
+
+
 def unpack_ids(width: torch.Tensor, packed: torch.Tensor, exc_rows: torch.Tensor,
                nblk: int, bs: int, b: int, cw: int, plain: bool = False) -> torch.Tensor:
     """Inverse of the packing -> (nblk, bs) uint8 with DC marks restored.

@@ -87,7 +87,7 @@ def extract(path: str, out_prefix: str | None = None,
             (
                 width, rows, exc_rows, dc, ac, n_stream, tile_b, cw, _acc,
                 nblk,
-            ) = _dpk_host_rebuild(hdr, streams, planes_ok=False)
+            ) = _dpk_host_rebuild(hdr, streams, float_planes=False)
             bindex = (
                 idpack.unpack_ids(
                     *(torch.from_numpy(np.array(a)).to(device)

@@ -130,16 +130,40 @@ def test_native_matches_reference(tmp_path, capsys):
     _check(out, argv, x, cross=False)
 
 
-@pytest.mark.parametrize("flag", ["-d", "-f"])
-def test_sharded_raises_naming_item_10(tmp_path, flag):
-    from dctz_tpu_torch.cli import main
+@pytest.fixture
+def reference_mesh(monkeypatch):
+    """--sharded: the reference's CLI shards over its default mesh, every
+    JAX device (tests/conftest.py's 8 virtual host devices), and resolves
+    ids_codec "auto" for v2 to the device ids on its accelerator only
+    (tests/test_torch_eval.py's auto_means_device); the port's CLI here
+    shards over as many CPU devices, and takes the device ids on every
+    device."""
+    import dataclasses
 
-    x = np.ones(4096, np.float64 if flag == "-d" else np.float32)
-    src = tmp_path / "s.bin"
-    x.tofile(src)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        main([flag, "1E-3", "v", str(src), "4096", "--sharded", "--device", "cpu"])
-    assert not list(tmp_path.glob("*.z"))
+    import jax
+
+    from dctz_tpu import api as ja
+    from dctz_tpu_torch.parallel import sharding as sh
+
+    n = len(jax.devices())
+    monkeypatch.setattr(sh, "mesh_for", lambda mesh, device: [torch.device("cpu")] * n)
+
+    def resolve(cfg):
+        if cfg.ids_codec == "auto" and cfg.container == "v2":
+            return dataclasses.replace(cfg, ids_codec="device")
+        return cfg
+
+    monkeypatch.setattr(ja, "_resolve_ids_codec", resolve)
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+def test_sharded_double_matches_reference(tmp_path, capsys, ref_arithmetic, ref_inverse,
+                                          reference_mesh, mode):
+    """-d --sharded: compress_sharded at full width over 8 shards."""
+    x = _f64(6400, 3)
+    argv = ["-d", "1E-3", "v", "@", "6400", "--sharded", "--mode", mode, "--json"]
+    out = _run_both(tmp_path, capsys, argv, x)
+    _check(out, argv, x)
 
 
 def test_usage_and_bad_input(tmp_path, capsys):
@@ -197,3 +221,15 @@ def test_float_matches_reference(tmp_path, capsys, oracle, ref_arithmetic,
     x = _f32(n)
     out = _run_both(tmp_path, capsys, ["-f"] + argv, x)
     _check(out, ["-f"] + argv, x, edge_flips="device" in argv)
+
+
+def test_sharded_float_matches_reference(tmp_path, capsys, oracle, ref_arithmetic,
+                                         ref_inverse, reference_mesh):
+    """-f --sharded: compress_sharded over 8 shards, kernels A + B per
+    shard (the reference's Pallas kernel in interpret mode: edge flips).
+    --sharded takes no config in either CLI: no verify, whatever the
+    flags."""
+    x = _f32(40000)
+    argv = ["-f", "1E-3", "v", "@", "40000", "--sharded", "--json"]
+    out = _run_both(tmp_path, capsys, argv, x)
+    _check(out, argv, x, edge_flips=True)

@@ -1900,3 +1900,100 @@ def test_harness_rows_on_card_match_cpu(dev, which, mode):
     assert {k: v for k, v in got.items() if k not in speeds} == {
         k: v for k, v in want.items() if k not in speeds}
     assert got["compressor"] == f"dctz_{mode}_torch" and got["bound_satisfied"]
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU (ROADMAP item 10): the sharded paths on a mesh of one card
+# ---------------------------------------------------------------------------
+
+#: compress_sharded configurations: (config, QT input, kernels that launch
+#: once a shard on encode (A and B again on a full-width retry; the chain's
+#: H for the AC rows and the id exceptions), on decode)
+SHARDED_CARD = {
+    "ec_dpk": (dict(F64_DPK), False, {"dct_quant_verify", "dpk_pack_compact"},
+               {"dpk_unpack_expand", "dequant_idct"}),
+    "qt_dpk": (dict(F64_DPK, mode="qt"), True, {"chunk_compact"},
+               {"dpk_unpack_expand", "dequant_idct_qt"}),
+    "ec_deflate": (dict(F64_DPK, ids_codec="deflate"), False, {"chunk_compact"},
+                   {"chunk_expand", "dequant_idct"}),
+}
+#: 4 shards of 2 tiles, the last one holding the padding
+SHARDED_N = 8 * TILE_N - 777
+
+
+@pytest.mark.parametrize("case", list(SHARDED_CARD))
+def test_sharded_mesh_on_card(dev, case):
+    """compress_sharded on ["cuda:0"] * 4 against ["cpu"] * 4: the same
+    container but for the mean (ec_dpk: kernels A and B, whose containers
+    have equalled their plain versions' on every card run) or, where the
+    chain's transform is a cuBLAS product (qt_dpk, ec_deflate), the ratio
+    within 0.1% and each decoding the other within the bound; every kernel
+    of the path once a shard; decompress_sharded equal to decompress of
+    the same container, and within the bound."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+
+    kw, qt_input, enc_k, dec_k = SHARDED_CARD[case]
+    x = _qt_input(SHARDED_N, 5) if qt_input else _signal(SHARDED_N, 5)
+    cfg = dz.CodecConfig(**kw)
+    fk.reset_launches()
+    blob = dz.compress_sharded(x, config=cfg, mesh=["cuda:0"] * 4)
+    enc = {k: v for k, v in fk.LAUNCHES.items() if v}
+    fk.reset_launches()
+    y = dz.decompress_sharded(blob, mesh=["cuda:0"] * 4)
+    dec = {k: v for k, v in fk.LAUNCHES.items() if v}
+    assert set(enc) == enc_k and all(v % 4 == 0 for v in enc.values()), enc
+    if case == "ec_dpk":
+        assert enc["dct_quant_verify"] == enc["dpk_pack_compact"]
+    assert dec == {k: 4 for k in dec_k}, dec
+    assert np.array_equal(y, dz.decompress(blob, device="cuda"))
+    tol = 1e-3 * float(x.max() - x.min())
+    assert np.abs(y - x).max() <= tol
+    blob_cpu = dz.compress_sharded(x, config=cfg, mesh=["cpu"] * 4)
+    if case == "ec_dpk":
+        mean_tol = MEAN_ULPS * float(np.spacing(np.float32(np.abs(x).mean())))
+        assert _same_f64_container(blob, blob_cpu, mean_tol)
+    assert abs(len(blob) / len(blob_cpu) - 1.0) <= 1e-3
+    assert np.abs(dz.decompress_sharded(blob_cpu, mesh=["cuda:0"] * 2) - x).max() <= tol
+    assert np.abs(dz.decompress_sharded(blob, mesh=["cpu"] * 4) - x).max() <= tol
+
+
+def test_sharded_device_input_on_card(dev, monkeypatch):
+    """A CUDA tensor is padded and split on the card (Tensor.cpu, .numpy
+    and .tolist raise meanwhile), and writes the numpy input's container."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.parallel import sharding as sh
+
+    x = _signal(SHARDED_N, 6)
+    x_dev = torch.from_numpy(x).to(dev)
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("cpu", "numpy", "tolist"):
+            mp.setattr(torch.Tensor, name, lambda *_a, **_k: pytest.fail("host copy"))
+        shards, n_pad = sh.shard_input_device(x_dev, sh.make_mesh(["cuda:0"] * 4), 64, 256)
+    assert n_pad == 8 * TILE_N and all(s.is_cuda and s.numel() == 2 * TILE_N for s in shards)
+    cfg = dz.CodecConfig(**F64_DPK)
+    mesh = ["cuda:0"] * 4
+    assert dz.compress_sharded(x_dev, config=cfg, mesh=mesh) == dz.compress_sharded(
+        x, config=cfg, mesh=mesh)
+
+
+def test_two_gloo_ranks_on_card(dev, tmp_path):
+    """Two ranks on the one card (gloo: NCCL refuses two ranks on one
+    GPU), each with the mesh ["cuda:0"]: the write's parts decode within
+    the bound, and a two-rank restore gives each rank its own frame, equal
+    to the full decode's slice."""
+    import dctz_tpu_torch as dz
+    from test_torch_multihost import _restored, _run, make_data
+
+    n = 64 * 1200 + 7
+    x = make_data(n)
+    parts = _run(tmp_path, "torch", 2, n, "ec", "device", mesh="cuda:0")
+    stream = b"".join(p.read_bytes() for p in parts)
+    y = dz.decompress(stream, device="cuda")
+    assert y.dtype == np.float64 and np.abs(y - x).max() <= 1e-3 * float(x.max() - x.min())
+    path = tmp_path / "stream.bin"
+    path.write_bytes(stream)
+    for r, (start, frames, data) in enumerate(
+            _restored(_run(tmp_path, "torch", 2, n, "restore", "device", path,
+                           mesh="cuda:0"))):
+        assert frames == (r,) and np.array_equal(data, y[start : start + data.size])

@@ -188,15 +188,44 @@ def test_psnr_curve_matches_reference(ref_arithmetic, auto_means_device, tiny_su
         _same_row(a, dict(b, bits_per_value=a["bits_per_value"]), renamed=False)
 
 
-def test_sharded_engine_raises_naming_item_10(tiny_suite):
-    from dctz_tpu_torch.eval import harness as th
-    from dctz_tpu_torch.eval.datasets import MSST19
+@pytest.fixture
+def reference_mesh(monkeypatch):
+    """The sharded engine: the reference's shards over every JAX device
+    (tests/conftest.py's 8 virtual host devices); the port's here over as
+    many CPU devices."""
+    import jax
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        th.run_one(MSST19[0], 1e-3, "ec", "sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        th.sweep("randgen", bounds=(1e-3,), modes=("ec",), engines=("sharded",),
-                 progress=lambda *_: None, device="cpu")
+    from dctz_tpu_torch.parallel import sharding as sh
+
+    n = len(jax.devices())
+    monkeypatch.setattr(sh, "mesh_for", lambda mesh, device: [torch.device("cpu")] * n)
+
+
+@pytest.mark.parametrize("mode", ["ec", "qt"])
+def test_sharded_engine_f64_matches_reference(ref_arithmetic, ref_inverse, auto_means_device,
+                                              reference_mesh, mode):
+    """engine="sharded": compress_sharded / decompress_sharded over 8
+    shards; and a sweep of that engine."""
+    from dctz_tpu.eval import harness as jh
+    from dctz_tpu_torch.eval import harness as th
+
+    t, j = _datasets("f64")
+    got = th.run_one(t, 1e-3, mode, "sharded", device="cpu")
+    _same_row(got, jh.run_one(j, 1e-3, mode, "sharded"), renamed=False)
+    assert got["compressor"] == f"dctz_{mode}_sharded" and got["bound_satisfied"]
+
+
+def test_sharded_engine_sweep_matches_reference(ref_arithmetic, ref_inverse, auto_means_device,
+                                                reference_mesh, tiny_suite):
+    from dctz_tpu.eval import harness as jh
+    from dctz_tpu_torch.eval import harness as th
+
+    kw = dict(bounds=(1e-3,), modes=("ec",), engines=("sharded",), progress=lambda *_: None)
+    got = th.sweep("randgen", device="cpu", **kw)
+    want = jh.sweep("randgen", **kw)
+    assert [r["compressor"] for r in got] == ["zlib", "sz_like", "dctz_ec_sharded"]
+    for a, b in zip(got, want):
+        _same_row(a, b, renamed=False)
 
 
 def test_data_dir_row_says_real():
@@ -240,4 +269,15 @@ def test_run_one_f32_matches_reference(oracle, ref_arithmetic, ref_inverse, mode
     t, j = _datasets("f32")
     got = th.run_one(t, 1e-3, mode, device="cpu")
     _same_row(got, jh.run_one(j, 1e-3, mode))
+    assert got["dtype"] == "f32" and got["bound_satisfied"]
+
+
+def test_sharded_engine_f32_matches_reference(oracle, ref_arithmetic, ref_inverse,
+                                              reference_mesh):
+    from dctz_tpu.eval import harness as jh
+    from dctz_tpu_torch.eval import harness as th
+
+    t, j = _datasets("f32")
+    got = th.run_one(t, 1e-3, "ec", "sharded", device="cpu")
+    _same_row(got, jh.run_one(j, 1e-3, "ec", "sharded"), renamed=False)
     assert got["dtype"] == "f32" and got["bound_satisfied"]

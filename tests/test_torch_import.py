@@ -18,7 +18,8 @@ torch.set_num_threads(2)
     "dctz_tpu_torch.eval.sz_like", "dctz_tpu_torch.eval.zc_compat",
     "dctz_tpu_torch.tools.rand_gen", "dctz_tpu_torch.tools.dct_test",
     "dctz_tpu_torch.tools.dctz_dump", "dctz_tpu_torch.tools.ncvar2bin",
-    "dctz_tpu_torch.tools.bin2csv",
+    "dctz_tpu_torch.tools.bin2csv", "dctz_tpu_torch.parallel",
+    "dctz_tpu_torch.parallel.sharding", "dctz_tpu_torch.parallel.multihost",
 ])
 def test_import_loads_neither_jax_nor_triton(mod):
     code = (

@@ -1,6 +1,6 @@
 """The DPK EC path end to end on the CPU: round trips, containers decoded
-both ways between the port and dctz_tpu, the DPK EC goldens, the ratio, the
-configurations that are not ported yet, and those that were ported last
+both ways between the port and dctz_tpu, the DPK EC goldens, the ratio, a
+DPK container of 64-block tiles, and the configurations that were ported last
 (host-coded DTZS frames, dc_delta and the codec options of ROADMAP item
 9; QT mode and DTZS streams:
 test_torch_qt.py, test_torch_stream.py, test_torch_stream_generic.py; v1
@@ -16,8 +16,8 @@ import torch
 import jax
 
 from test_torch_oracle import (  # noqa: F401
-    EPS32, TILE_N, assert_mean_close, bound, oracle, oracle_shuffle, signal,
-    slice_cfg,
+    EPS32, TILE_N, assert_mean_close, bound, oracle, oracle_shuffle, ref_arithmetic,
+    signal, slice_cfg,
 )
 
 torch.set_num_threads(2)
@@ -125,21 +125,30 @@ def test_overflow_retry_round_trip():
     assert exc_rows.shape[1] > idpack.CAPE  # some chunk row overflowed
 
 
-def test_outside_the_slice_raises():
-    """What stays outside the ported codec: a DPK container whose tiles are
-    not 256 blocks (no writer of either package makes one; ROADMAP item 10
-    with the tile-range decode) raises NotImplementedError naming its
-    item. The container here is the port's own XLA-chain DPK route coded at
-    tiles of 64 blocks."""
+@pytest.mark.parametrize("n", [3 * 4096 + 5, 5 * TILE_N - 11])
+def test_dpk_tile_64_decodes_as_reference(oracle, ref_arithmetic, n):
+    """A DPK container whose tiles are 64 blocks (no writer of either
+    package makes one by default): the reference's XLA chain with its
+    idpack.B_DEFAULT at 64, so its _dpk_sections write tile 64 in the meta
+    section. The port decodes it through the torch ops that take any tile
+    (idpack.unpack_ids, qz.expand_ac; kernel D's plain version), within the
+    bound and equal to the reference's decode."""
+    import dctz_tpu
     import dctz_tpu_torch as dz
-    from dctz_tpu_torch.ops import idpack
+    from dctz_tpu.ops import idpack as ji
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.core import container as ct
 
-    x = signal(3 * 4096 + 5, 0).astype(np.float64)
+    x = signal(n, 0)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(idpack, "B_DEFAULT", 64)
-        blob = dz.compress(x, config=slice_cfg(dz), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        dz.decompress(blob, device="cpu")
+        mp.setattr(ji, "B_DEFAULT", 64)
+        blob = dctz_tpu.compress(x, config=slice_cfg(dctz_tpu))
+    header, streams, _q, _cb = ct.parse_v2(blob)
+    assert api._dpk_meta(header, streams)[1] == 64
+    y = dz.decompress(blob, device="cpu")
+    assert y.dtype == np.float32 and y.shape == x.shape
+    assert np.abs(y - x).max() <= bound(x)
+    assert np.array_equal(y, np.asarray(dctz_tpu.decompress(blob)))
 
 
 #: the configurations that raised ROADMAP item 8 (host-coded DTZS frames)
