@@ -234,6 +234,25 @@ Phases, each printed as one JSON line:
      the full decode's slice, and the tile-range restore of the monolithic
      ec container equal to its decode's slices; A, B, C and D launched in
      every rank. Then the phase's wall time
+  4f. suites: the evaluation sweeps of eval/run_suites_torch.sh that 4d
+     leaves off the card, cut to a phase: randgen (EC, the three bounds;
+     torch, native, auto), spectral at 1e-3 (EC and QT; torch, auto), the
+     sharded engine on randgen and one point (PSNR_POINT) of spectral's
+     matched-PSNR curve. The torch, native, sz_like and zlib rows held to
+     the committed reference CSVs (ratio within 0.1%, PSNR within 0.01
+     dB, bound_satisfied alike); the auto and sharded rows to their CPU
+     twins in every column but the speeds (the reference CSVs resolve
+     ids_codec="auto" by the JAX package's CPU rule, host coders, the port
+     by its accelerator's, DPK); the launches of each row's compress and
+     decode, H on every float32 torch row, a kernel on both sides of every
+     float32 auto row. Then the phase's wall time
+  4g. robustness: byte-flipped copies (XOR 0x5A, seeded positions) of
+     phase 4's ec (256, a quarter in its header and tables), v2_deflate,
+     ec_dtzs and v1_ec (the v1 header's unchecked fields left out)
+     containers decoded on the card: each raises a clean exception, no
+     decode kernel (C, D, D-QT, I) launches on a corrupted container (a
+     DTZS stream's intact frames before the flip decode as usual), and
+     each good container then decodes bit-equal to its phase-4 decode
   5. times, per path: compress and decompress GB/s (median of warm runs;
      the float64 paths in GB/s of their float64 input bytes, REPS_F64 runs)
      and their split into stages; a torch.profiler pass over one call of each
@@ -1556,6 +1575,260 @@ def sharded_phase(dz, fk, inputs: dict, blobs: dict, decoded: dict, card: str) -
     return out
 
 
+#: the suites phase's yardsticks: the committed reference CSVs (the JAX
+#: package's eval/run_suites.sh on the CPU), by the sweep they hold
+SUITE_REFS = {"randgen": "eval/results_randgen.csv",
+              "spectral": "eval/results_spectral.csv",
+              "spectral_psnr": "eval/results_spectral_psnr_matched.csv"}
+#: a reference-held row's PSNR against the reference row's, in dB (the
+#: ratio is held to RATIO_REL_TOL, PERF.md section 2's limit)
+PSNR_TOL_DB = 0.01
+#: the matched-PSNR curve's one point the suites phase runs
+PSNR_POINT = 3e-3
+#: the compressors held to the committed reference rows (the others, the
+#: "auto" and "sharded" engines, are held to their CPU twins)
+REFERENCE_HELD = ("_torch", "_native", "sz_like", "zlib")
+
+
+def reference_rows(name: str) -> dict:
+    """A committed reference CSV's rows by (compressor, dataset,
+    error_bound), the compressor's "_jax" named "_torch"."""
+    import csv
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), SUITE_REFS[name])
+    with open(path, newline="") as f:
+        return {(r["compressor"].replace("_jax", "_torch"), r["dataset"],
+                 float(r["error_bound"])): r for r in csv.DictReader(f)}
+
+
+def against_reference(row: dict, ref: dict) -> dict:
+    """A card row beside its reference row: the ratio's relative
+    difference, the PSNR's difference in dB (0 where both are infinite)
+    and whether both satisfy the bound alike."""
+    want = ref[(row["compressor"], row["dataset"], row["error_bound"])]
+    p_want = float(want["psnr_db"])
+    psnr_diff = (0.0 if p_want == row["psnr_db"] == float("inf")
+                 else abs(row["psnr_db"] - p_want))
+    return {"ratio_rel_diff": row["ratio"] / float(want["ratio"]) - 1.0,
+            "psnr_diff_db": psnr_diff,
+            "bound_equal": row["bound_satisfied"] == (want["bound_satisfied"] == "True"),
+            "reference_ratio": float(want["ratio"])}
+
+
+def suites_phase(dz, fk, native, card: str) -> dict:
+    """4f. The evaluation sweeps of eval/run_suites_torch.sh that phase 4d
+    leaves off the card, cut to a phase: randgen (EC at the
+    three bounds; torch, native where it builds, auto), spectral at 1e-3
+    (EC and QT; torch, auto), the sharded engine on randgen, and one point
+    of the matched-PSNR curve of spectral (PSNR_POINT). The torch, native,
+    sz_like and zlib rows are held to the committed reference CSVs
+    (SUITE_REFS): the ratio within RATIO_REL_TOL, the PSNR within
+    PSNR_TOL_DB, bound_satisfied alike. The auto and sharded rows are held
+    to their CPU twins (harness.run_one(..., device="cpu")) in every column
+    but the speeds, NOT to the committed CSVs: those were written on the
+    CPU, where the reference resolves ids_codec="auto" to its host coders
+    (dctz_tpu/api.py:1742-1755), while the port takes its accelerator's
+    rule, DPK, on every device, so their containers differ by design.
+    Kernel launches are recorded per row, split at the decode: H on every
+    float32 torch row's compress, a kernel on every float32 auto row's
+    compress and decode. Prints one line a row and one a sweep."""
+    from dctz_tpu_torch.eval import harness
+    from dctz_tpu_torch.eval.datasets import SUITES
+
+    t_phase = time.perf_counter()
+    out: dict = {"rows": [], "seconds": {}}
+    refs = {k: reference_rows(k) for k in SUITE_REFS}
+    by_name = {d.name: d for suite in ("randgen", "spectral") for d in SUITES[suite]}
+    engines = ("torch", "native", "auto") if native.available() else ("torch", "auto")
+    sweeps = (
+        ("randgen", "randgen", lambda progress: harness.sweep(
+            "randgen", modes=("ec",), engines=engines, device="cuda", progress=progress)),
+        ("spectral", "spectral", lambda progress: harness.sweep(
+            "spectral", bounds=(1e-3,), modes=("ec", "qt"), engines=("torch", "auto"),
+            device="cuda", progress=progress)),
+        ("randgen_sharded", None, lambda progress: harness.sweep(
+            "randgen", modes=("ec",), engines=("sharded",), lossless=(), sz_baseline=False,
+            device="cuda", progress=progress)),
+        ("spectral_psnr", "spectral_psnr", lambda progress: harness.psnr_curve(
+            "spectral", bounds=(PSNR_POINT,), device="cuda", progress=progress)),
+    )
+    at_decode: dict = {}
+    launched: list = []
+
+    def snapping(fn):
+        def call(*a, **kw):
+            at_decode.update(fk.LAUNCHES)
+            return fn(*a, **kw)
+        return call
+
+    def progress(_line):
+        total = dict(fk.LAUNCHES)
+        comp = {k: v for k, v in (at_decode or total).items() if v}
+        dec = {k: v - at_decode[k] for k, v in total.items() if at_decode and v > at_decode[k]}
+        launched.append((comp, dec))
+        at_decode.clear()
+        fk.reset_launches()
+
+    for sweep_name, ref_name, run in sweeps:
+        launched.clear()
+        api = (dz.decompress, dz.decompress_sharded)
+        dz.decompress, dz.decompress_sharded = (snapping(f) for f in api)
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rows = run(progress)
+        finally:
+            dz.decompress, dz.decompress_sharded = api
+        t_sweep = time.perf_counter() - t0
+        for row, (comp, dec) in zip(rows, launched):
+            name = row["compressor"]
+            rec = dict(row, sweep=sweep_name, card=card, launches_compress=comp,
+                       launches_decode=dec)
+            if ref_name and name.endswith(REFERENCE_HELD):
+                rec["held_to"] = "reference"
+                rec.update(against_reference(row, refs[ref_name]))
+                ok = (abs(rec["ratio_rel_diff"]) <= RATIO_REL_TOL
+                      and rec["psnr_diff_db"] <= PSNR_TOL_DB and rec["bound_equal"])
+            else:
+                rec["held_to"] = "cpu_twin"
+                engine = name.rsplit("_", 1)[1]
+                mode = name.split("_")[1]
+                twin = harness.run_one(by_name[row["dataset"]], row["error_bound"], mode,
+                                       engine, device="cpu")
+                if "bits_per_value" in row:
+                    twin["bits_per_value"] = round(
+                        (64 if twin["dtype"] == "f64" else 32) / twin["ratio"], 4)
+                rec["differs_from_cpu"] = sorted(k for k in row if k not in ROW_SPEEDS
+                                                 and twin[k] != row[k])
+                ok = not rec["differs_from_cpu"]
+            emit("suites_row", **rec)
+            out["rows"].append(rec)
+            shown = ("ratio", "psnr_db", "ratio_rel_diff", "psnr_diff_db", "bound_equal",
+                     "differs_from_cpu")
+            require(ok, f"suites: {sweep_name} {row['dataset']} {name} {row['error_bound']}: "
+                        f"{ {k: rec[k] for k in shown if k in rec} }")
+            if name.startswith("dctz_"):
+                require(row["bound_satisfied"], f"suites: {row['dataset']} {name}: bound violated")
+                if row["dtype"] == "f32" and name.endswith("_torch"):
+                    require(comp.get("chunk_compact", 0) > 0, f"suites: {row['dataset']} {name}: no H")
+                if row["dtype"] == "f32" and name.endswith("_auto"):
+                    require(comp and dec, f"suites: {row['dataset']} {name}: no kernel on "
+                                          f"compress {comp} or decode {dec}")
+        require(len(rows) == len(launched), f"suites: {sweep_name}: {len(launched)} launch "
+                                            f"records for {len(rows)} rows")
+        emit("suites_sweep", card=card, sweep=sweep_name, rows=len(rows), seconds=t_sweep,
+             kernels=sorted({k for c, d in launched for k in (*c, *d)}))
+        out["seconds"][sweep_name] = t_sweep
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    emit("suites", card=card, seconds=out["seconds"]["phase"], rows=len(out["rows"]))
+    return out
+
+
+#: the robustness phase's flipped positions (XOR 0x5A, seeded) per
+#: container of phase 4: the monolithic DPK bench container (a quarter of
+#: them in its first ROBUST_HEAD bytes: the fixed header, chunk tables and
+#: crcs), the host-coded v2 one, the DPK DTZS stream and the v1 one (whose
+#: flips each inflate up to the corrupted block)
+ROBUST_FLIPS = {"ec": 256, "v2_deflate": 64, "ec_dtzs": 64, "v1_ec": 32}
+ROBUST_HEAD = 4096
+#: the v1 header's bytes that no check covers (dtype tag, element count,
+#: error bound, padding, scaling factor, mean, the unused tail field): a
+#: flip there decodes, in the JAX package and the C codec too
+V1_UNCHECKED = frozenset(range(0, 16)) | frozenset(range(20, 40)) | frozenset(range(52, 56))
+#: the decode kernels a corrupted container must not reach: C, D, D-QT, I
+DECODE_KERNELS = ("dpk_unpack_expand", "dequant_idct", "dequant_idct_qt", "chunk_expand")
+
+
+def frames_intact_before(blob: bytes, pos: int) -> int:
+    """The frames of a DTZS stream that a flip at pos leaves intact and a
+    reader decodes before it meets the flip: those wholly before pos, or
+    every frame when pos lies in the stream header's element count (bytes
+    8-15, checked against the frames only once they are restored)."""
+    ends, off = [], 16
+    while True:
+        length = int.from_bytes(blob[off:off + 8], "little")
+        off += 8
+        if not length:
+            break
+        off += length
+        ends.append(off)
+    return len(ends) if 8 <= pos < 16 else sum(e <= pos for e in ends)
+
+
+def robustness_phase(dz, fk, blobs: dict, decoded: dict, card: str) -> dict:
+    """4g. Byte-flipped copies of phase 4's containers decoded on the card
+    (ROBUST_FLIPS): every decode raises a clean exception (not MemoryError
+    or SystemExit), and no decode kernel (C, D, D-QT, I) launches on a
+    corrupted container: the header and chunk crcs (a v1 container's length
+    fields and zlib streams) are checked on the host before any upload. A
+    DTZS stream's intact frames before the flip decode as usual, no launch
+    beyond theirs (frames_intact_before). Then each good container decodes
+    bit-equal to its decode in phase 4: the CUDA context survived. Prints
+    one line a container."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    rng = np.random.default_rng(17)
+    for path, n_flips in ROBUST_FLIPS.items():
+        blob = blobs[path]
+        fk.reset_launches()
+        dz.decompress(blob, device="cuda")
+        frames = len(dtzs_frames(blob))
+        per_frame = {k: fk.LAUNCHES[k] // frames for k in DECODE_KERNELS}
+        if path == "ec":
+            head = rng.choice(ROBUST_HEAD, n_flips // 4, replace=False)
+            positions = np.concatenate([head, rng.choice(
+                np.arange(ROBUST_HEAD, len(blob)), n_flips - head.size, replace=False)])
+        else:
+            allowed = np.arange(len(blob))
+            if path == "v1_ec":
+                allowed = np.setdiff1d(allowed, np.fromiter(V1_UNCHECKED, int))
+            positions = rng.choice(allowed, n_flips, replace=False)
+        kinds: collections.Counter = collections.Counter()
+        beyond = []
+        t0 = time.perf_counter()
+        for pos in sorted(int(p) for p in positions):
+            b = bytearray(blob)
+            b[pos] ^= 0x5A
+            fk.reset_launches()
+            try:
+                dz.decompress(bytes(b), device="cuda")
+            except (SystemExit, MemoryError) as e:
+                require(False, f"robustness: {path} byte {pos}: {type(e).__name__} {e}")
+            except Exception as e:  # noqa: BLE001 - any clean exception is the contract
+                kinds[type(e).__name__] += 1
+            else:
+                require(False, f"robustness: {path} byte {pos}: the flip decoded silently")
+            intact = frames_intact_before(blob, pos) if blob[:4] == b"DTZS" else 0
+            over = {k: fk.LAUNCHES[k] for k in DECODE_KERNELS
+                    if fk.LAUNCHES[k] > intact * per_frame[k]}
+            if over:
+                beyond.append((pos, over))
+        t_flips = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        y = dz.decompress(blob, device="cuda")
+        same = bool(np.array_equal(y, decoded[path]))
+        row = {"container": path, "card": card, "bytes": len(blob), "frames": frames,
+               "flips": int(len(positions)), "raised": dict(kinds),
+               "launches_beyond_intact_frames": beyond, "per_frame_decode_launches":
+               {k: v for k, v in per_frame.items() if v}, "good_decode_bit_equal": same,
+               "seconds": t_flips}
+        emit("robustness", **row)
+        out[path] = row
+        require(sum(kinds.values()) == len(positions), f"robustness: {path}: {kinds}")
+        require(not beyond, f"robustness: {path}: decode kernels launched on corrupted "
+                            f"containers {beyond[:4]}")
+        require(same, f"robustness: {path}: the good container no longer decodes to its "
+                      "phase-4 output")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("robustness_phase", card=card, seconds=out["seconds"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/chip_smoke.json",
@@ -2665,6 +2938,12 @@ def main() -> int:
 
     # 4e. multi-GPU on the one card: the sharded entry points, two ranks
     report["sharded"] = sharded_phase(dz, fk, inputs, blobs, decoded, card)
+
+    # 4f. the evaluation sweeps that phase 4d leaves off the card
+    report["suites"] = suites_phase(dz, fk, native, card)
+
+    # 4g. byte-flipped containers on the card: they raise before the kernels
+    report["robustness"] = robustness_phase(dz, fk, blobs, decoded, card)
 
     # 5. times (the card's name and power limit go beside every number)
     report["throughput"], report["stages"], report["profile"] = {}, {}, {}

@@ -1641,7 +1641,7 @@ def decompress_sharded(blob: bytes | memoryview, *, mesh=None,
             if out is None:
                 if part.size == total:
                     return part
-                out = np.empty(total, part.dtype)
+                out = _stream.alloc_output(total, part.dtype)
             out[off : off + part.size] = part
             off += part.size
         if out is None or off != total:

@@ -1,20 +1,40 @@
 """Input statistics and scaling factor (port of dctz_tpu/core/stats.py).
 
 sf = 10 ** (ceil(log10(max|x|)) - SF_ADJ_AMT), clamped to 1 for an all-zero
-input. amax and the mean reduce in torch on the tensor's own device, so the
-encode never leaves the device for them.
+input. amax and the mean reduce in torch on the tensor's own device; sf is
+then computed from amax on the CPU (scaling_factor).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 
 def scaling_factor(amax: torch.Tensor, sf_adj: int) -> torch.Tensor:
-    """sf = 10**(ceil(log10(amax)) - sf_adj); 1.0 for amax == 0 (util.c:28,42)."""
+    """sf = 10**(ceil(log10(amax)) - sf_adj); 1.0 for amax == 0 (util.c:28,42),
+    on amax's device. Computed on the CPU (one scalar copy each way): a
+    card's log10 and pow round some of these values differently (float64
+    torch.pow(10.0, -5.0) gives 9.999999999999999e-06 on an H100, 1e-05 on
+    the CPU and in dctz_tpu), and sf is both the header's scaling factor
+    and the divisor of every sample."""
+    if amax.device.type != "cpu":
+        return _scaling_factor(amax.cpu(), sf_adj).to(amax.device)
+    return _scaling_factor(amax, sf_adj)
+
+
+def _scaling_factor(amax: torch.Tensor, sf_adj: int) -> torch.Tensor:
+    """Float32 takes log10 as XLA compiles it on the CPU, log(x) * (1 /
+    ln 10) in float32, whose ceiling dctz_tpu's scaling factor takes (torch's
+    log10 crosses an integer elsewhere near some powers of ten)."""
     dtype = amax.dtype
     safe = torch.clamp_min(amax, torch.finfo(dtype).tiny)
-    exp = torch.ceil(torch.log10(safe)) - sf_adj
+    if dtype == torch.float32:
+        log10 = torch.log(safe) * torch.tensor(1.0 / math.log(10.0), dtype=dtype)
+    else:
+        log10 = torch.log10(safe)
+    exp = torch.ceil(log10) - sf_adj
     ten = torch.tensor(10.0, dtype=dtype, device=amax.device)
     sf = torch.pow(ten, exp)
     return torch.where(amax > 0, sf, torch.ones_like(sf))

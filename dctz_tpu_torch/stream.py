@@ -145,8 +145,10 @@ def _start_pull(tensors):
 def compress_stream(
     x,
     out: BinaryIO,
+    error_bound: float = 1e-3,
+    mode: str = "ec",
     *,
-    config: CodecConfig,
+    config: CodecConfig | None = None,
     segment_elems: int = DEFAULT_SEGMENT,
     trace: list | None = None,
     device: str | torch.device = "cuda",
@@ -157,7 +159,8 @@ def compress_stream(
     host-coded v2 frames of the generic chain otherwise, of the array's
     dtype (float64 at full width: internal_dtype does not apply here, as in
     the reference, whose compress() casts before calling its writer).
-    Returns the bytes written.
+    Returns the bytes written. Without a config, CodecConfig(mode=mode,
+    error_bound=error_bound, container="v2"), as dctz_tpu's writer.
 
     x: a numpy array (statistics on the host, one segment at a time; each
     segment then goes to `device`) or a tensor (moved to `device` once;
@@ -169,7 +172,7 @@ def compress_stream(
     from .ops import fused_encode as fe
     from .ops.repair import _SLACK
 
-    cfg = config
+    cfg = config or CodecConfig(mode=mode, error_bound=error_bound, container="v2")
     device = api.checked_device(device)
     if isinstance(x, torch.Tensor):
         x = x.reshape(-1)
@@ -479,16 +482,30 @@ class MemReader:
 
 
 def _read_stream_header(f) -> int:
-    """Validate the DTZS magic and version; returns total_elements."""
+    """Validate the DTZS magic, version and reserved field (every writer
+    stores 0 there); returns total_elements."""
     hdr = bytes(f.read(_HDR.size))
     if len(hdr) != _HDR.size:
         raise ValueError("truncated stream: missing stream header")
-    magic, version, _res, total = _HDR.unpack(hdr)
+    magic, version, res, total = _HDR.unpack(hdr)
     if magic != MAGIC:
         raise ValueError("not a DCTZ-TPU stream")
     if version != 1:
         raise ValueError(f"unsupported stream version {version}")
+    if res:
+        raise ValueError(f"corrupted stream: reserved field {res:#06x} is not 0")
     return total
+
+
+def alloc_output(total: int, dtype) -> np.ndarray:
+    """The output of a whole-stream restore, total elements of dtype. The
+    header's count is not checksummed: a count no host can allocate is a
+    corrupted header, reported as one (ValueError, not MemoryError)."""
+    try:
+        return np.empty(total, dtype)
+    except (MemoryError, ValueError) as e:
+        raise ValueError(f"corrupted stream: its header claims {total} "
+                         "elements") from e
 
 
 def decompress_stream(f: BinaryIO, trace: list | None = None,
@@ -573,7 +590,7 @@ def decompress_stream_all(f: BinaryIO, trace: list | None = None,
     off = 0
     for n, dtype, run in _frame_stages(f, trace, torch.device(device)):
         if out is None:
-            out = np.empty(total, dtype)
+            out = alloc_output(total, dtype)
         if off + n > total:
             raise ValueError(f"stream frames hold more than its {total} "
                              f"elements")

@@ -118,6 +118,30 @@ def test_scaling_factor_equal(amax):
     assert ref.tobytes() == got.tobytes()
 
 
+@pytest.mark.parametrize("sf_adj", [0, 1, 3])
+def test_scaling_factor_matches_reference(sf_adj):
+    """Float32 scaling factors equal dctz_tpu's for max|x| at every decade
+    whose scaling factor is a normal float32, exact powers of ten and an
+    ulp either side among them: the port takes XLA's float32 log10 (log(x)
+    * (1 / ln 10)), whose ceiling torch's log10 misses near some powers
+    of ten (10**9, 10**10, ...). The float64 ceilings that XLA's log10
+    rounds across an integer are ROADMAP section 3's open edge case."""
+    from dctz_tpu.core.stats import scaling_factor as js
+    from dctz_tpu_torch.core.stats import scaling_factor as ts
+
+    tiny = float(np.finfo(np.float32).tiny)
+    for k in range(-36, 39):
+        for m in (0.5, 1.0, 1 + 2.0 ** -20, 1 - 2.0 ** -20, 3.7):
+            a = np.float32(m * 10.0 ** k)
+            if not np.isfinite(a):
+                continue
+            ref = np.asarray(js(jnp.float32(a), sf_adj))
+            if float(ref) < tiny:
+                continue  # flushed to 0 by XLA (a divisor of 0): not mirrored
+            got = ts(torch.tensor(a, dtype=torch.float32), sf_adj).numpy()
+            assert ref.tobytes() == got.tobytes(), (k, m, float(ref), float(got))
+
+
 def test_zigzag_tables_equal():
     from dctz_tpu.core import binning as jb
     from dctz_tpu_torch.core import binning as tb

@@ -1997,3 +1997,164 @@ def test_two_gloo_ranks_on_card(dev, tmp_path):
             _restored(_run(tmp_path, "torch", 2, n, "restore", "device", path,
                            mesh="cuda:0"))):
         assert frames == (r,) and np.array_equal(data, y[start : start + data.size])
+
+
+# ---------------------------------------------------------------------------
+# robustness and soak (tests/test_torch_robustness.py, test_torch_soak.py)
+# on the card
+# ---------------------------------------------------------------------------
+
+#: the decode kernels a corrupted container must never reach: C, D, D-QT, I
+DECODE_KERNELS = ("dpk_unpack_expand", "dequant_idct", "dequant_idct_qt", "chunk_expand")
+#: flipped positions decoded on the card per container (a seeded sample)
+CARD_FLIPS = 256
+#: the robustness fixtures' configurations (tests/test_torch_robustness.py):
+#: input, CodecConfig keyword arguments (None: dz.compress(x, 1e-3, "ec"))
+FLIP_CARD = {
+    "v1": ("f64", None),
+    "v2_deflate": ("f64", dict(error_bound=1e-3, container="v2", ids_codec="deflate")),
+    "dpk": ("f32", dict(error_bound=1e-3, container="v2", ids_codec="device")),
+    "dtzs": ("dtzs", dict(error_bound=1e-3, container="v2", ids_codec="device",
+                          segment_elems=1 << 15)),
+}
+
+
+@pytest.mark.parametrize("fmt", list(FLIP_CARD))
+def test_flipped_containers_raise_before_the_kernels(dev, fmt):
+    """Byte-flipped copies (XOR 0x5A) of a v1, a host-coded v2, a DPK v2
+    container and a two-frame DPK DTZS stream written on the card, decoded
+    on the card at CARD_FLIPS seeded positions (torch_common.flip_positions;
+    a v1 container's checked bytes only): each decode raises a clean
+    exception, and no decode kernel (C, D, D-QT, I) launches on a corrupted
+    container: the header and chunk crcs (a v1 container's length fields
+    and zlib streams) are checked on the host first. A DTZS stream's intact
+    frames before the flip decode as usual (frames_intact_before), no
+    launch beyond theirs. Then the good container decodes bit-equal to its
+    first decode: the CUDA context survived."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from torch_common import V1_UNCHECKED, flip_positions, frames_intact_before, frames_of
+
+    inp, kw = FLIP_CARD[fmt]
+    x = {"f64": np.sin(np.linspace(0, 30, 5000)),
+         "f32": np.sin(np.linspace(0, 30, 5000)).astype(np.float32),
+         "dtzs": np.sin(np.linspace(0, 300, 2 << 15)).astype(np.float32)}[inp]
+    blob = (dz.compress(x, 1e-3, "ec", device="cuda") if kw is None
+            else dz.compress(x, config=dz.CodecConfig(**kw), device="cuda"))
+    assert (blob[:4] == b"DTZS") == (fmt == "dtzs")
+    fk.reset_launches()
+    y0 = dz.decompress(blob, device="cuda")
+    per_frame = {k: fk.LAUNCHES[k] // len(frames_of(blob)) for k in DECODE_KERNELS}
+    assert any(per_frame.values()), per_frame
+    positions = [p for p in flip_positions(blob) if fmt != "v1" or p not in V1_UNCHECKED]
+    rng = np.random.default_rng(len(blob))
+    for pos in sorted(rng.choice(positions, min(CARD_FLIPS, len(positions)), replace=False)):
+        b = bytearray(blob)
+        b[pos] ^= 0x5A
+        fk.reset_launches()
+        with pytest.raises(Exception) as ei:
+            dz.decompress(bytes(b), device="cuda")
+        assert not isinstance(ei.value, (SystemExit, MemoryError)), (pos, ei.value)
+        intact = frames_intact_before(blob, int(pos)) if fmt == "dtzs" else 0
+        over = {k: fk.LAUNCHES[k] for k in DECODE_KERNELS
+                if fk.LAUNCHES[k] > intact * per_frame[k]}
+        assert not over, (pos, intact, over)
+    torch.cuda.synchronize()
+    assert np.array_equal(dz.decompress(blob, device="cuda"), y0)
+
+
+def _generic_f32(x, kw) -> bool:
+    """A float32 v1 container whose length is not a multiple of 1024: the
+    generic chain, whose forward transform is a torch matmul (cuBLAS on the
+    card, the CPU's BLAS there), not one of the kernels."""
+    return x.dtype == np.float32 and kw["container"] == "v1" and x.size % 1024 != 0
+
+
+def _card_mean_ulps(n: int) -> float:
+    """The float32 header mean's budget between the card and the CPU, in
+    ulp of mean |x|: two float32 sums of n terms in other orders (the card's
+    torch.sum, the CPU's), each within ceil(log2 n) eps of sum |x| as a
+    pairwise sum is (5 ulp seen at n = 6221, beyond MEAN_ULPS' 4 for XLA
+    against the CPU; the decoder never reads the mean)."""
+    return 2.0 * np.ceil(np.log2(max(n, 2)))
+
+
+def _assert_same_but_edge_flips(card, cpu, x):
+    """Two float32 v1 containers of the generic chain: the same header but
+    for the mean (_card_mean_ulps), the AC count and the sections' sizes,
+    and the same ids but at bin-edge flips (at most 1e-4 of the positions,
+    and one): a coefficient within the two products' ulps of a bin edge."""
+    import dataclasses
+
+    from dctz_tpu_torch import api
+    from torch_common import assert_mean_close
+
+    ha, _qa, (ids_a, *_), _ = api._host_stage(card)
+    hb, _qb, (ids_b, *_), _ = api._host_stage(cpu)
+    assert_mean_close(ha, hb, x, _card_mean_ulps(x.size))
+    keep = dict(mean=0.0, ac_count=0, bindex_nbytes=0, dc_nbytes=0, ac_nbytes=0)
+    assert dataclasses.replace(ha, **keep) == dataclasses.replace(hb, **keep)
+    assert ids_a.shape == ids_b.shape
+    assert int((ids_a != ids_b).sum()) <= max(1, 1e-4 * ids_a.size)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_soak_configs_on_card_match_cpu(dev, seed):
+    """tests/test_soak.py's random configurations (torch_common.
+    roundtrip_configs) on the card against the CPU twin. Containers: byte
+    for byte as test_torch_oracle.assert_byte_equal holds the port's to
+    the reference's (torch_common: the DPK frames of kernel A allowed their
+    bin-edge flips against the plain version, the float32 mean within
+    _card_mean_ulps, a float64 QT qtable within rtol 1e-15 of two float64
+    arithmetics), but for the generic chain's float32 v1 containers
+    (_generic_f32: the same header and ids but at bin-edge flips). Decodes
+    of the card's container: the card's equal to the CPU's on the float32
+    kernel routes, else within the transforms' budget (32 eps32, or
+    tests/test_torch_f64.py's 8 eps64, times max|y|): the float64 decode
+    and the generic chain run torch products. The round trip and the
+    cross decodes hold the soak's bound."""
+    import dctz_tpu_torch as dz
+    from torch_common import assert_byte_equal, roundtrip_configs, soak_rel_ok
+
+    for x, kw in roundtrip_configs(seed):
+        cfg = dz.CodecConfig(**kw)
+        card = dz.compress(x, config=cfg, device="cuda")
+        cpu = dz.compress(x, config=cfg, device="cpu")
+        generic = _generic_f32(x, kw)
+        if generic:
+            _assert_same_but_edge_flips(card, cpu, x)
+        else:
+            assert_byte_equal(card, cpu, x, edge_flips=True, qtable_rtol=1e-15,
+                              mean_ulps=_card_mean_ulps(x.size))
+        y = dz.decompress(card, device="cuda")
+        y_cpu = dz.decompress(card, device="cpu")
+        assert y.dtype == x.dtype and y.shape == x.shape, kw
+        if x.dtype == np.float32 and not generic:
+            assert np.array_equal(y, y_cpu), kw
+        else:
+            k = 8 if x.dtype == np.float64 else 32
+            lim = k * np.finfo(x.dtype).eps * float(np.abs(y_cpu).max())
+            assert float(np.abs(y.astype(np.float64) - y_cpu).max()) <= lim, kw
+        assert soak_rel_ok(x, y, kw), kw
+        assert soak_rel_ok(x, dz.decompress(cpu, device="cuda"), kw), kw
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_scaling_factor_on_card_equals_cpu(dev, dtype):
+    """The scaling factor, 10**(ceil(log10(amax)) - sf_adj), of an amax on
+    the card equals the CPU's for every decade of the dtype's normal range
+    and sf_adj 0, 1 and 3 (the card's own float64 pow gave
+    9.999999999999999e-06 for 10**-5, where the CPU and dctz_tpu give
+    1e-05: another header and another divisor of every sample)."""
+    from dctz_tpu_torch.core.stats import scaling_factor
+
+    fi = np.finfo(dtype)
+    ks = range(int(np.ceil(np.log10(fi.tiny))), int(np.floor(np.log10(fi.max))))
+    amax = np.array([m * 10.0 ** k for k in ks for m in (0.5, 1.0, 3.7)], dtype)
+    amax = amax[np.isfinite(amax) & (amax >= fi.tiny)]
+    for adj in (0, 1, 3):
+        for a in amax:
+            t = torch.tensor(a, dtype=getattr(torch, np.dtype(dtype).name))
+            got = scaling_factor(t.to(dev), adj)
+            assert got.device.type == "cuda"
+            assert got.cpu().item() == scaling_factor(t, adj).item(), (a, adj)

@@ -14,16 +14,15 @@ import torch
 
 import jax
 
+from torch_common import (  # noqa: F401
+    MEAN_ULPS, _dpk_ids, assert_byte_equal, assert_mean_close, frames_of, parse_any,
+)
+
 torch.set_num_threads(2)
 
 EB = 1e-3
 EPS32 = 2.0 ** -23
 TILE_N = 16384
-#: the headers' mean, a float32 sum divided by n, agrees within MEAN_ULPS
-#: ulp of the mean |x|: XLA and torch add the float32 samples in other
-#: orders, and the rounding of a reordered sum scales with the summands'
-#: magnitudes, not with the (cancelling) total
-MEAN_ULPS = 4
 
 
 @pytest.fixture(scope="module")
@@ -72,12 +71,6 @@ def slice_cfg(pkg, **kw):
                 verify=True, segment_elems=0)
     base.update(kw)
     return pkg.CodecConfig(**base)
-
-
-def assert_mean_close(h_port, h_ref, x: np.ndarray) -> None:
-    """The headers' means within MEAN_ULPS ulp of float32(mean |x|)."""
-    lim = MEAN_ULPS * float(np.spacing(np.float32(np.abs(x).mean())))
-    assert abs(h_port.mean - h_ref.mean) <= lim, (h_port.mean, h_ref.mean, lim)
 
 
 def signal(n: int, seed: int) -> np.ndarray:
@@ -242,84 +235,6 @@ def _fma(a: torch.Tensor, k: float, c: torch.Tensor) -> torch.Tensor:
     e_p = ((a_hi * k_hi - p) + a_hi * k_lo + a_lo * k_hi) + a_lo * k_lo
     s, e_s = _two_sum(p, c)
     return s + (e_p + e_s)
-
-
-def frames_of(blob: bytes) -> list:
-    """The containers of a blob: a DTZS stream's frames, else the blob."""
-    from test_torch_stream import _frames
-
-    return _frames(blob) if blob[:4] == b"DTZS" else [blob]
-
-
-def parse_any(blob: bytes):
-    """(header, sections, qtable) of a v1 or v2 container."""
-    from dctz_tpu_torch.core import container as ct
-
-    if ct.detect_format(blob) == "v1":
-        header, *streams, qtable = ct.parse_v1(blob)
-        return header, tuple(streams), qtable
-    header, streams, qtable, _cb = ct.parse_v2(blob)
-    return header, streams, qtable
-
-
-def assert_byte_equal(port: bytes, ref: bytes, x: np.ndarray,
-                      edge_flips: bool = False) -> None:
-    """The port's container (or stream) equals the reference's byte for
-    byte but for the header's mean: frame by frame the same header, the
-    same sections and the same qtable bytes; the mean of float32 data
-    within MEAN_ULPS (assert_mean_close), of float64 data not compared (a
-    sum in another order; tests/test_torch_f64.py's rule).
-
-    edge_flips: for DPK frames of the fused route, whose reference is the
-    Pallas kernel in interpret mode: its forward DCT runs on the
-    block-diagonal 128-lane basis and can differ from any matmul of the
-    64-point basis by an ulp, which moves a coefficient lying within that
-    of a bin edge to the next bin (tests/test_torch_v1.py's rule). A frame
-    whose sections differ must then decode to the same ids but at most
-    1e-4 of its positions (and one), the rest of its header equal."""
-    import dataclasses
-
-    assert (port[:4] == b"DTZS") == (ref[:4] == b"DTZS")
-    pf, rf = frames_of(port), frames_of(ref)
-    assert len(pf) == len(rf)
-    for a, b in zip(pf, rf):
-        hp, sp, qp = parse_any(a)
-        hr, sr, qr = parse_any(b)
-        assert (qp is None) == (qr is None)
-        if qp is not None:
-            assert qp.tobytes() == qr.tobytes()
-        if hp.dtype == np.float32:
-            assert_mean_close(hp, hr, x)
-        if edge_flips and hp.dpk and sp != sr:
-            keep = dict(mean=0.0, ac_count=0)
-            assert (dataclasses.replace(hp, **keep)
-                    == dataclasses.replace(hr, **keep))
-            ids_p, ids_r = _dpk_ids(a), _dpk_ids(b)
-            flips = int((ids_p != ids_r).sum())
-            assert 0 < flips <= max(1, 1e-4 * ids_p.size), flips
-            continue
-        assert (dataclasses.replace(hp, mean=0.0)
-                == dataclasses.replace(hr, mean=0.0)), (hp, hr)
-        assert len(sp) == len(sr)
-        for i, (s_p, s_r) in enumerate(zip(sp, sr)):
-            assert s_p == s_r, f"section {i} differs"
-
-
-def _dpk_ids(blob: bytes) -> np.ndarray:
-    """The bin-id grid of a DPK container (the port's plain unpack, byte
-    for byte the reference's: test_torch_dpk_decode.py)."""
-    from dctz_tpu_torch import api
-    from dctz_tpu_torch.ops import idpack
-
-    from dctz_tpu_torch.core import container as ct
-
-    header, streams, _q, _cb = ct.parse_v2(blob)
-    (width, rows, exc, *_rest), (n_stream, tile_b, cw, cfg) = (
-        api._dpk_decode_prep(header, streams))
-    nblk = -(-n_stream // cfg.block_size)
-    return idpack.unpack_ids(*(torch.from_numpy(np.array(a)) for a in
-                               (width, rows, exc)),
-                             nblk, cfg.block_size, tile_b, cw).numpy()
 
 
 @pytest.fixture
