@@ -253,8 +253,17 @@ Phases, each printed as one JSON line:
      decode kernel (C, D, D-QT, I) launches on a corrupted container (a
      DTZS stream's intact frames before the flip decode as usual), and
      each good container then decodes bit-equal to its phase-4 decode
-  5. times, per path: compress and decompress GB/s (median of warm runs;
-     the float64 paths in GB/s of their float64 input bytes, REPS_F64 runs)
+  4h. bench: the port's benchmark entry point, dctz_tpu_torch.bench.run(),
+     once at full size (bench.py's workload: the 32Mi array made on the
+     card, the default DTZS path through the public API, the amortized
+     device stages, the overlap, the 1 GB point, the C++ codec), the launch
+     counters reset just before and read just after: A, B, C and D
+     launched, the bound satisfied, the ratio within 0.1% of ec_dtzs's in
+     this run; its compact last line printed on a line of its own. Then the
+     phase's wall time
+  5. times, per path: compress and decompress GB/s (median of warm runs,
+     phase 4's run being the warm-up; the float64 paths in GB/s of their
+     float64 input bytes; REPS_F64 runs for those and ZLIB_BOUND_PATHS)
      and their split into stages; a torch.profiler pass over one call of each
      direction of ec, ec_dtzs, v1_ec, v2_deflate_dtzs, ec_f64 and
      ec_f64_dtzs (device busy and idle share); one traced run of each direction of the bench-array DTZS
@@ -498,6 +507,9 @@ DTZS_TWIN = {"ec_dtzs": "ec", "qt_dtzs": "qt", "qt_x30_dtzs": "qt_x30",
 GENERIC_TWIN = {"v2_deflate_dtzs": "v2_deflate", "v1_seg": "v1_ec",
                 "ec_f64_dtzs": "ec_f64"}
 F64_INPUTS = ("bench64", "cesm64")
+#: the 32Mi v1 paths, 99% one-thread zlib (3-4 s a compress): phase 5 times
+#: them REPS_F64 times, as the float64 paths
+ZLIB_BOUND_PATHS = ("v1_ec", "v1_qt", "v1_ec_verify", "v1_ec_high", "v1_qt_high")
 F64_PATHS = ("ec_f64", "ec_f64_dtzs", "ec_f64_fast", "v1_f64_cesm", "qt_f64_dtzs")
 #: the brsf values at which kernels A, A-QT, E, D and D-QT are held to their
 #: plain versions (the second not a power of two: w and rmax rounded once)
@@ -564,16 +576,6 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if res.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() on the current stream (CUDA events), after
     one warm-up call."""
@@ -611,11 +613,13 @@ def queued_ms(fn, flush=None) -> float:
     return start.elapsed_time(end)
 
 
-def wall_s(fn, reps: int) -> float:
-    """Median wall seconds of fn() over warm runs ending in a synchronize."""
+def wall_s(fn, reps: int, warm: bool = True) -> float:
+    """Median wall seconds of fn() over warm runs ending in a synchronize;
+    warm=False: fn already ran warm (no warm-up call)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -1829,6 +1833,38 @@ def robustness_phase(dz, fk, blobs: dict, decoded: dict, card: str) -> dict:
     return out
 
 
+def bench_phase(fk, ec_dtzs_ratio: float, card: str) -> dict:
+    """4h. dctz_tpu_torch.bench.run() at full size, the launch counters
+    reset just before and read just after; its compact line printed as it
+    is. Requires A, B, C and D launched, the bound satisfied and the ratio
+    within RATIO_REL_TOL of ec_dtzs's (the same configuration on the host
+    formula's array; the bench makes its array on the card)."""
+    from dctz_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    fk.reset_launches()
+    rec = bench.run()
+    launched = {k: fk.LAUNCHES[k] for k in EC_KERNELS}
+    last = rec["last_line"]
+    print(json.dumps(last), flush=True)
+    rel = last["ratio"] / ec_dtzs_ratio - 1.0
+    sec = rec["sections"]
+    row = {"card": card, "launches": launched, "ratio": last["ratio"],
+           "ec_dtzs_ratio": ec_dtzs_ratio, "ratio_rel_diff": rel,
+           "bound_satisfied": last["bound_satisfied"], "gbps": last["value"],
+           "vs_baseline": last["vs_baseline"],
+           "amortized_ms": {d: sec["amortized"][d]["per_call_s"] * 1e3
+                            for d in ("compress", "decompress")},
+           "seconds": time.perf_counter() - t_phase}
+    emit("bench", **row)
+    missing = [k for k, v in launched.items() if v == 0]
+    require(not missing, f"bench: kernels not launched: {missing}")
+    require(last["bound_satisfied"], "bench: pointwise bound violated")
+    require(abs(rel) <= RATIO_REL_TOL, f"bench: ratio {last['ratio']} is {rel:+.2e} "
+                                       f"from ec_dtzs's {ec_dtzs_ratio}")
+    return dict(row, record=rec)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/chip_smoke.json",
@@ -1868,6 +1904,7 @@ def main() -> int:
     from dctz_tpu_torch.ops import idpack
     from dctz_tpu_torch.ops import shuffle
     from dctz_tpu_torch.ops.research import _ref, fused_decode, fused_encode_dpk
+    from dctz_tpu_torch.bench import card_line
     from dctz_tpu_torch.utils.bench_data import climate_formula_np, climate_formula_np64
     from dctz_tpu_torch.utils.timing import StageTimer
 
@@ -2945,14 +2982,18 @@ def main() -> int:
     # 4g. byte-flipped containers on the card: they raise before the kernels
     report["robustness"] = robustness_phase(dz, fk, blobs, decoded, card)
 
+    # 4h. the port's benchmark entry point, once at full size
+    report["bench"] = bench_phase(fk, e2e["ec_dtzs"]["ratio"], card)
+
     # 5. times (the card's name and power limit go beside every number)
     report["throughput"], report["stages"], report["profile"] = {}, {}, {}
     for path, (kw, inp, _needed) in PATHS.items():
         pcfg, x, blob = cfg_of(path), inputs[inp], blobs[path]
         seg = api._resolve_segment(pcfg or dz.CodecConfig(), x.size)
-        reps = REPS_F64 if inp in F64_INPUTS else REPS
-        t_c = wall_s(lambda: dz.compress(x, config=pcfg, device="cuda"), reps)
-        t_d = wall_s(lambda: dz.decompress(blob, device="cuda"), reps)
+        reps = REPS_F64 if inp in F64_INPUTS or path in ZLIB_BOUND_PATHS else REPS
+        # phase 4 ran every path once already: these runs are warm
+        t_c = wall_s(lambda: dz.compress(x, config=pcfg, device="cuda"), reps, warm=False)
+        t_d = wall_s(lambda: dz.decompress(blob, device="cuda"), reps, warm=False)
         # GB/s of the input's own bytes: float64 paths count 8 bytes a sample
         gbs_c, gbs_d = x.nbytes / t_c / 1e9, x.nbytes / t_d / 1e9
         emit("throughput", card=card, path=path, compress_gb_s=gbs_c,

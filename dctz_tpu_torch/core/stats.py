@@ -24,16 +24,23 @@ def scaling_factor(amax: torch.Tensor, sf_adj: int) -> torch.Tensor:
     return _scaling_factor(amax, sf_adj)
 
 
+#: float64(log10(e)) as XLA's CPU compiler writes jnp.log10: log(x) times
+#: this literal (its dumped HLO-to-LLVM program for f64), one ulp above
+#: 1 / math.log(10) = 0.43429448190325176
+_LOG10_E_F64 = 0.4342944819032518
+
+
 def _scaling_factor(amax: torch.Tensor, sf_adj: int) -> torch.Tensor:
-    """Float32 takes log10 as XLA compiles it on the CPU, log(x) * (1 /
-    ln 10) in float32, whose ceiling dctz_tpu's scaling factor takes (torch's
-    log10 crosses an integer elsewhere near some powers of ten)."""
+    """log10 as XLA compiles it on the CPU, whose ceiling dctz_tpu's
+    scaling factor takes (torch's log10 crosses an integer elsewhere near
+    some powers of ten): log(x) * (1 / ln 10) in float32, log(x) *
+    _LOG10_E_F64 in float64."""
     dtype = amax.dtype
     safe = torch.clamp_min(amax, torch.finfo(dtype).tiny)
     if dtype == torch.float32:
         log10 = torch.log(safe) * torch.tensor(1.0 / math.log(10.0), dtype=dtype)
     else:
-        log10 = torch.log10(safe)
+        log10 = torch.log(safe) * torch.tensor(_LOG10_E_F64, dtype=dtype)
     exp = torch.ceil(log10) - sf_adj
     ten = torch.tensor(10.0, dtype=dtype, device=amax.device)
     sf = torch.pow(ten, exp)

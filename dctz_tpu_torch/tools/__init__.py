@@ -1,5 +1,5 @@
-"""The port's tools (dctz_tpu.tools' counterparts); sync_bench is the JAX
-package's docs tool and has no counterpart yet (ROADMAP item 1)."""
+"""The port's tools (dctz_tpu.tools' counterparts); sync_bench writes the
+README block of the port's benchmark record."""
 
 from __future__ import annotations
 

@@ -124,8 +124,8 @@ def test_scaling_factor_matches_reference(sf_adj):
     whose scaling factor is a normal float32, exact powers of ten and an
     ulp either side among them: the port takes XLA's float32 log10 (log(x)
     * (1 / ln 10)), whose ceiling torch's log10 misses near some powers
-    of ten (10**9, 10**10, ...). The float64 ceilings that XLA's log10
-    rounds across an integer are ROADMAP section 3's open edge case."""
+    of ten (10**9, 10**10, ...). Float64:
+    test_scaling_factor_matches_reference_f64."""
     from dctz_tpu.core.stats import scaling_factor as js
     from dctz_tpu_torch.core.stats import scaling_factor as ts
 
@@ -140,6 +140,28 @@ def test_scaling_factor_matches_reference(sf_adj):
                 continue  # flushed to 0 by XLA (a divisor of 0): not mirrored
             got = ts(torch.tensor(a, dtype=torch.float32), sf_adj).numpy()
             assert ref.tobytes() == got.tobytes(), (k, m, float(ref), float(got))
+
+
+@pytest.mark.parametrize("sf_adj", [0, 1, 3])
+def test_scaling_factor_matches_reference_f64(sf_adj):
+    """Float64 scaling factors (x64 on) equal dctz_tpu's, eager and jitted,
+    bit for bit at max|x| = 10**k for k in -300..299 and an ulp either side:
+    the port takes XLA's float64 log10, log(x) * float64(log10 e), whose
+    ceiling torch's log10 and log(x) * (1 / ln 10) miss at some of these
+    (1e-291, ...)."""
+    from dctz_tpu.core.stats import scaling_factor as js
+    from dctz_tpu_torch.core.stats import scaling_factor as ts
+
+    with jax.enable_x64(True):
+        jitted = jax.jit(js, static_argnums=1)
+        for k in range(-300, 300):
+            a = 10.0 ** k
+            for v in (np.nextafter(a, 0.0), a, np.nextafter(a, np.inf)):
+                got = ts(torch.tensor(v, dtype=torch.float64), sf_adj).numpy()
+                for ref in (js(jnp.float64(v), sf_adj), jitted(jnp.float64(v), sf_adj)):
+                    ref = np.asarray(ref)
+                    assert ref.dtype == np.float64
+                    assert ref.tobytes() == got.tobytes(), (k, v, float(ref), float(got))
 
 
 def test_zigzag_tables_equal():

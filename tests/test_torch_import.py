@@ -20,6 +20,7 @@ torch.set_num_threads(2)
     "dctz_tpu_torch.tools.dctz_dump", "dctz_tpu_torch.tools.ncvar2bin",
     "dctz_tpu_torch.tools.bin2csv", "dctz_tpu_torch.parallel",
     "dctz_tpu_torch.parallel.sharding", "dctz_tpu_torch.parallel.multihost",
+    "dctz_tpu_torch.bench", "dctz_tpu_torch.tools.sync_bench",
 ])
 def test_import_loads_neither_jax_nor_triton(mod):
     code = (
