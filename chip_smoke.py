@@ -694,34 +694,39 @@ def profile_once(dz, x_np, cfg, blob, card, path) -> dict:
 
 
 def pipeline_trace(dz, x_np, cfg, blob, card, path, seg: int) -> dict:
-    """One traced run of each direction of a DTZS path: the per-segment
-    spans of the stream writer ("device", "pull", "pack") and reader
-    ("prep", "device"), in ms from the call's start, and the wall time."""
+    """One traced run of each direction of a DTZS path: the spans of the
+    stream writer (pipeline.* on its thread, pack.pull and pack.host on its
+    worker) and reader (pipeline.wait, pipeline.decode, copy_out; prep on
+    its worker), from a StageTimer's spans, in ms from the call's start,
+    with the thread each ran on, and the wall time."""
     import io
 
     import torch
 
     from dctz_tpu_torch import stream
+    from dctz_tpu_torch.utils.timing import StageTimer
 
     xd = torch.from_numpy(x_np).to("cuda")  # as compress() hands it over
     out = {}
     for op in ("compress", "decompress"):
-        trace: list = []
+        timer = StageTimer()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if op == "compress":
             stream.compress_stream(xd, io.BytesIO(), config=cfg,
                                    segment_elems=seg,
-                                   trace=trace, device="cuda")
+                                   timer=timer, device="cuda")
         else:
-            stream.decompress_stream_all(stream.MemReader(blob), trace=trace,
+            stream.decompress_stream_all(stream.MemReader(blob), timer=timer,
                                          device="cuda")
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        spans = [{"span": k, "segment": i, "start_ms": (a - t0) * 1e3,
-                  "ms": (b - a) * 1e3} for k, i, a, b in trace]
-        out[op] = {"wall_ms": wall, "spans": spans}
-        emit("pipeline_trace", card=card, path=path, op=op, wall_ms=wall, spans=spans)
+        spans = [{"span": s.name, "segment": s.index, "thread": s.thread,
+                  "start_ms": (s.t0 - t0) * 1e3, "ms": (s.t1 - s.t0) * 1e3}
+                 for s in timer.spans]
+        out[op] = {"wall_ms": wall, "spans": spans, "counts": timer.counts}
+        emit("pipeline_trace", card=card, path=path, op=op, wall_ms=wall,
+             spans=spans, counts=timer.counts)
     return out
 
 

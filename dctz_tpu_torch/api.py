@@ -11,7 +11,7 @@ truncate on) is dispatched as the JAX package dispatches on its TPU:
       compress:   stats -> tolerance -> [QT: kernel E] -> kernels A + B
                   (retried at full chunk width on exception overflow) ->
                   [dc_delta: the DC delta] -> byte planes on the device ->
-                  host assembly (_pack_dpk_v2); the monolithic container is
+                  host assembly (_dpk_v2_streams); the monolithic container is
                   the stream writer's one-segment case
       decompress: parse -> host re-pad (_dpk_decode_prep) -> kernels C + D
   v1, the reference's own format and the default (CodecConfig() and
@@ -120,6 +120,7 @@ from .core import constants as C
 from .core import container as ct
 from .core import entropy
 from .core import quantize as qz
+from .utils import timing
 
 _DPK_META_FMT = "<QHH2x"  # n_stream (padded elements), tile_b, AC chunk width
 _DPK_META_SIZE = struct.calcsize(_DPK_META_FMT)
@@ -473,23 +474,24 @@ def _dpk_sections(width, packed_rows, exc_rows, exc_counts, ac_counts, tile_b,
         return _side_sec(meta)
 
     pool = entropy.section_pool()
-    f_packed = pool.submit(_packed_task)
-    f_exc = pool.submit(_exc_task)
-    f_meta = pool.submit(_meta_task)
-    width_sec = _side_sec(width.tobytes())
+    f_packed = pool.submit(timing.task("section.ids", _packed_task))
+    f_exc = pool.submit(timing.task("section.ids", _exc_task))
+    f_meta = pool.submit(timing.task("section.ids", _meta_task))
+    with timing.span("section.ids", cpu=True):
+        width_sec = _side_sec(width.tobytes())
     return (width_sec, f_packed.result(), f_exc.result(), f_meta.result())
 
 
-def _pack_dpk_v2(header, width, packed_rows, exc_rows, exc_counts, counts,
-                 ac_chunks, dc, n_pad, cfg, qtable=None, *, dc_planes=None,
-                 ac_planes=None, n_stream=None):
-    """Host assembly of a DPK v2 container from the device outputs (numpy);
-    qtable: the (64,) quantizer table of a QT container; dc_planes/ac_planes
-    are the device-split byte planes replacing dc and ac_chunks (the same
-    bytes, no host shuffle). n_pad: the padded length, whose chunk width
-    the rows take; n_stream: the id stream's length written to the meta
-    section, n_pad unless given (the XLA chain's containers store the true
-    length, dctz_tpu/api.py:1940-1943)."""
+def _dpk_v2_streams(header, width, packed_rows, exc_rows, exc_counts, counts,
+                    ac_chunks, dc, n_pad, cfg, *, dc_planes=None,
+                    ac_planes=None, n_stream=None) -> tuple:
+    """The six sections of a DPK v2 container, coded on the section pool
+    (spans section.dc, section.ac, section.ids); dc_planes/ac_planes are the
+    device-split byte planes replacing dc and ac_chunks (the same bytes, no
+    host shuffle). n_pad: the padded length, whose chunk width the rows
+    take; n_stream: the id stream's length written to the meta section,
+    n_pad unless given (the XLA chain's containers store the true length,
+    dctz_tpu/api.py:1940-1943)."""
     from .ops import idpack
 
     header.shuffle = cfg.shuffle
@@ -509,18 +511,17 @@ def _pack_dpk_v2(header, width, packed_rows, exc_rows, exc_counts, counts,
         return _float_sections(ac.tobytes(), ac.dtype.itemsize, cfg, header)
 
     if dc_planes is not None:
-        f_dc = pool.submit(_float_sections_planes, list(dc_planes), cfg, header,
-                           _dcd_on(cfg, header))
+        f_dc = pool.submit(timing.task("section.dc", _float_sections_planes),
+                           list(dc_planes), cfg, header, _dcd_on(cfg, header))
     else:
-        f_dc = pool.submit(_float_sections, dc.tobytes(), dc.dtype.itemsize,
-                           cfg, header, True)
-    f_ac = pool.submit(_ac_task)
-    streams = _dpk_sections(
+        f_dc = pool.submit(timing.task("section.dc", _float_sections),
+                           dc.tobytes(), dc.dtype.itemsize, cfg, header, True)
+    f_ac = pool.submit(timing.task("section.ac", _ac_task))
+    return _dpk_sections(
         width, packed_rows, exc_rows, exc_counts, counts, idpack.B_DEFAULT,
         qz.chunk_width(n_pad, cfg.block_size),
         n_pad if n_stream is None else n_stream, cfg, header,
     ) + (f_dc.result(), f_ac.result())
-    return ct.pack_v2(header, streams, qtable, cfg.chunk_bytes)
 
 
 def _resolve_input(x, device, cfg: CodecConfig):
@@ -539,7 +540,7 @@ def _resolve_input(x, device, cfg: CodecConfig):
         raise TypeError(f"unsupported dtype {arr.dtype}; use float32/float64")
     device = checked_device(device)
     src_dtype = np.dtype(np.float64 if arr.dtype == torch.float64 else np.float32)
-    arr = arr.reshape(-1).to(device)
+    arr = timing.to_device(arr.reshape(-1), device)
     if cfg.internal_dtype == "float32":
         arr = arr.to(torch.float32)
     return arr, src_dtype
@@ -563,12 +564,18 @@ def compress(
     _resolve_segment) becomes a DTZS stream: of DPK frames with the device
     ids on float32 data, else of host-coded v2 frames (v1 configurations
     and float64 data included). Float64 runs at full width unless
-    cfg.internal_dtype is "float32" (_resolve_input)."""
-    from .utils.timing import StageTimer
-
-    timer = timer or StageTimer()
+    cfg.internal_dtype is "float32" (_resolve_input). timer: a
+    utils.timing.StageTimer that takes the call's stages, spans and
+    counters; without one (and with no profiler recording) nothing is
+    traced."""
     cfg = config or CodecConfig(mode=mode, error_bound=error_bound)
     cfg = _resolve_ids_codec(_upgrade_container(cfg))
+    with timing.using(timer) as timer:
+        return _compress(x, cfg, timer, device)
+
+
+def _compress(x, cfg: CodecConfig, timer, device) -> bytes:
+    """compress()'s body, traced into timer (utils/timing.using)."""
     _check_internal_dtype(cfg)
     with timer.stage("transfer"):
         arr, src_dtype = _resolve_input(x, device, cfg)
@@ -595,7 +602,7 @@ def compress(
         buf = io.BytesIO()
         with timer.stage("pipeline"):
             stream.compress_stream(arr, buf, config=cfg, segment_elems=seg,
-                                   device=arr.device)
+                                   device=arr.device, timer=timer)
         return buf.getvalue()
     if _fused_eligible(cfg, arr, n):
         return _compress_fused(arr, n, cfg, timer, src_dtype)
@@ -622,10 +629,11 @@ def _fused_eligible(cfg: CodecConfig, arr: torch.Tensor, n: int) -> bool:
 
 
 def _warn_bound() -> None:
+    timing.count("bound_shortfalls")
     warnings.warn(
         "verify-repair could not fully satisfy the pointwise bound "
         "(float32-truncation floor)",
-        stacklevel=4,
+        stacklevel=5,
     )
 
 
@@ -774,13 +782,15 @@ def _compress_chain_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
                                                cape)
 
             outs = pack(idpack.CAPE)
-            if bool(outs[7]):
+            if timing.item(outs[7]):
+                timing.count("retries")
                 outs = pack(cw)
             width, packed, exc_rows, exc_counts, ac, ac_counts, dc, _ovf = outs
         else:
             width, packed, exc_rows, exc_counts, ovf = idpack.pack_ids(
                 ids8, n, idpack.B_DEFAULT, idpack.CAPE)
-            if bool(ovf):
+            if timing.item(ovf):
+                timing.count("retries")
                 width, packed, exc_rows, exc_counts, _ = idpack.pack_ids(
                     ids8, n, idpack.B_DEFAULT, cw)
             q = qz.repack(ids, vals, dc, qtable, n, cfg)
@@ -793,22 +803,17 @@ def _compress_chain_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
                   else None)
     with timer.stage("transfer"):
         dc_s, ac_s = planes if planes is not None else (dc, ac)
-        (width, packed, exc_rows, exc_counts, ac_counts, dc_s, ac_s, qt,
-         ok) = stream._start_pull([width, packed, exc_rows, exc_counts,
-                                   ac_counts, dc_s, ac_s, qtable, ok])()
-        sf, mean = float(sf), float(mean)
-    if ok is not None and not bool(ok):
-        _warn_bound()
-    header = _header(cfg, n, int(ac_counts.sum()), sf, mean, src_dtype)
-    plane_kw = (dict(dc_planes=dc_s, ac_planes=ac_s) if planes is not None
-                else {})
+        host = stream._start_pull([width, packed, exc_rows, exc_counts,
+                                   ac_counts, dc_s, ac_s, ok, qtable])()
+        sf, mean = timing.item(sf), timing.item(mean)
+    bound_bad: list[int] = []
     with timer.stage("zlib"):
-        return _pack_dpk_v2(
-            header, width, packed, exc_rows, exc_counts, ac_counts,
-            None if planes is not None else ac_s,
-            None if planes is not None else dc_s, n_pad, cfg, qt,
-            n_stream=n, **plane_kw,
-        )
+        blob = stream._pack_segment_dpk(host, planes is not None, n, n_pad, sf,
+                                        mean, cfg, bound_bad, dtype=src_dtype,
+                                        n_stream=n)
+    if bound_bad:
+        _warn_bound()
+    return blob
 
 
 def _header(cfg: CodecConfig, n: int, ac_count: int, sf: float,
@@ -846,26 +851,31 @@ def _pack_host_coded(q, qtable, ok, sf, mean, n: int, stream_len: int,
     with timer.stage("transfer"):
         ids, dc, ac_rows, counts, qt, ok = stream._start_pull(
             [q.bin_ids, q.dc, q.ac_buf, q.ac_count, qtable, ok])()
-        sf, mean = float(sf), float(mean)
+        sf, mean = timing.item(sf), timing.item(mean)
     if ok is not None and not bool(ok):
         _warn_bound()
     header = _header(cfg, n, int(counts.sum()), sf, mean, dtype)
     with timer.stage("zlib"):
-        ac = entropy.take_row_prefixes(ac_rows, counts)
-        flat_ids = ids.reshape(-1)[:stream_len].tobytes()
-        if cfg.container == "v1":
-            bz, dz, az = entropy.deflate_streams(
-                [flat_ids, dc.tobytes(), ac.tobytes()], cfg.zlib_level)
-            header.bindex_nbytes, header.dc_nbytes, header.ac_nbytes = (
-                len(bz), len(dz), len(az))
-            return ct.pack_v1(header, bz, dz, az, qt)
-        header.shuffle = cfg.shuffle
-        streams = _ids_streams(flat_ids, cfg, header) + (
-            _float_sections(dc.tobytes(), dc.dtype.itemsize, cfg, header,
-                            dc=True),
-            _float_sections(ac.tobytes(), ac.dtype.itemsize, cfg, header),
-        )
-        return ct.pack_v2(header, streams, qt, cfg.chunk_bytes)
+        with timing.span("zlib.sections", cpu=True, tile=True):
+            ac = entropy.take_row_prefixes(ac_rows, counts)
+            flat_ids = ids.reshape(-1)[:stream_len].tobytes()
+            if cfg.container == "v1":
+                bz, dz, az = entropy.deflate_streams(
+                    [flat_ids, dc.tobytes(), ac.tobytes()], cfg.zlib_level)
+                header.bindex_nbytes, header.dc_nbytes, header.ac_nbytes = (
+                    len(bz), len(dz), len(az))
+            else:
+                header.shuffle = cfg.shuffle
+                streams = _ids_streams(flat_ids, cfg, header) + (
+                    _float_sections(dc.tobytes(), dc.dtype.itemsize, cfg,
+                                    header, dc=True),
+                    _float_sections(ac.tobytes(), ac.dtype.itemsize, cfg,
+                                    header),
+                )
+        with timing.span("zlib.container", cpu=True, tile=True):
+            if cfg.container == "v1":
+                return ct.pack_v1(header, bz, dz, az, qt)
+            return ct.pack_v2(header, streams, qt, cfg.chunk_bytes)
 
 
 def _ids_streams(ids_bytes: bytes, cfg: CodecConfig, header: ct.Header):
@@ -921,12 +931,12 @@ def _compress_fused_dpk(arr: torch.Tensor, n: int, cfg: CodecConfig,
                                                           qtable, src_dtype)
     with timer.stage("transfer"):
         host = stream._start_pull(stream._pull_list(outs, planes, qtable, cfg))()
-        sf, mean = float(sf), float(mean)
+        sf, mean = timing.item(sf), timing.item(mean)
     bound_bad: list[int] = []
     with timer.stage("zlib"):
         blob = stream._pack_segment_dpk(
-            lambda: host, planes is not None, n, int(x.shape[0]), sf, mean,
-            cfg, bound_bad, dtype=src_dtype,
+            host, planes is not None, n, int(x.shape[0]), sf, mean, cfg,
+            bound_bad, dtype=src_dtype,
         )
     if bound_bad:
         _warn_bound()
@@ -1041,18 +1051,21 @@ def _dpk_host_rebuild(header: ct.Header, streams, tile_range=None,
             return memoryview(native.rans_decompress(b"".join(exc_z)))[e0:e1]
         return entropy.decode_chunk_range(exc_z, e0, e1, entropy.inflate)
 
-    f_width = pool.submit(_side, widths_z)
+    f_width = pool.submit(timing.task("section.ids", _side), widths_z)
     if tile_range is None:
-        f_tight = pool.submit(_tight_task)
-        f_exc = pool.submit(_exc_task)
+        f_tight = pool.submit(timing.task("section.ids", _tight_task))
+        f_exc = pool.submit(timing.task("section.ids", _exc_task))
     if float_planes == "skip":
         f_dc = f_ac = None
     else:
-        f_dc = pool.submit(_float_raw, header, dz, bool(float_planes))
-        f_ac = pool.submit(_float_raw, header, az, bool(float_planes))
+        f_dc = pool.submit(timing.task("section.dc", _float_raw), header, dz,
+                           bool(float_planes))
+        f_ac = pool.submit(timing.task("section.ac", _float_raw), header, az,
+                           bool(float_planes))
 
     if meta is None:
-        meta = _side(meta_z)
+        with timing.span("section.ids", cpu=True):
+            meta = _side(meta_z)
     n_stream, tile_b, cw = struct.unpack_from(_DPK_META_FMT, meta, 0)
     bs = header.block_size
     nblk = -(-n_stream // bs)
@@ -1076,14 +1089,15 @@ def _dpk_host_rebuild(header: ct.Header, streams, tile_range=None,
         c0, c1 = t0 * epc, min(t1 * epc, n_chunks)
         ecum = np.concatenate(([0], np.cumsum(exc_counts, dtype=np.int64)))
         exc_counts = exc_counts[c0:c1]
-        f_exc_r = pool.submit(_exc_range, int(ecum[c0]), int(ecum[c1]))
-        f_rows = pool.submit(
-            lambda: entropy.pad_row_prefixes(tight, bpr, tile_b // 2, np.uint8))
+        f_exc_r = pool.submit(timing.task("section.ids", _exc_range),
+                              int(ecum[c0]), int(ecum[c1]))
+        f_rows = pool.submit(timing.task("section.ids", lambda: (
+            entropy.pad_row_prefixes(tight, bpr, tile_b // 2, np.uint8))))
         exc_tight = np.frombuffer(f_exc_r.result(), np.uint8)
     else:
-        f_rows = pool.submit(
-            lambda: entropy.pad_row_prefixes(f_tight.result(), bpr, tile_b // 2,
-                                             np.uint8))
+        f_rows = pool.submit(timing.task("section.ids", lambda: (
+            entropy.pad_row_prefixes(f_tight.result(), bpr, tile_b // 2,
+                                     np.uint8))))
         exc_tight = np.frombuffer(f_exc.result(), np.uint8)
     peak_e = int(exc_counts.max()) if exc_counts.size else 0
     cape = next(
@@ -1200,11 +1214,13 @@ def _work_dtype(header: ct.Header) -> torch.dtype:
 def _to_device(host_arrays, header: ct.Header, qtable, device):
     """The host stage's arrays, the scaling factor and the qtable on
     `device`, the last two in the decode's dtype (_work_dtype)."""
-    dev = [torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
+    device = torch.device(device)
+    dev = [timing.to_device(torch.from_numpy(np.require(a, requirements=["C", "W"])),
+                            device)
            for a in host_arrays]
     wd = _work_dtype(header)
-    sf = torch.tensor(header.scaling_factor, dtype=wd, device=device)
-    qt = (torch.from_numpy(np.array(qtable)).to(device=device, dtype=wd)
+    sf = timing.scalar(header.scaling_factor, wd, device)
+    qt = (timing.to_device(torch.from_numpy(np.array(qtable)).to(wd), device)
           if qtable is not None else None)
     return dev, sf, qt
 
@@ -1297,10 +1313,17 @@ def _host_stage(blob):
     dequantization and the inverse transform run in float64 torch ops
     (qz.decode_x), as dctz_tpu's XLA decode does (dctz_tpu/api.py:123-133);
     full-width (8-byte) stored values and the geometries kernels C and D do
-    not take decode in torch ops (_decode_device_dpk, _dequantize)."""
-    if ct.detect_format(blob) == "v2":
-        header, streams, qtable, _cb = ct.parse_v2(blob)
-        if header.dpk:
+    not take decode in torch ops (_decode_device_dpk, _dequantize). Spans:
+    host.parse (the container's layout and its crcs), then host.prep (the
+    inflate and the re-pad)."""
+    with timing.span("host.parse", cpu=True, tile=True):
+        v2 = ct.detect_format(blob) == "v2"
+        if v2:
+            header, streams, qtable, _cb = ct.parse_v2(blob)
+        else:
+            header, bz, dz, az, qtable = ct.parse_v1(blob)
+    with timing.span("host.prep", cpu=True, tile=True):
+        if v2 and header.dpk:
             host_arrays, (n_stream, tile_b, cw, cfg) = _dpk_decode_prep(header,
                                                                         streams)
 
@@ -1309,11 +1332,12 @@ def _host_stage(blob):
                                           header.dcd, qt)
 
             return header, qtable, host_arrays, decode_dpk
-        bindex, dc_raw, ac_raw = _inflate_v2_streams(header, streams)
-    else:
-        header, bz, dz, az, qtable = ct.parse_v1(blob)
-        bindex, dc_raw, ac_raw = entropy.inflate_streams([bz, dz, az])
-    host_arrays, n_stream, cfg = _host_coded_prep(header, bindex, dc_raw, ac_raw)
+        if v2:
+            bindex, dc_raw, ac_raw = _inflate_v2_streams(header, streams)
+        else:
+            bindex, dc_raw, ac_raw = entropy.inflate_streams([bz, dz, az])
+        host_arrays, n_stream, cfg = _host_coded_prep(header, bindex, dc_raw,
+                                                      ac_raw)
 
     def decode_host_coded(dev, sf, qt):
         # kernel I puts the float32 AC rows back at the escapes (torch ops
@@ -1332,27 +1356,25 @@ def decompress(blob: bytes | memoryview, *, timer=None,
     """Decompress a container of either format (v1, v2 with DPK or
     host-coded ids) or a DTZS stream of them back to a flat numpy array of
     the container's dtype (float32 or float64; a stream's from its
-    frames)."""
-    from .utils.timing import StageTimer
-
-    timer = timer or StageTimer()
+    frames). timer: as compress()'s."""
     device = checked_device(device)
-    if bytes(memoryview(blob)[:4]) == b"DTZS":
-        # a segmented stream (stream.py): zero-copy frame reads, the output
-        # allocated once
-        from . import stream
+    with timing.using(timer) as timer:
+        if bytes(memoryview(blob)[:4]) == b"DTZS":
+            # a segmented stream (stream.py): zero-copy frame reads, the
+            # output allocated once
+            from . import stream
 
-        with timer.stage("pipeline"):
-            return stream.decompress_stream_all(stream.MemReader(blob),
-                                                device=device)
-    with timer.stage("host"):
-        header, qtable, host_arrays, decode = _host_stage(blob)
-    with timer.stage("transfer"):
-        dev, sf, qt = _to_device(host_arrays, header, qtable, device)
-    with timer.stage("device"):
-        x = decode(dev, sf, qt)
-    with timer.stage("transfer"):
-        return x[:header.num_elements].cpu().numpy()
+            with timer.stage("pipeline"):
+                return stream.decompress_stream_all(stream.MemReader(blob),
+                                                    timer=timer, device=device)
+        with timer.stage("host"):
+            header, qtable, host_arrays, decode = _host_stage(blob)
+        with timer.stage("transfer"):
+            dev, sf, qt = _to_device(host_arrays, header, qtable, device)
+        with timer.stage("device"):
+            x = decode(dev, sf, qt)
+        with timer.stage("transfer"):
+            return timing.to_host(x[:header.num_elements]).numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,8 @@ JSON line {"section": ...}:
              timed window: the API makes it too)
   sync_us    median of 8 synchronized trivial launches
   overlap    bench.py's measured overlap fraction of the two-stage DTZS
-             pipeline, from the stream trace of a 4-segment compress and
-             restore (the second of two runs)
+             pipeline, from the stream's spans (StageTimer.spans) of a
+             4-segment compress and restore (the second of two runs)
   pipelined_model  bench.py's model of the default path's steady state
              from the amortized device stages, the monolithic host stages
              and the measured overlap: a model, not the headline
@@ -296,18 +296,19 @@ def measure_sync_us(dev: torch.device) -> float | None:
     return statistics.median(samples) * 1e6
 
 
-def _interval_overlap(tr, worker_kinds, dev_kind="device"):
-    """Measured overlap fraction of a two-stage pipeline from its trace
-    (bench.py's): (worker_busy + device_busy - traced_span) /
-    min(worker_busy, device_busy), clipped to [0, 1]; 1 = every second of
-    the shorter stage hid behind the longer one, 0 = strictly serial.
-    traced_span runs from the first event's start to the last one's end.
-    Returns (fraction, worker_busy_s, device_busy_s)."""
-    if not tr:
+def _interval_overlap(spans, worker_kinds, dev_kinds=("device",)):
+    """Measured overlap fraction of a two-stage pipeline from its spans
+    (bench.py's, on records whose first four fields are name, index, start
+    and end, as utils.timing.Span's): (worker_busy + device_busy -
+    traced_span) / min(worker_busy, device_busy), clipped to [0, 1]; 1 =
+    every second of the shorter stage hid behind the longer one, 0 =
+    strictly serial. traced_span runs from the first span's start to the
+    last one's end. Returns (fraction, worker_busy_s, device_busy_s)."""
+    if not spans:
         return 0.0, 0.0, 0.0
-    wb = sum(b - a for k, _s, a, b in tr if k in worker_kinds)
-    db = sum(b - a for k, _s, a, b in tr if k == dev_kind)
-    span = max(b for _k, _s, _a, b in tr) - min(a for _k, _s, a, _b in tr)
+    wb = sum(r[3] - r[2] for r in spans if r[0] in worker_kinds)
+    db = sum(r[3] - r[2] for r in spans if r[0] in dev_kinds)
+    span = max(r[3] for r in spans) - min(r[2] for r in spans)
     denom = min(wb, db)
     if denom <= 0:
         return 0.0, wb, db
@@ -315,29 +316,46 @@ def _interval_overlap(tr, worker_kinds, dev_kind="device"):
     return max(0.0, min(1.0, f)), wb, db
 
 
+#: the DTZS spans of each direction's two stages: (worker, device)
+COMPRESS_KINDS = (("pack.pull", "pack.host"), ("pipeline.encode",))
+DECOMPRESS_KINDS = (("prep",), ("pipeline.decode", "copy_out"))
+
+
+def _stage_spans(timer: StageTimer, kinds) -> list:
+    """The timer's spans of the two stages' names, the others left out so
+    that the global stats pass and the frame writes do not dilute the
+    traced span."""
+    names = set(kinds[0]) | set(kinds[1])
+    return [s for s in timer.spans if s.name in names]
+
+
 def measure_pipeline_overlap(x: torch.Tensor, dev: torch.device) -> dict:
     """One pipelined compress and restore of x in OVERLAP_SEGMENTS segments
-    (the second of two runs), traced per segment (stream.py: "device",
-    "pull", "pack" on compress, "prep", "device" on decode), and per
-    direction the overlap fraction of _interval_overlap."""
+    (the second of two runs), with the stream's spans (stream.py: the
+    writer's "pipeline.encode" beside its worker's "pack.pull" and
+    "pack.host"; the reader's "pipeline.decode" and "copy_out" beside its
+    worker's "prep"), and per direction the overlap fraction of
+    _interval_overlap."""
     se = x.numel() // OVERLAP_SEGMENTS
     for _warm in range(2):
-        tr_c: list = []
+        t_c = StageTimer()
         buf = io.BytesIO()
         _n, wall_c = _timed(lambda: stream.compress_stream(
-            x, buf, config=CFG, segment_elems=se, trace=tr_c, device=dev), dev)
-        tr_d: list = []
+            x, buf, config=CFG, segment_elems=se, timer=t_c, device=dev), dev)
+        t_d = StageTimer()
         y, wall_d = _timed(lambda: stream.decompress_stream_all(
-            stream.MemReader(buf.getvalue()), trace=tr_d, device=dev), dev)
+            stream.MemReader(buf.getvalue()), timer=t_d, device=dev), dev)
         if y.size != x.numel():
             raise RuntimeError("the traced restore lost samples")
-    f_c, hb_c, db_c = _interval_overlap(tr_c, ("pull", "pack"))
-    f_d, hb_d, db_d = _interval_overlap(tr_d, ("prep",))
+    f_c, hb_c, db_c = _interval_overlap(_stage_spans(t_c, COMPRESS_KINDS),
+                                        *COMPRESS_KINDS)
+    f_d, hb_d, db_d = _interval_overlap(_stage_spans(t_d, DECOMPRESS_KINDS),
+                                        *DECOMPRESS_KINDS)
     return {"compress_frac": f_c, "decompress_frac": f_d,
             "compress_worker_busy_s": hb_c, "compress_device_busy_s": db_c,
             "compress_wall_s": wall_c, "decompress_worker_busy_s": hb_d,
             "decompress_device_busy_s": db_d, "decompress_wall_s": wall_d,
-            "segments": sum(1 for e in tr_c if e[0] == "device")}
+            "segments": t_c.counts.get("frames", 0)}
 
 
 def pipelined_model(dev_c: float, host_c: float, dev_d: float, host_d: float,
@@ -374,16 +392,18 @@ def measure_big(n: int, dev: torch.device, dev_c_per_elem: float) -> dict:
     n2 = BIG_FACTOR * n
     x2 = climate_formula_torch(n2, dev)
     seg = min(stream.DEFAULT_SEGMENT, n2 // BIG_FRAMES)
-    tr: list = []
+    timer = StageTimer()
     buf = io.BytesIO()
     (_w, wall), peak = _peak_bytes(lambda: _timed(lambda: stream.compress_stream(
-        x2, buf, config=CFG, segment_elems=seg, trace=tr, device=dev), dev), dev)
+        x2, buf, config=CFG, segment_elems=seg, timer=timer, device=dev), dev),
+        dev)
     del x2
     nbytes = buf.getbuffer().nbytes
-    f, hb, _db = _interval_overlap(tr, ("pull", "pack"))
-    pulls = sum(b - a for k, _s, a, b in tr if k == "pull")
-    packs = sum(b - a for k, _s, a, b in tr if k == "pack")
-    segments = sum(1 for e in tr if e[0] == "device")
+    f, hb, _db = _interval_overlap(_stage_spans(timer, COMPRESS_KINDS),
+                                   *COMPRESS_KINDS)
+    pulls = timer.stages.get("pack.pull", 0.0)
+    packs = timer.stages.get("pack.host", 0.0)
+    segments = timer.counts.get("frames", 0)
     gb = n2 * 4 / 1e9
     model = steady_state_s(dev_c_per_elem * n2, packs, f, segments)
     return {"n": n2, "segment_elems": seg, "segments": segments,

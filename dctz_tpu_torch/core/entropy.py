@@ -21,26 +21,38 @@ import os
 import zlib
 from typing import Sequence
 
+from ..utils import timing
+
 _MEM_LEVEL = 8  # DEF_MEM_LEVEL (dctz-comp-lib.c:25)
 _WBITS = 15  # windowBits (dctz-comp-lib.c:642)
 
-_POOL: concurrent.futures.ThreadPoolExecutor | None = None
+
+class _Pool(concurrent.futures.ThreadPoolExecutor):
+    """A thread pool whose tasks run in the submitting thread's tracing
+    context (utils/timing.carry): their spans join the caller's timer and
+    their CPU seconds the entropy layer's."""
+
+    def submit(self, fn, /, *args, **kwargs):
+        return super().submit(timing.carry(fn), *args, **kwargs)
 
 
-def _pool() -> concurrent.futures.ThreadPoolExecutor:
+_POOL: _Pool | None = None
+
+
+def _pool() -> _Pool:
     global _POOL
     if _POOL is None:
-        _POOL = concurrent.futures.ThreadPoolExecutor(
+        _POOL = _Pool(
             max_workers=max(3, os.cpu_count() or 1),
             thread_name_prefix="dctz-zlib",
         )
     return _POOL
 
 
-_SECTION_POOL: concurrent.futures.ThreadPoolExecutor | None = None
+_SECTION_POOL: _Pool | None = None
 
 
-def section_pool() -> concurrent.futures.ThreadPoolExecutor:
+def section_pool() -> _Pool:
     """Executor for container-SECTION-level tasks (width/packed/exc/meta/DC/AC
     coded concurrently). Deliberately separate from the chunk pool: section
     tasks block on chunk futures, and sharing one bounded pool for both
@@ -51,7 +63,7 @@ def section_pool() -> concurrent.futures.ThreadPoolExecutor:
     order is preserved at the gather points."""
     global _SECTION_POOL
     if _SECTION_POOL is None:
-        _SECTION_POOL = concurrent.futures.ThreadPoolExecutor(
+        _SECTION_POOL = _Pool(
             max_workers=8, thread_name_prefix="dctz-sect"
         )
     return _SECTION_POOL

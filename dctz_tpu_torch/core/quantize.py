@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import CodecConfig
+from ..utils import timing
 from . import constants as C
 from .binning import linear_to_zigzag, zigzag_to_center
 
@@ -68,7 +69,7 @@ def chunk_width(total: int, block_size: int) -> int:
 
 def _c(v: float, like: torch.Tensor) -> torch.Tensor:
     """The scalar v as a tensor of like's dtype on like's device."""
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    return timing.scalar(v, like.dtype, like.device)
 
 
 def assign_bins(coeffs: torch.Tensor, cfg: CodecConfig):
@@ -223,7 +224,8 @@ def repack(bin_ids: torch.Tensor, dense_vals: torch.Tensor, dc: torch.Tensor,
     flat_m = escape.reshape(-1)
     flat_v = dense_vals.reshape(-1).to(stored_dtype(cfg, dense_vals.dtype))
     ac, counts, ovf = cp.compact_chunked(flat_m, flat_v, cw, min(cp.CAPC, cw))
-    if bool(ovf):
+    if timing.item(ovf):
+        timing.count("retries")
         ac, counts, _ = cp.compact_chunked(flat_m, flat_v, cw, cw)
     return Quantized(bin_ids.to(torch.uint8), dc, ac, counts, qtable, ovf)
 

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from ..utils import timing
+
 
 def scaling_factor(amax: torch.Tensor, sf_adj: int) -> torch.Tensor:
     """sf = 10**(ceil(log10(amax)) - sf_adj); 1.0 for amax == 0 (util.c:28,42),
@@ -20,7 +22,8 @@ def scaling_factor(amax: torch.Tensor, sf_adj: int) -> torch.Tensor:
     the CPU and in dctz_tpu), and sf is both the header's scaling factor
     and the divisor of every sample."""
     if amax.device.type != "cpu":
-        return _scaling_factor(amax.cpu(), sf_adj).to(amax.device)
+        return timing.to_device(_scaling_factor(timing.to_host(amax), sf_adj),
+                                amax.device)
     return _scaling_factor(amax, sf_adj)
 
 
@@ -51,7 +54,7 @@ def amax_mean(x_padded: torch.Tensor, n_real: int):
     """(max|x|, mean) over a zero-padded flat array: pads never change max|x|,
     and the mean divides by the true count."""
     amax = torch.max(torch.abs(x_padded))
-    mean = torch.sum(x_padded) / torch.tensor(
-        float(n_real), dtype=x_padded.dtype, device=x_padded.device
+    mean = torch.sum(x_padded) / timing.scalar(
+        float(n_real), x_padded.dtype, x_padded.device
     )
     return amax, mean

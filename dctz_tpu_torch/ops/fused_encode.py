@@ -27,6 +27,7 @@ from ..config import CodecConfig
 from ..core import constants as C
 from ..core import quantize as qz
 from ..core import transform
+from ..utils import timing
 from . import dpk_fuse
 from .repair import _SLACK
 
@@ -34,7 +35,7 @@ BS = dpk_fuse.BS
 
 
 def _f32(v: float, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    return timing.scalar(v, torch.float32, torch.device(device))
 
 
 def tolerance(x: torch.Tensor, n_true: int, error_bound: float) -> torch.Tensor:

@@ -17,7 +17,7 @@ Two segment paths, chosen as the JAX package chooses them (its dpk_seg):
 
   DPK (ids_codec "device", or "auto", which means it for v2): the same
     kernels as the monolithic path (A + B, ops/dpk_fuse.encode_x_fused; E
-    for the qtable) and the same host packer (api._pack_dpk_v2). A stream
+    for the qtable) and the same host packer (api._dpk_v2_streams). A stream
     decodes bit-identically to the monolithic container of the same data
     whenever the segment size is a multiple of the 1024-element pad quantum
     (the default DEFAULT_SEGMENT is).
@@ -37,6 +37,13 @@ packs segment k (its device-to-host copies run on a side CUDA stream) while
 the device encodes segment k + 1; the reader's host worker re-inflates frame
 k + 1 while the device decodes frame k. Besides the input, the device holds
 at most two segments in flight.
+
+Tracing (utils/timing): the writer and the readers take `timer=`. The
+writer's thread opens pipeline.stats, pipeline.qtable, pipeline.encode,
+pipeline.wait and pipeline.write, one after another, and its worker
+pack.pull and pack.host; the readers' thread opens pipeline.wait,
+pipeline.decode and copy_out, and their worker prep. A frame's spans carry
+its index.
 """
 
 
@@ -44,7 +51,6 @@ from __future__ import annotations
 
 import concurrent.futures
 import struct
-import time
 from typing import BinaryIO, Iterator
 
 import numpy as np
@@ -53,6 +59,7 @@ import torch
 from .config import CodecConfig
 from .core import container as ct
 from .core import quantize as qz
+from .utils import timing
 
 MAGIC = b"DTZS"
 _HDR = struct.Struct("<4sHHQ")
@@ -105,7 +112,7 @@ def _on_device(seg, device: torch.device, pad: bool = True) -> torch.Tensor:
         if not seg.flags.writeable:
             seg = seg.copy()
         seg = torch.from_numpy(seg)
-    seg = seg.to(device)
+    seg = timing.to_device(seg, device)
     extra = (-seg.shape[0]) % _PAD_QUANTUM if pad else 0
     return torch.nn.functional.pad(seg, (0, extra)) if extra else seg
 
@@ -132,11 +139,11 @@ def _start_pull(tensors):
             h.copy_(t, non_blocking=True)
             t.record_stream(side)
             host.append(h)
-    done = torch.cuda.Event()
-    done.record(side)
+    timing.count("bytes_d2h_pinned", sum(t.nbytes for t in live))
 
     def wait():
-        done.synchronize()
+        # the side stream holds only these copies
+        timing.wait(side)
         return [None if h is None else h.numpy() for h in host]
 
     return wait
@@ -150,7 +157,7 @@ def compress_stream(
     *,
     config: CodecConfig | None = None,
     segment_elems: int = DEFAULT_SEGMENT,
-    trace: list | None = None,
+    timer=None,
     device: str | torch.device = "cuda",
 ) -> int:
     """Compress the flat float32 or float64 array `x` into `out` as a DTZS
@@ -165,64 +172,76 @@ def compress_stream(
     x: a numpy array (statistics on the host, one segment at a time; each
     segment then goes to `device`) or a tensor (moved to `device` once;
     statistics reduce there and the segments are slices of it).
-    trace: an optional list collecting per-segment wall times
-    ("device" | "pull" | "pack", segment, t0, t1)."""
-    from . import api
-    from .ops import dpk_fuse
-    from .ops import fused_encode as fe
-    from .ops.repair import _SLACK
+    timer: a utils.timing.StageTimer that takes the writer's spans (module
+    docstring) and counters."""
+    with timing.using(timer) as t:
+        return _write_stream(x, out, config or CodecConfig(
+            mode=mode, error_bound=error_bound, container="v2"),
+            segment_elems, t, device)
 
-    cfg = config or CodecConfig(mode=mode, error_bound=error_bound, container="v2")
-    device = api.checked_device(device)
-    if isinstance(x, torch.Tensor):
-        x = x.reshape(-1)
-        dtype = np.dtype(str(x.dtype).removeprefix("torch."))
-    else:
-        x = np.asarray(x).reshape(-1)
-        dtype = x.dtype
-    if dtype not in (np.float32, np.float64):
-        raise TypeError(f"unsupported dtype {dtype}; use float32/float64")
-    n = int(x.shape[0])
-    if n == 0:
-        raise ValueError("cannot compress an empty array")
-    cfg = api._resolve_ids_codec(cfg)
-    api._check_internal_dtype(cfg)
-    # the JAX writer's dpk_seg (dctz_tpu/stream.py:227-238): DPK frames on
-    # kernels A + B for the device ids on float32 data at their geometry
-    # (blocks of 64, 255 bins) with truncate on, at any brsf (an operand of
-    # A). Everything else writes host-coded frames; a float64 array with
-    # the device ids among them, whose ids take Huffman-only deflate
-    # (api._ids_streams)
-    dpk_seg = (cfg.ids_codec == "device" and cfg.mode in ("ec", "qt")
-               and dtype == np.float32 and cfg.truncate
-               and dpk_fuse.default_geometry(cfg))
-    tdtype = torch.float64 if dtype == np.float64 else torch.float32
-    bs = cfg.block_size
-    segment_elems = max(bs, segment_elems - segment_elems % bs)
 
-    # pass 1: global statistics
-    if isinstance(x, torch.Tensor):
-        x = x.to(device)
-        amax_d, total_d, vmax_d, vmin_d = _stats_stream_device(x)
-        amax = amax_d
-        total, vmax, vmin = float(total_d), float(vmax_d), float(vmin_d)
-    else:
-        amax, total, vmax, vmin = _stats_stream_host(x, segment_elems)
-        amax = torch.tensor(amax, dtype=tdtype, device=device)
-    from .core.stats import scaling_factor
+def _write_stream(x, out: BinaryIO, cfg: CodecConfig, segment_elems: int, t,
+                  device) -> int:
+    """compress_stream's body, traced into t. The writer's thread runs its
+    spans one after another, so that they tile the call."""
+    with t.span("pipeline.stats", tile=True):
+        from . import api
+        from .ops import dpk_fuse
+        from .ops import fused_encode as fe
+        from .ops.repair import _SLACK
 
-    sf_t = scaling_factor(amax, cfg.sf_adj)
-    sf = float(sf_t)
-    # the header's mean is total / n in doubles, unrounded, as the JAX
-    # writer stores it (dctz_tpu/stream.py:200); total is a float32 sum on
-    # the device route and a float64 sum of segment sums on the host route,
-    # so the two routes store different means, as the JAX package's do
-    mean = total / n
-    # the verify tolerance is GLOBAL (eb times the range of the whole
-    # array), computed in python doubles and rounded once to the segment
-    # dtype, as the JAX stream writer does
-    tol_t = torch.tensor((vmax - vmin) * cfg.error_bound * _SLACK,
-                         dtype=tdtype, device=device)
+        device = api.checked_device(device)
+        if isinstance(x, torch.Tensor):
+            x = x.reshape(-1)
+            dtype = np.dtype(str(x.dtype).removeprefix("torch."))
+        else:
+            x = np.asarray(x).reshape(-1)
+            dtype = x.dtype
+        if dtype not in (np.float32, np.float64):
+            raise TypeError(f"unsupported dtype {dtype}; use float32/float64")
+        n = int(x.shape[0])
+        if n == 0:
+            raise ValueError("cannot compress an empty array")
+        cfg = api._resolve_ids_codec(cfg)
+        api._check_internal_dtype(cfg)
+        # the JAX writer's dpk_seg (dctz_tpu/stream.py:227-238): DPK frames
+        # on kernels A + B for the device ids on float32 data at their
+        # geometry (blocks of 64, 255 bins) with truncate on, at any brsf
+        # (an operand of A). Everything else writes host-coded frames; a
+        # float64 array with the device ids among them, whose ids take
+        # Huffman-only deflate (api._ids_streams)
+        dpk_seg = (cfg.ids_codec == "device" and cfg.mode in ("ec", "qt")
+                   and dtype == np.float32 and cfg.truncate
+                   and dpk_fuse.default_geometry(cfg))
+        tdtype = torch.float64 if dtype == np.float64 else torch.float32
+        bs = cfg.block_size
+        segment_elems = max(bs, segment_elems - segment_elems % bs)
+
+        # pass 1: global statistics
+        if isinstance(x, torch.Tensor):
+            x = timing.to_device(x, device)
+            amax_d, total_d, vmax_d, vmin_d = _stats_stream_device(x)
+            amax = amax_d
+            total, vmax, vmin = (timing.item(total_d), timing.item(vmax_d),
+                                 timing.item(vmin_d))
+        else:
+            amax, total, vmax, vmin = _stats_stream_host(x, segment_elems)
+            amax = timing.scalar(amax, tdtype, device)
+        from .core.stats import scaling_factor
+
+        sf_t = scaling_factor(amax, cfg.sf_adj)
+        sf = timing.item(sf_t)
+        # the header's mean is total / n in doubles, unrounded, as the JAX
+        # writer stores it (dctz_tpu/stream.py:200); total is a float32 sum
+        # on the device route and a float64 sum of segment sums on the host
+        # route, so the two routes store different means, as the JAX
+        # package's do
+        mean = total / n
+        # the verify tolerance is GLOBAL (eb times the range of the whole
+        # array), computed in python doubles and rounded once to the
+        # segment dtype, as the JAX stream writer does
+        tol_t = timing.scalar((vmax - vmin) * cfg.error_bound * _SLACK, tdtype,
+                              device)
 
     # QT: the global column max over every segment first, max-reduced (max
     # is associative: equal to the whole-array pass): kernel E on DPK
@@ -230,62 +249,94 @@ def compress_stream(
     # clamped, with slot 0 patched to their own last block's DC
     qt_ext = None
     if cfg.mode == "qt":
-        for seg in _segments(x, segment_elems):
-            if dpk_seg:
-                q1 = fe.qtable_qmax(_on_device(seg, device), sf_t, cfg.error_bound,
-                                    relaxed=api._relaxed(cfg), brsf=cfg.brsf)
-            else:
-                q1 = _qtable_colmax_segment(_on_device(seg, device, pad=False),
-                                            int(seg.shape[0]), sf_t, cfg)
-            qt_ext = q1 if qt_ext is None else torch.maximum(qt_ext, q1)
+        with t.span("pipeline.qtable", tile=True):
+            for seg in _segments(x, segment_elems):
+                if dpk_seg:
+                    q1 = fe.qtable_qmax(_on_device(seg, device), sf_t,
+                                        cfg.error_bound,
+                                        relaxed=api._relaxed(cfg),
+                                        brsf=cfg.brsf)
+                else:
+                    q1 = _qtable_colmax_segment(_on_device(seg, device, pad=False),
+                                                int(seg.shape[0]), sf_t, cfg)
+                qt_ext = q1 if qt_ext is None else torch.maximum(qt_ext, q1)
 
     def write_frame(blob: bytes) -> int:
         out.write(_FRAME.pack(len(blob)))
         out.write(blob)
+        t.count("frames")
         return _FRAME.size + len(blob)
 
-    written = _HDR.size
-    out.write(_HDR.pack(MAGIC, 1, 0, n))
+    with t.span("pipeline.write", tile=True):
+        written = _HDR.size
+        out.write(_HDR.pack(MAGIC, 1, 0, n))
     bound_bad: list[int] = []  # segments where repair fell short
-    with concurrent.futures.ThreadPoolExecutor(1) as host_worker:
+    host_worker = concurrent.futures.ThreadPoolExecutor(1)
+
+    def hand_off(pack, si):
+        # the worker takes segment si's pull and pack
+        return host_worker.submit(t.carry(_pack_frame), *pack, bound_bad, si)
+
+    try:
         pending = None
         for si, seg in enumerate(_segments(x, segment_elems)):
-            t0 = time.perf_counter()
-            n_seg = int(seg.shape[0])
             # each segment's device stage blocks on its overflow flag, so
-            # this interval covers the segment's device work
-            if dpk_seg:
-                xs = _on_device(seg, device)
-                outs, planes, qt_seg = _encode_segment_dpk(xs, n_seg, sf_t, tol_t,
-                                                           cfg, qt_ext)
-                pull = _start_pull(_pull_list(outs, planes, qt_seg, cfg))
-                pack = (_pack_segment_dpk, pull, planes is not None, n_seg,
-                        int(xs.shape[0]), sf, mean, cfg)
-            else:
-                q, ok = _encode_segment(_on_device(seg, device, pad=False), n_seg,
-                                        sf_t, tol_t, cfg, qt_ext)
-                pull = _start_pull([q.bin_ids, q.dc, q.ac_buf, q.ac_count,
-                                    q.qtable, ok])
-                pack = (_pack_segment, pull, n_seg, sf, mean, cfg, dtype)
-            if trace is not None:
-                trace.append(("device", si, t0, time.perf_counter()))
-            if pending is not None:
-                written += write_frame(pending.result())
-            pending = host_worker.submit(*pack, bound_bad, si, trace)
-        written += write_frame(pending.result())
-    out.write(_FRAME.pack(0))
-    _warn_bound(bound_bad)
+            # this span covers the segment's device work
+            with t.span("pipeline.encode", si, tile=True):
+                n_seg = int(seg.shape[0])
+                if dpk_seg:
+                    xs = _on_device(seg, device)
+                    outs, planes, qt_seg = _encode_segment_dpk(
+                        xs, n_seg, sf_t, tol_t, cfg, qt_ext)
+                    pull = _start_pull(_pull_list(outs, planes, qt_seg, cfg))
+                    pack = (_pack_segment_dpk, pull, planes is not None, n_seg,
+                            int(xs.shape[0]), sf, mean, cfg)
+                else:
+                    q, ok = _encode_segment(_on_device(seg, device, pad=False),
+                                            n_seg, sf_t, tol_t, cfg, qt_ext)
+                    pull = _start_pull([q.bin_ids, q.dc, q.ac_buf, q.ac_count,
+                                        q.qtable, ok])
+                    pack = (_pack_segment, pull, n_seg, sf, mean, cfg, dtype)
+                if pending is None:
+                    pending = hand_off(pack, si)
+                    continue
+            with t.span("pipeline.wait", si - 1, tile=True):
+                blob = pending.result()
+            with t.span("pipeline.write", si - 1, tile=True):
+                written += write_frame(blob)
+                pending = hand_off(pack, si)
+        with t.span("pipeline.wait", si, tile=True):
+            blob = pending.result()
+        with t.span("pipeline.write", si, tile=True):
+            written += write_frame(blob)
+            out.write(_FRAME.pack(0))
+            host_worker.shutdown()
+            _warn_bound(bound_bad)
+    finally:
+        host_worker.shutdown()
     return written + _FRAME.size
+
+
+def _pack_frame(pack, pull, *args):
+    """The writer worker's task for one segment (its index last in args):
+    wait for its copies (pack.pull: device completion plus transfer), then
+    pack(host arrays, *args) (pack.host, host CPU only)."""
+    with timing.span("pack.pull", args[-1]):
+        host = pull()
+    with timing.span("pack.host", args[-1], cpu=True):
+        return pack(host, *args)
 
 
 def _warn_bound(bound_bad: list) -> None:
     if bound_bad:
         import warnings
 
+        timing.count("bound_shortfalls", len(bound_bad))
+
         warnings.warn(
             "verify-repair could not fully satisfy the pointwise bound in "
             f"segment(s) {bound_bad} (float32-truncation floor)",
-            stacklevel=3,
+            stacklevel=4,
         )
 
 
@@ -320,7 +371,8 @@ def _encode_segment_dpk(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
                                        brsf=cfg.brsf)
 
     outs = encode(idpack.CAPE)
-    if bool(outs[7]):
+    if timing.item(outs[7]):
+        timing.count("retries")
         outs = encode(cw)
     qt_seg = patch_slot0(qt_ext, outs[6], n) if qt_ext is not None else None
     dcd = (cfg.dc_delta and cfg.container == "v2"
@@ -340,35 +392,33 @@ def _pull_list(outs, planes, qt_seg, cfg: CodecConfig):
             ok if cfg.verify else None, qt_seg]
 
 
-def _pack_segment_dpk(pull, plane_mode: bool, n: int, n_pad: int, sf: float,
+def _pack_segment_dpk(host, plane_mode: bool, n: int, n_pad: int, sf: float,
                       mean: float, cfg: CodecConfig,
                       bound_bad: list | None = None, seg_index: int = 0,
-                      trace=None, dtype=np.float32) -> bytes:
+                      dtype=np.float32, n_stream: int | None = None) -> bytes:
     """Host stage of one DPK segment (on the writer's worker thread, or on
-    the caller's for a monolithic container): wait for the segment's copies
-    (the "pull" interval: device completion plus transfer) and pack the
-    same v2 container the monolithic path emits (the "pack" interval, host
-    CPU only). dtype: the header's, float64 for a monolithic float64 array
-    cast by internal_dtype="float32"."""
+    the caller's for a monolithic container): the same v2 container the
+    monolithic path emits, from the segment's host arrays (_pull_list's,
+    pulled): the sections (span zlib.sections), then the container (span
+    zlib.container). dtype: the header's, float64 for a monolithic float64
+    array cast by internal_dtype="float32"; n_stream: the id stream's length
+    (api._dpk_v2_streams)."""
     from . import api
 
-    tp0 = time.perf_counter()
-    (width, packed, exc_rows, exc_counts, counts, dc_s, ac_s, ok,
-     qtable) = pull()
-    if ok is not None and bound_bad is not None and not bool(ok):
-        bound_bad.append(seg_index)
-    header = api._header(cfg, n, int(counts.sum()), sf, mean, dtype)
-    tp1 = time.perf_counter()
-    planes = dict(dc_planes=dc_s, ac_planes=ac_s) if plane_mode else {}
-    blob = api._pack_dpk_v2(
-        header, width, packed, exc_rows, exc_counts, counts,
-        None if plane_mode else ac_s, None if plane_mode else dc_s, n_pad,
-        cfg, qtable, **planes,
-    )
-    if trace is not None:
-        trace.append(("pull", seg_index, tp0, tp1))
-        trace.append(("pack", seg_index, tp1, time.perf_counter()))
-    return blob
+    with timing.span("zlib.sections", cpu=True, tile=True):
+        (width, packed, exc_rows, exc_counts, counts, dc_s, ac_s, ok,
+         qtable) = host
+        if ok is not None and bound_bad is not None and not bool(ok):
+            bound_bad.append(seg_index)
+        header = api._header(cfg, n, int(counts.sum()), sf, mean, dtype)
+        planes = dict(dc_planes=dc_s, ac_planes=ac_s) if plane_mode else {}
+        streams = api._dpk_v2_streams(
+            header, width, packed, exc_rows, exc_counts, counts,
+            None if plane_mode else ac_s, None if plane_mode else dc_s, n_pad,
+            cfg, n_stream=n_stream, **planes,
+        )
+    with timing.span("zlib.container", cpu=True, tile=True):
+        return ct.pack_v2(header, streams, qtable, cfg.chunk_bytes)
 
 
 def _qtable_colmax_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor,
@@ -425,24 +475,23 @@ def _encode_segment(xs: torch.Tensor, n: int, sf_t: torch.Tensor, tol_t,
     return qz.repack(ids, vals, dc, qtable, n, cfg), ok
 
 
-def _pack_segment(pull, n: int, sf: float, mean: float, cfg: CodecConfig,
+def _pack_segment(host, n: int, sf: float, mean: float, cfg: CodecConfig,
                   dtype=np.float32, bound_bad: list | None = None,
-                  seg_index: int = 0, trace=None) -> bytes:
+                  seg_index: int = 0) -> bytes:
     """Host stage of one generic segment (dctz_tpu/stream.py:467-516, byte
     for byte): a host-coded v2 frame of `dtype` whatever cfg.container
     says. The id sections of the n real ids (api._ids_streams); DC and AC
     (float32, or 8-byte items at full width) always shuffled (cfg.shuffle)
     and chunk-deflated, never plane-coded; the DC delta (cfg.dc_delta) on
     the host for a float32 frame (a float64 frame keeps raw DC); the qtable
-    stored in QT mode only."""
+    stored in QT mode only. host: the segment's pulled (ids, dc, AC rows,
+    counts, qtable, ok)."""
     from . import api
     from .core import entropy
 
-    tp0 = time.perf_counter()
-    ids, dc, ac_rows, counts, qtable, ok = pull()
+    ids, dc, ac_rows, counts, qtable, ok = host
     if ok is not None and bound_bad is not None and not bool(ok):
         bound_bad.append(seg_index)
-    tp1 = time.perf_counter()
     header = api._header(cfg, n, int(counts.sum()), sf, mean, dtype)
     ac = entropy.take_row_prefixes(ac_rows, counts)
     header.shuffle = cfg.shuffle
@@ -458,12 +507,8 @@ def _pack_segment(pull, n: int, sf: float, mean: float, cfg: CodecConfig,
         entropy.chunked_deflate(dcb, cfg.chunk_bytes, cfg.zlib_level),
         entropy.chunked_deflate(acb, cfg.chunk_bytes, cfg.zlib_level),
     )
-    blob = ct.pack_v2(header, streams, qtable if cfg.mode == "qt" else None,
+    return ct.pack_v2(header, streams, qtable if cfg.mode == "qt" else None,
                       cfg.chunk_bytes)
-    if trace is not None:
-        trace.append(("pull", seg_index, tp0, tp1))
-        trace.append(("pack", seg_index, tp1, time.perf_counter()))
-    return blob
 
 
 class MemReader:
@@ -508,25 +553,27 @@ def alloc_output(total: int, dtype) -> np.ndarray:
                          "elements") from e
 
 
-def decompress_stream(f: BinaryIO, trace: list | None = None,
+def decompress_stream(f: BinaryIO, timer=None,
                       device: str | torch.device = "cuda") -> Iterator[np.ndarray]:
     """Yield the reconstructed segments in order (the bounded-memory restore
     path: peak incremental memory is about one segment). A worker thread
     runs frame k + 1's host stage (crc parse, side-stream inflation, row
-    re-padding) while this thread runs frame k's device stage. `trace`
-    collects ("prep" | "device", frame, t0, t1) wall times."""
+    re-padding) while this thread runs frame k's device stage. timer: a
+    utils.timing.StageTimer that takes the reader's spans (module
+    docstring) and counters."""
     _read_stream_header(f)
-    for n, dtype, run in _frame_stages(f, trace, torch.device(device)):
+    for n, dtype, run in _frame_stages(f, timing.resolve(timer),
+                                       torch.device(device)):
         yield run(np.empty(n, dtype))
 
 
-def _frame_stages(f, trace, device: torch.device):
+def _frame_stages(f, t, device: torch.device):
     """Yield (n, dtype, run) per frame in order: its element count and
     dtype, and the function that runs its device stage on the caller's
     thread and writes the frame's n samples into a given array (which it
-    returns).
-    Frame k + 1's host stage is already running on a worker when frame k is
-    yielded."""
+    returns). Frame k + 1's host stage is already running on a worker when
+    frame k is yielded. t: the tracer (utils.timing.resolve); the caller's
+    spans close before each yield."""
     from . import api
 
     def read_frame():
@@ -544,58 +591,67 @@ def _frame_stages(f, trace, device: torch.device):
     def prep(blob, fi):
         """Host stage of one frame (api._host_stage: a DPK v2, host-coded
         v2 or v1 container)."""
-        t0 = time.perf_counter()
-        header, qtable, host_arrays, decode = api._host_stage(blob)
+        with timing.span("prep", fi):
+            header, qtable, host_arrays, decode = api._host_stage(blob)
         n = header.num_elements
-        if trace is not None:
-            trace.append(("prep", fi, t0, time.perf_counter()))
 
         def run(dst: np.ndarray) -> np.ndarray:
-            t1 = time.perf_counter()
-            dev, sf, qt = api._to_device(host_arrays, header, qtable, device)
-            x = decode(dev, sf, qt)
-            torch.from_numpy(dst).copy_(x[:n])  # straight into the output
-            if trace is not None:
-                trace.append(("device", fi, t1, time.perf_counter()))
+            with t.span("pipeline.decode", fi, tile=True):
+                dev, sf, qt = api._to_device(host_arrays, header, qtable, device)
+                x = decode(dev, sf, qt)
+            with t.span("copy_out", fi, tile=True):
+                # straight into the output
+                timing.copy_to_host(torch.from_numpy(dst), x[:n])
+                t.count("frames")
             return dst
 
         return n, header.dtype, run
 
-    with concurrent.futures.ThreadPoolExecutor(1) as host_worker:
-        blob = read_frame()
-        if blob is None:
-            return
-        fi = 0
-        fut = host_worker.submit(prep, blob, fi)
+    host_worker = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        fi, fut = 0, None
         while True:
-            nxt = read_frame()
-            stage = fut.result()
-            if nxt is not None:
-                fut = host_worker.submit(prep, nxt, fi + 1)
+            # reading frame k + 1 and handing it to the worker count as
+            # the wait for frame k's host stage
+            with t.span("pipeline.wait", fi, tile=True):
+                if fut is None:
+                    blob = read_frame()
+                    if blob is None:
+                        return
+                    fut = host_worker.submit(t.carry(prep), blob, fi)
+                nxt = read_frame()
+                stage = fut.result()
+                if nxt is None:
+                    host_worker.shutdown()
+                else:
+                    fut = host_worker.submit(t.carry(prep), nxt, fi + 1)
             yield stage
             fi += 1
             if nxt is None:
                 return
+    finally:
+        host_worker.shutdown()
 
 
-def decompress_stream_all(f: BinaryIO, trace: list | None = None,
+def decompress_stream_all(f: BinaryIO, timer=None,
                           device: str | torch.device = "cuda") -> np.ndarray:
     """Reassemble the whole array from a stream into one output buffer,
     allocated once from the stream header's element count and the first
     frame's dtype (dctz_tpu/stream.py:653); each frame's device stage writes
     its samples straight into it (peak incremental memory beyond the output
-    is about one segment)."""
-    total = _read_stream_header(f)
-    out = None
-    off = 0
-    for n, dtype, run in _frame_stages(f, trace, torch.device(device)):
-        if out is None:
-            out = alloc_output(total, dtype)
-        if off + n > total:
-            raise ValueError(f"stream frames hold more than its {total} "
-                             f"elements")
-        run(out[off : off + n])
-        off += n
+    is about one segment). timer: as decompress_stream's."""
+    with timing.using(timer) as t:
+        total = _read_stream_header(f)
+        out = None
+        off = 0
+        for n, dtype, run in _frame_stages(f, t, torch.device(device)):
+            if out is None:
+                out = alloc_output(total, dtype)
+            if off + n > total:
+                raise ValueError(f"stream frames hold more than its {total} "
+                                 f"elements")
+            run(out[off : off + n])
+            off += n
     if out is None or off != total:
         raise ValueError(f"truncated stream: {off} of {total} elements restored")
     return out

@@ -162,8 +162,11 @@ def test_interval_overlap_matches_bench_py():
             t += float(rng.uniform(0.1, 1.0))
         traces.append(tr)
     for tr in traces:
+        # the port reads utils.timing.Span records: name, index, start, end,
+        # thread, parent
+        spans = [(k, s, a, b, "MainThread", None) for k, s, a, b in tr]
         for kinds in (("pull", "pack"), ("prep",)):
-            assert bench._interval_overlap(tr, kinds) == ref(tr, kinds)
+            assert bench._interval_overlap(spans, kinds) == ref(tr, kinds)
 
 
 def test_pipelined_model_matches_bench_py():

@@ -2158,3 +2158,39 @@ def test_scaling_factor_on_card_equals_cpu(dev, dtype):
             got = scaling_factor(t.to(dev), adj)
             assert got.device.type == "cuda"
             assert got.cpu().item() == scaling_factor(t, adj).item(), (a, adj)
+
+
+@pytest.mark.parametrize("path", ["dtzs", "mono"])
+def test_syncs_counted_equal_sync_debug_mode(dev, path):
+    """The program's own count of its host-blocking waits in one compress
+    and one decompress (StageTimer.counts["syncs"]) equals what torch's sync
+    debug mode finds in the same call (bench._syncs_in): the DTZS path of a
+    CUDA tensor (EC, four frames) and the monolithic QT container of a host
+    array. The copies' bytes are counted beside them."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import bench
+    from dctz_tpu_torch.utils.timing import StageTimer
+
+    x = _signal(4 * TILE_N, 21)
+    cfg = dz.CodecConfig(mode="ec" if path == "dtzs" else "qt", container="v2",
+                         ids_codec="device", verify=True,
+                         segment_elems=TILE_N if path == "dtzs" else 0)
+    inp = torch.from_numpy(x).to(dev) if path == "dtzs" else x
+    blob = dz.compress(inp, config=cfg, device=dev)  # warm: kernels, basis
+    dz.decompress(blob, device=dev)
+    tc, td = StageTimer(), StageTimer()
+    found_c = bench._syncs_in(
+        lambda: dz.compress(inp, config=cfg, timer=tc, device=dev), dev)
+    found_d = bench._syncs_in(
+        lambda: dz.decompress(blob, timer=td, device=dev), dev)
+    for timer, found in ((tc, found_c), (td, found_d)):
+        where = [(s.name, timer.spans[s.parent].name) for s in timer.spans
+                 if s.name == "sync"]
+        assert timer.counts["syncs"] == len(found), (timer.counts, found, where)
+    if path == "dtzs":
+        assert tc.counts["frames"] == td.counts["frames"] == 4
+        assert tc.counts["bytes_d2h_pinned"] > 0
+        assert td.counts["bytes_d2h_pageable"] >= x.nbytes
+    else:
+        assert tc.counts["bytes_h2d_pageable"] >= x.nbytes
+        assert td.counts["bytes_d2h_pageable"] >= x.nbytes

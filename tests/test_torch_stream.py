@@ -239,17 +239,22 @@ def test_compress_routes_to_the_stream(monkeypatch):
 
 
 def test_trace_covers_every_segment():
+    """The writer's and reader's timers hold one span of each per-frame
+    kind for every frame, in frame order."""
     import dctz_tpu_torch as dz
     from dctz_tpu_torch import stream
+    from dctz_tpu_torch.utils.timing import StageTimer
 
-    enc, dec = [], []
-    raw = _port_stream("qt", trace=enc)
-    list(stream.decompress_stream(io.BytesIO(raw), trace=dec, device="cpu"))
-    for trace, kinds in ((enc, ("device", "pull", "pack")), (dec, ("prep", "device"))):
+    enc, dec = StageTimer(), StageTimer()
+    raw = _port_stream("qt", timer=enc)
+    list(stream.decompress_stream(io.BytesIO(raw), timer=dec, device="cpu"))
+    for timer, kinds in ((enc, ("pipeline.encode", "pack.pull", "pack.host")),
+                         (dec, ("prep", "pipeline.decode", "copy_out"))):
         for kind in kinds:
-            spans = [t for t in trace if t[0] == kind]
-            assert [t[1] for t in spans] == [0, 1, 2]
-            assert all(t1 >= t0 for _k, _i, t0, t1 in spans)
+            spans = [s for s in timer.spans if s.name == kind]
+            assert [s.index for s in spans] == [0, 1, 2]
+            assert all(s.t1 >= s.t0 for s in spans)
+        assert timer.counts["frames"] == 3
     assert dz.decompress(raw, device="cpu").shape == (N,)
 
 

@@ -339,12 +339,16 @@ def test_generic_trace_covers_every_segment():
 
     import dctz_tpu_torch as dz
 
-    enc, dec = [], []
+    from dctz_tpu_torch.utils.timing import StageTimer
+
+    enc, dec = StageTimer(), StageTimer()
     raw = _write(stream, _x(True), _cfg(dz, "qt", "deflate", True), device="cpu",
-                 trace=enc)
-    list(stream.decompress_stream(io.BytesIO(raw), trace=dec, device="cpu"))
-    for trace, kinds in ((enc, ("device", "pull", "pack")), (dec, ("prep", "device"))):
+                 timer=enc)
+    list(stream.decompress_stream(io.BytesIO(raw), timer=dec, device="cpu"))
+    for timer, kinds in ((enc, ("pipeline.encode", "pack.pull", "pack.host")),
+                         (dec, ("prep", "pipeline.decode", "copy_out"))):
         for kind in kinds:
-            spans = [t for t in trace if t[0] == kind]
-            assert [t[1] for t in spans] == [0, 1, 2]
-            assert all(t1 >= t0 for _k, _i, t0, t1 in spans)
+            spans = [s for s in timer.spans if s.name == kind]
+            assert [s.index for s in spans] == [0, 1, 2]
+            assert all(s.t1 >= s.t0 for s in spans)
+        assert timer.counts["frames"] == 3
