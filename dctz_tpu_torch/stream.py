@@ -32,23 +32,38 @@ Two segment paths, chosen as the JAX package chooses them (its dpk_seg):
     geometry), or kernel I and torch ops (float64, and other geometries;
     full-width streams in torch ops alone).
 
-Both directions run a two-stage pipeline: the writer's host worker pulls and
-packs segment k (its device-to-host copies run on a side CUDA stream) while
-the device encodes segment k + 1; the reader's host worker re-inflates frame
-k + 1 while the device decodes frame k. Besides the input, the device holds
-at most two segments in flight.
+The writer runs a two-stage pipeline: its host worker pulls and packs
+segment k (its device-to-host copies run on a side CUDA stream) while the
+device encodes segment k + 1. Besides the input, the device holds at most
+two segments in flight.
+
+The reader runs three stages: prep workers re-inflate frames k + 1 and
+k + 2 (crc parse, side-stream inflation, row re-padding; PREP_AHEAD; the
+CPU device preps frame k + 1 alone) while the caller decodes frame k on
+the device; on a CUDA device a copy worker meanwhile fills the output
+with frame k - 1 (_StagedCopies). The caller copies each decoded frame on
+a side stream into one of two pinned staging buffers, which the copy
+worker then copies into the output on FILL_THREADS threads; before a
+frame reuses a buffer the caller waits for the copy of the frame two
+back. So beside the frame being decoded at most two frames' device
+outputs and two pinned frames are in flight. decompress_stream, which
+yields each segment whole, waits for each copy before the next frame. On
+the CPU device the caller copies each frame straight into the output.
 
 Tracing (utils/timing): the writer and the readers take `timer=`. The
 writer's thread opens pipeline.stats, pipeline.qtable, pipeline.encode,
 pipeline.wait and pipeline.write, one after another, and its worker
 pack.pull and pack.host; the readers' thread opens pipeline.wait,
-pipeline.decode and copy_out, and their worker prep. A frame's spans carry
-its index.
+pipeline.decode and copy_out (its own time blocked on the output copy:
+the copy itself on the CPU device; the enqueue, the waits for a staging
+buffer and the final drain on a CUDA device), their prep workers prep
+and their copy worker copy_out.host. A frame's spans carry its index.
 """
 
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import struct
 from typing import BinaryIO, Iterator
@@ -71,6 +86,16 @@ DEFAULT_SEGMENT = 1 << 24  # 16Mi elements per segment
 #: the device and host stages to overlap at all.
 AUTO_THRESHOLD = 2 * DEFAULT_SEGMENT
 _PAD_QUANTUM = 1024  # the fused encode pads to whole (8, 128) tiles
+#: threads that copy a staged frame into the reader's output: a copy into
+#: fresh pages is bound by their first-touch faults, which split across
+#: threads (a 16Mi float32 frame in 13.4 ms on four threads against 35-37
+#: ms on one, on the 8 cores of an H100 host; PERF.md §6)
+FILL_THREADS = 4
+#: frames whose host stage (the reader's prep) runs at once on a CUDA
+#: device, each on its own worker, while the caller decodes the frame
+#: before them: one prep takes longer than a frame's decode and staged
+#: copy (PERF.md §6)
+PREP_AHEAD = 2
 
 
 def _stats_stream_device(x: torch.Tensor):
@@ -556,24 +581,105 @@ def alloc_output(total: int, dtype) -> np.ndarray:
 def decompress_stream(f: BinaryIO, timer=None,
                       device: str | torch.device = "cuda") -> Iterator[np.ndarray]:
     """Yield the reconstructed segments in order (the bounded-memory restore
-    path: peak incremental memory is about one segment). A worker thread
-    runs frame k + 1's host stage (crc parse, side-stream inflation, row
-    re-padding) while this thread runs frame k's device stage. timer: a
-    utils.timing.StageTimer that takes the reader's spans (module
-    docstring) and counters."""
+    path: peak incremental memory is about one segment beside the host
+    stages of the frames prepped ahead). Worker threads run the host
+    stages of the next frames (crc parse, side-stream inflation, row
+    re-padding; PREP_AHEAD of them on a CUDA device, one on the CPU
+    device) while this thread runs frame k's device stage; on a CUDA
+    device each frame's copy through pinned staging is done before its
+    segment is yielded. timer: a utils.timing.StageTimer that takes the
+    reader's spans (module docstring) and counters."""
     _read_stream_header(f)
     for n, dtype, run in _frame_stages(f, timing.resolve(timer),
-                                       torch.device(device)):
+                                       torch.device(device), overlap=False):
         yield run(np.empty(n, dtype))
 
 
-def _frame_stages(f, t, device: torch.device):
+class _StagedCopies:
+    """The reader's copies of its decoded frames into the host output on a
+    CUDA device (module docstring): a ring of two pinned staging buffers,
+    each with its own side stream, and one worker that fills the output
+    from them on FILL_THREADS threads. The buffers come from torch's caching host allocator, so a
+    later call reuses them."""
+
+    def __init__(self, t, device: torch.device) -> None:
+        self._t = t
+        self._streams = [torch.cuda.Stream(device) for _ in range(2)]
+        self._bufs: list[torch.Tensor | None] = [None, None]
+        self._pending: list[concurrent.futures.Future | None] = [None, None]
+        self._next = 0
+        self._worker = concurrent.futures.ThreadPoolExecutor(1)
+        self._fillers = concurrent.futures.ThreadPoolExecutor(FILL_THREADS)
+
+    def start(self, dst: np.ndarray, x: torch.Tensor, fi: int) -> None:
+        """Enqueue the copy of x (a decoded frame, on the current stream)
+        into dst: x to the next staging buffer on its side stream, once the
+        copy of the frame two back has left that buffer, then the
+        worker's fill of dst."""
+        slot = self._next
+        self._next ^= 1
+        self._wait(slot)
+        n = x.shape[0]
+        buf = self._bufs[slot]
+        if buf is None or buf.dtype != x.dtype or buf.shape[0] < n:
+            buf = self._bufs[slot] = torch.empty(n, dtype=x.dtype,
+                                                 pin_memory=True)
+        side = self._streams[slot]
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(side):
+            buf[:n].copy_(x, non_blocking=True)
+        x.record_stream(side)
+        self._t.count("bytes_d2h_pinned", x.nbytes)
+        self._t.count("frames_staged")
+        self._pending[slot] = self._worker.submit(
+            self._t.carry(_fill), side, buf[:n].numpy(), dst, fi,
+            self._fillers)
+
+    def _wait(self, slot: int) -> None:
+        fut, self._pending[slot] = self._pending[slot], None
+        if fut is not None:
+            fut.result()
+
+    def drain(self) -> None:
+        """Wait for every copy in flight (in the order they started)."""
+        for slot in (self._next, self._next ^ 1):
+            self._wait(slot)
+
+    def close(self) -> None:
+        """Cancel the fills not started and wait for the one running."""
+        self._worker.shutdown(cancel_futures=True)
+        self._fillers.shutdown()
+
+
+def _fill(side, staged: np.ndarray, dst: np.ndarray, fi: int,
+          fillers: concurrent.futures.Executor) -> None:
+    """The copy worker's task for frame fi: wait for its staging copy on
+    the side stream, then copy it into dst in FILL_THREADS slices at once
+    (numpy's copy releases the GIL)."""
+    with timing.span("copy_out.host", fi):
+        timing.wait(side)
+        step = max(1, -(-staged.shape[0] // FILL_THREADS))
+        list(fillers.map(lambda a: np.copyto(dst[a : a + step],
+                                             staged[a : a + step]),
+                         range(0, staged.shape[0], step)))
+
+
+def _frame_stages(f, t, device: torch.device, overlap: bool = True,
+                  ahead: int | None = None):
     """Yield (n, dtype, run) per frame in order: its element count and
     dtype, and the function that runs its device stage on the caller's
     thread and writes the frame's n samples into a given array (which it
-    returns). Frame k + 1's host stage is already running on a worker when
-    frame k is yielded. t: the tracer (utils.timing.resolve); the caller's
-    spans close before each yield."""
+    returns). The host stages of frames k + 1 to k + ahead are already
+    running on workers when frame k is yielded (ahead: PREP_AHEAD on a
+    CUDA device, 1 on the CPU device, whose decode itself takes the
+    host's cores); a frame that cannot be read raises where a reader one
+    frame ahead would, in the wait for the frame before it. t: the tracer
+    (utils.timing.resolve); the caller's spans close before each yield. On
+    a CUDA device run copies the frame out through _StagedCopies: with
+    overlap the copy may still be running when run returns (every copy is
+    done when this generator ends), without it run returns with the copy
+    done. On the CPU device run copies the frame straight into the
+    array."""
     from . import api
 
     def read_frame():
@@ -600,37 +706,63 @@ def _frame_stages(f, t, device: torch.device):
                 dev, sf, qt = api._to_device(host_arrays, header, qtable, device)
                 x = decode(dev, sf, qt)
             with t.span("copy_out", fi, tile=True):
-                # straight into the output
-                timing.copy_to_host(torch.from_numpy(dst), x[:n])
+                if copies is None:
+                    # straight into the output
+                    timing.copy_to_host(torch.from_numpy(dst), x[:n])
+                else:
+                    copies.start(dst, x[:n], fi)
+                    if not overlap:
+                        copies.drain()
                 t.count("frames")
             return dst
 
         return n, header.dtype, run
 
-    host_worker = concurrent.futures.ThreadPoolExecutor(1)
+    cuda = device.type == "cuda"
+    if ahead is None:
+        ahead = PREP_AHEAD if cuda else 1
+    copies = _StagedCopies(t, device) if cuda else None
+    preps = concurrent.futures.ThreadPoolExecutor(ahead)
+    queued = collections.deque()  # the preps of the frames read, in order
+    late = None  # (index, error) of the frame whose read failed
     try:
-        fi, fut = 0, None
+        fi, nread, eof = 0, 0, False
         while True:
-            # reading frame k + 1 and handing it to the worker count as
-            # the wait for frame k's host stage
+            # reading the next frames and handing them to the workers count
+            # as the wait for frame k's host stage
             with t.span("pipeline.wait", fi, tile=True):
-                if fut is None:
-                    blob = read_frame()
+                while not (eof or late) and nread <= fi + ahead:
+                    try:
+                        blob = read_frame()
+                    except ValueError as e:
+                        late = (nread, e)
+                        break
                     if blob is None:
-                        return
-                    fut = host_worker.submit(t.carry(prep), blob, fi)
-                nxt = read_frame()
-                stage = fut.result()
-                if nxt is None:
-                    host_worker.shutdown()
-                else:
-                    fut = host_worker.submit(t.carry(prep), nxt, fi + 1)
+                        eof = True
+                    else:
+                        queued.append(preps.submit(t.carry(prep), blob, nread))
+                        nread += 1
+                # a frame that cannot be read fails the wait for the frame
+                # before it, however far ahead it was read
+                if late is not None and late[0] <= fi + 1:
+                    raise late[1]
+                if not queued:
+                    return
+                stage = queued.popleft().result()
+                if eof and not queued:
+                    preps.shutdown()
             yield stage
             fi += 1
-            if nxt is None:
-                return
+            if eof and not queued:
+                break
+        if copies is not None:
+            with t.span("copy_out", tile=True):
+                copies.drain()
+                copies.close()
     finally:
-        host_worker.shutdown()
+        preps.shutdown(cancel_futures=True)
+        if copies is not None:
+            copies.close()
 
 
 def decompress_stream_all(f: BinaryIO, timer=None,
@@ -638,8 +770,10 @@ def decompress_stream_all(f: BinaryIO, timer=None,
     """Reassemble the whole array from a stream into one output buffer,
     allocated once from the stream header's element count and the first
     frame's dtype (dctz_tpu/stream.py:653); each frame's device stage writes
-    its samples straight into it (peak incremental memory beyond the output
-    is about one segment). timer: as decompress_stream's."""
+    its samples into it, on a CUDA device through pinned staging while the
+    next frames decode (peak incremental memory beyond the output is the
+    host stages of the frames prepped ahead and, on a CUDA device, two
+    pinned frames). timer: as decompress_stream's."""
     with timing.using(timer) as t:
         total = _read_stream_header(f)
         out = None

@@ -31,7 +31,9 @@ seconds counted once. `t.counts` holds the counters kept at the same
 boundaries: "syncs" (host-blocking waits on the device: item(), to_host(),
 copy_to_host(), a blocking to_device() or scalar(), wait()), bytes moved
 ("bytes_h2d_pageable", "bytes_h2d_pinned", "bytes_d2h_pageable",
-"bytes_d2h_pinned"), "frames" (DTZS frames written or restored), "retries"
+"bytes_d2h_pinned"), "frames" (DTZS frames written or restored),
+"frames_staged" (restored frames copied out through pinned staging, on a
+CUDA device), "retries"
 (full-width re-encodes after an overflow) and "bound_shortfalls" (arrays or
 frames whose verify-repair fell short of the bound). On the CPU device the
 reads count as syncs too (the same boundaries, nothing to wait for) and no
@@ -43,7 +45,7 @@ The spans' names, by the thread they run on:
                 pipeline.wait, pipeline.write (they tile "pipeline");
                 worker: pack.pull, pack.host
   DTZS reader   caller: pipeline.wait, pipeline.decode, copy_out (they tile
-                "pipeline"); worker: prep
+                "pipeline"); workers: prep, copy_out.host (CUDA device)
   entropy       caller or worker: zlib.sections, zlib.container (they tile
                 "zlib"), host.parse, host.prep (they tile "host");
                 section pool: section.dc, section.ac, section.ids

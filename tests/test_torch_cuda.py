@@ -2165,8 +2165,9 @@ def test_syncs_counted_equal_sync_debug_mode(dev, path):
     """The program's own count of its host-blocking waits in one compress
     and one decompress (StageTimer.counts["syncs"]) equals what torch's sync
     debug mode finds in the same call (bench._syncs_in): the DTZS path of a
-    CUDA tensor (EC, four frames) and the monolithic QT container of a host
-    array. The copies' bytes are counted beside them."""
+    CUDA tensor (EC, four frames; the reader's waits on its copy worker)
+    and the monolithic QT container of a host array. The copies' bytes are
+    counted beside them."""
     import dctz_tpu_torch as dz
     from dctz_tpu_torch import bench
     from dctz_tpu_torch.utils.timing import StageTimer
@@ -2188,9 +2189,117 @@ def test_syncs_counted_equal_sync_debug_mode(dev, path):
                  if s.name == "sync"]
         assert timer.counts["syncs"] == len(found), (timer.counts, found, where)
     if path == "dtzs":
+        # the reader's waits: one a frame on its copy worker, for the
+        # frame's copy into pinned staging
         assert tc.counts["frames"] == td.counts["frames"] == 4
+        assert td.counts["frames_staged"] == 4
         assert tc.counts["bytes_d2h_pinned"] > 0
-        assert td.counts["bytes_d2h_pageable"] >= x.nbytes
+        assert td.counts["bytes_d2h_pinned"] == x.nbytes
+        waits = [td.spans[s.parent].name for s in td.spans if s.name == "sync"]
+        assert waits.count("copy_out.host") == 4 and "copy_out" not in waits
     else:
         assert tc.counts["bytes_h2d_pageable"] >= x.nbytes
         assert td.counts["bytes_d2h_pageable"] >= x.nbytes
+
+
+def _dtzs_stream(dev, n, dtype=np.float32, seed=31):
+    """A DTZS stream of a signal of n samples written on the card in frames
+    of TILE_N (the last one short unless n is a multiple of it): DPK
+    frames for float32, host-coded float64 frames for float64."""
+    import io
+
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import stream
+
+    x = _signal(n, seed).astype(dtype)
+    cfg = dz.CodecConfig(mode="ec", container="v2", ids_codec="device",
+                         verify=True)
+    buf = io.BytesIO()
+    stream.compress_stream(x, buf, config=cfg, segment_elems=TILE_N, device=dev)
+    return buf.getvalue()
+
+
+def _direct_restore(blob, dev):
+    """The reader with every frame copied straight into the output (the
+    CPU device's copy, here on the card)."""
+    from dctz_tpu_torch import stream
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stream, "_StagedCopies", lambda t, device: None)
+        return stream.decompress_stream_all(stream.MemReader(blob), device=dev)
+
+
+@pytest.mark.parametrize("n, dtype", [
+    (TILE_N - 1000, np.float32),  # one frame
+    (2 * TILE_N, np.float32),  # two: each staging buffer once
+    (2 * TILE_N + 5000, np.float32),  # three, the last short: the ring wraps
+    (2 * TILE_N + 5000, np.float64),  # float64 frames
+])
+def test_staged_reader_equals_direct_copy(dev, n, dtype):
+    """On the card decompress_stream_all copies each frame through the
+    pinned staging ring: its output is byte-equal to the direct copy's,
+    every frame is staged and its bytes cross as pinned copies."""
+    from dctz_tpu_torch import stream
+    from dctz_tpu_torch.utils.timing import StageTimer
+
+    blob = _dtzs_stream(dev, n, dtype)
+    want = _direct_restore(blob, dev)
+    t = StageTimer()
+    got = stream.decompress_stream_all(stream.MemReader(blob), timer=t,
+                                       device=dev)
+    assert got.dtype == dtype and got.tobytes() == want.tobytes()
+    frames = -(-n // TILE_N)
+    assert t.counts["frames"] == t.counts["frames_staged"] == frames
+    assert t.counts["bytes_d2h_pinned"] == n * np.dtype(dtype).itemsize
+
+
+@pytest.mark.parametrize("fault", ["crc", "truncated", "too_many"])
+def test_staged_reader_raises_after_staged_frames(dev, fault):
+    """A fault met after two frames have gone through the staging ring (a
+    crc mismatch in frame 2, frame 3 cut short, a header that claims fewer
+    elements than the frames hold) raises the same ValueError as the CPU
+    device's direct copy, and the reader leaves none of its workers (prep,
+    copy, fill) alive."""
+    import threading
+
+    from dctz_tpu_torch import stream
+    from torch_common import frame_spans
+
+    blob = bytearray(_dtzs_stream(dev, 4 * TILE_N))
+    spans = frame_spans(bytes(blob))
+    if fault == "crc":
+        start, end = spans[2]
+        blob[(start + end) // 2] ^= 0x5A
+    elif fault == "truncated":
+        start, end = spans[3]
+        blob = blob[: (start + end) // 2]
+    else:
+        blob[8:16] = (2 * TILE_N + 1).to_bytes(8, "little")
+    blob = bytes(blob)
+    with pytest.raises(ValueError) as on_cpu:
+        stream.decompress_stream_all(stream.MemReader(blob), device="cpu")
+    before = set(threading.enumerate())
+    with pytest.raises(ValueError) as on_card:
+        stream.decompress_stream_all(stream.MemReader(blob), device=dev)
+    assert str(on_card.value) == str(on_cpu.value)
+    # the entropy layer's shared pools ("dctz-*") live on by design
+    left = [th.name for th in threading.enumerate()
+            if th not in before and not th.name.startswith("dctz-")]
+    assert left == []
+
+
+def test_stream_generator_yields_complete_segments(dev):
+    """decompress_stream on the card: each segment is whole when it is
+    yielded (checked before the next is asked for) and equals the direct
+    copy's samples."""
+    import io
+
+    from dctz_tpu_torch import stream
+
+    blob = _dtzs_stream(dev, 2 * TILE_N + 5000)
+    want = _direct_restore(blob, dev)
+    off = 0
+    for seg in stream.decompress_stream(io.BytesIO(blob), device=dev):
+        assert seg.tobytes() == want[off : off + seg.size].tobytes()
+        off += seg.size
+    assert off == want.size

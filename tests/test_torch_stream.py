@@ -191,6 +191,42 @@ def test_broken_streams_raise(what, match):
         stream.decompress_stream_all(stream.MemReader(raw), device="cpu")
 
 
+@pytest.mark.parametrize("ahead", [1, 2])
+@pytest.mark.parametrize("fault", ["cut", "crc"])
+def test_reader_meets_a_fault_where_one_frame_ahead_does(fault, ahead):
+    """However many frames the reader preps at once (its `ahead`; a CUDA
+    device takes stream.PREP_AHEAD), it meets a fault in frame k of five
+    where a reader that reads one frame ahead does: a frame cut short fails
+    the wait for frame k - 1 (frames 0 to k - 2 restored), a crc mismatch
+    the wait for frame k (frames 0 to k - 1 restored)."""
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch import stream
+    from dctz_tpu_torch.utils import timing
+    from torch_common import frame_spans
+
+    buf = io.BytesIO()
+    stream.compress_stream(_x(), buf, config=slice_cfg(dz, mode="ec"),
+                           segment_elems=TILE_N, device="cpu")
+    raw = buf.getvalue()
+    spans = frame_spans(raw)
+    assert len(spans) == 5
+    for k, (start, end) in enumerate(spans):
+        if fault == "cut":
+            bad, want = raw[: (start + end) // 2], max(k - 1, 0)
+        else:
+            bad = bytearray(raw)
+            bad[(start + end) // 2] ^= 0x5A
+            bad, want = bytes(bad), k
+        f = io.BytesIO(bad)
+        stream._read_stream_header(f)
+        got = []
+        with pytest.raises(ValueError):
+            for n, dtype, run in stream._frame_stages(
+                    f, timing.OFF, torch.device("cpu"), ahead=ahead):
+                got.append(run(np.empty(n, dtype)))
+        assert len(got) == want, (k, len(got))
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_numpy_and_tensor_inputs_write_the_same_stream(ref_streams, mode):
     """A numpy input and a tensor input write the same sections in every

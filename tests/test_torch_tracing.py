@@ -113,6 +113,37 @@ def test_caller_spans_tile_the_stages(path):
     assert seen == 2
 
 
+@pytest.mark.cuda
+def test_staged_copy_spans_on_the_copy_worker():
+    """On the card the reader's copy worker opens copy_out.host, one span a
+    frame with the frame's index, on its own thread under the caller's
+    copy_out, and the caller's last span in the pipeline stage is the
+    final drain (copy_out, no index), which every fill ends before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the staged copy runs only there)")
+    import dctz_tpu_torch as dz
+    from dctz_tpu_torch.utils.timing import StageTimer
+
+    x = _x(N_DTZS)
+    blob = dz.compress(torch.from_numpy(x).cuda(), config=_cfg("dtzs"),
+                       device="cuda")
+    td = StageTimer()
+    y = dz.decompress(blob, timer=td, device="cuda")
+    assert np.abs(y - x).max() <= 1e-3 * (x.max() - x.min())
+    want = KEYS[("dtzs", "decompress")] | {"copy_out.host"}
+    assert want <= set(td.stages), want - set(td.stages)
+    host = [s for s in td.spans if s.name == "copy_out.host"]
+    assert sorted(s.index for s in host) == list(range(N_DTZS // SEG))
+    for s in host:
+        parent = td.spans[s.parent]
+        assert s.thread != "MainThread"
+        assert parent.name == "copy_out" and parent.thread == "MainThread"
+    (pipe,) = [i for i, s in enumerate(td.spans) if s.name == "pipeline"]
+    last = max(_children(td, pipe), key=lambda c: c.t0)
+    assert last.name == "copy_out" and last.index is None
+    assert max(s.t1 for s in host) <= last.t1
+
+
 @pytest.mark.parametrize("path", ["dtzs", "mono"])
 def test_entropy_cpu_and_pool_parents(path):
     """cpu.entropy is positive, and every span on a pool thread names the
@@ -163,6 +194,8 @@ def test_frames_and_syncs_are_counted():
     assert len([s for s in tc.spans if s.name == "sync"]) == tc.counts["syncs"]
     # no bytes cross on the CPU device
     assert not any(k.startswith("bytes_") for k in tc.counts | td.counts)
+    # the CPU device copies each frame straight into the output
+    assert "frames_staged" not in td.counts
     assert "retries" not in tc.counts and "bound_shortfalls" not in tc.counts
     rep = tc.report(N_DTZS * 4)
     assert rep["counts"] == tc.counts and rep["stages_s"] == tc.stages
