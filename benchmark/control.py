@@ -7,7 +7,8 @@ run this.
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3 [--device cpu]
 
 For each seed, every field goes through the public compress / decompress
-once and is judged as a run judges it; the control then reads the same
+once and is judged as a run judges it (not for a cell of several ranks,
+whose runs print the program's readings); the control then reads the same
 fields. With
 --high the program is also read with dct_precision="high" (its own relaxed
 bf16x3 analysis transform). One JSON line a seed.
@@ -45,8 +46,11 @@ def main(argv=None) -> int:
             codec["segment_elems"] = reh["segment_elems"]
             config = dict(config, container=dict(
                 config["container"], segment_elems=reh["segment_elems"]))
-    cfgs = {"program": dz.CodecConfig(**codec)}
-    if args.high:
+    # a cell of several ranks: the program's readings are its runs' own
+    # (one process cannot run compress_multihost's ranks); the control's
+    # need no ranks
+    cfgs = {"program": dz.CodecConfig(**codec)} if cell.chips == 1 else {}
+    if args.high and cell.chips == 1:
         cfgs["program_high"] = dz.CodecConfig(**dict(codec, dct_precision="high"))
     frames = int(config["check"]["frames"])
     with rans.process_pool() as pool:

@@ -126,6 +126,21 @@ def round_trip(api, x, cfg, device, traced: bool):
             td.stages if td else None)
 
 
+def keep(kept: dict, seen: dict, rng: random.Random, per_field: int,
+         item: Kept) -> None:
+    """Offer a round trip to its field's seeded reservoir of `per_field`
+    (kept: field -> its reservoir; seen: field -> its round trips so far)."""
+    f = item.field
+    k = seen[f]
+    seen[f] = k + 1
+    slot = k if k < per_field else rng.randrange(k + 1)
+    if slot < per_field:
+        if slot < len(kept[f]):
+            kept[f][slot] = item
+        else:
+            kept[f].append(item)
+
+
 @dataclasses.dataclass
 class Window:
     calls: list
@@ -165,16 +180,7 @@ def measure(cell, fields, cfg, device, seconds: float, seed: int,
         w.calls.append(Call("decompress", f, sd, out.nbytes, len(blob), std))
         if traced and f not in w.firsts:
             w.firsts[f] = blob
-        # a seeded reservoir of `per_field` round trips of each field
-        k = seen[f]
-        seen[f] = k + 1
-        slot = k if k < per_field else rng.randrange(k + 1)
-        if slot < per_field:
-            item = Kept(i, f, blob, out)
-            if slot < len(kept[f]):
-                kept[f][slot] = item
-            else:
-                kept[f].append(item)
+        keep(kept, seen, rng, per_field, Kept(i, f, blob, out))
         del blob, out
         i += 1
     w.seconds = time.perf_counter() - start

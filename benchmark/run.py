@@ -10,7 +10,9 @@ rounded up to whole cycles through the fields (harness/window.py); after
 it the plain reference (reference/) judges a seeded sample of the round
 trips, one of each field. --trace 1 records the window with
 torch.profiler and the program's stage timer and reports the per-layer
-metrics instead of the end-to-end ones.
+metrics instead of the end-to-end ones. A cell whose `chips` is more than
+1 runs as that many ranks, this process rank 0, through
+dctz_tpu_torch.parallel.multihost (harness/ranks.py).
 
 The last stdout line is one JSON object: correct, attempted, failed,
 metrics, device, [breakdown,] checks. The checks (each reading beside its
@@ -76,9 +78,24 @@ def main(argv=None) -> int:
         _fail(3, f"{args.workload} needs {cell.chips} CUDA device(s); "
                  f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}")
     try:
-        import dctz_tpu_torch as dz
+        import dctz_tpu_torch  # noqa: F401
     except ImportError as e:
         _fail(4, f"the program under test does not import: {e}")
+
+    config, cfg, shape = setting(cell, rehearsal)
+    if cell.chips > 1:
+        from benchmark.harness import ranks
+
+        return _report(args, cell, config, cfg,
+                       *ranks.run(args, cell, config, cfg, shape, _T0))
+    return _report(args, cell, config, cfg, *_single(args, cell, config, cfg,
+                                                     shape))
+
+
+def setting(cell, rehearsal: bool):
+    """(configuration, CodecConfig, shape) of a run: the cell's own, or at
+    the configuration's rehearsal size (shape None: the configuration's)."""
+    import dctz_tpu_torch as dz
 
     config = cell.config
     codec = dict(config["codec"])
@@ -90,9 +107,7 @@ def main(argv=None) -> int:
             codec["segment_elems"] = reh["segment_elems"]
             config = dict(config, container=dict(config["container"],
                                                   segment_elems=reh["segment_elems"]))
-    cfg = dz.CodecConfig(**codec)
-    return _report(args, cell, config, cfg, *_single(args, cell, config, cfg,
-                                                     shape))
+    return config, dz.CodecConfig(**codec), shape
 
 
 def _single(args, cell, config, cfg, shape):
@@ -170,7 +185,7 @@ def _report(args, cell, config, cfg, run, w, readings, peak, timing) -> int:
 
     device_rec = {"platform": "cpu" if rehearsal else "gpu",
                   "kind": "cpu" if rehearsal else torch.cuda.get_device_name(0),
-                  "count": 1 if rehearsal else cell.chips,
+                  "count": cell.chips,
                   "memory_peak_bytes": int(peak)}
     if traced and not rehearsal:
         device_rec["busy_s"] = run.trace.busy_s

@@ -1,5 +1,5 @@
 """On the card: one short run of each one-chip cell is correct and reports
-its end-to-end metrics on the card's name."""
+its end-to-end metrics, all of them and no others, on the card's name."""
 
 import json
 import pathlib
@@ -7,6 +7,8 @@ import subprocess
 import sys
 
 import pytest
+
+from benchmark.harness import spec
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -23,4 +25,5 @@ def test_cell_on_the_card(card, cell):
     assert p.returncode == 0, p.stderr[-2000:]
     out = json.loads(p.stdout.strip().splitlines()[-1])
     assert out["correct"] is True and out["device"]["platform"] == "gpu"
-    assert "compress_gbps" in out["metrics"] and "setup_s" in out["metrics"]
+    assert set(out["metrics"]) == {m["name"] for m in spec.load_cell(cell).end_to_end}
+    assert "setup_s" in out["metrics"] and len(out["metrics"]) >= 2

@@ -26,7 +26,8 @@ def _rehearsal_config(name):
 
 
 @pytest.mark.parametrize("seed", [1, 2, 2**33 + 5])
-@pytest.mark.parametrize("name", ["nyx-512-ec", "cesm-atm-qt"])
+@pytest.mark.parametrize("name", ["nyx-512-ec", "cesm-atm-qt",
+                                  "nyx-512-ec-4rank"])
 def test_control_fails_where_the_program_passes(name, seed):
     cfg, shape = _rehearsal_config(name)
     limits = cfg["check"]["limits"]

@@ -34,7 +34,7 @@ def test_throwaway_cell_and_metric_as_new_files(tmp_path):
                               "traffic": "reversed", "chips": 1, "why": "a test"})
     spec["per_layer"].append({"name": "calls_total", "unit": "calls",
                               "better": "higher", "source": "host_clock",
-                              "layer": "API transfer", "moves": "compress_gbps",
+                              "layer": "API transfer", "moves": "ratio",
                               "workloads": ["cesm-qt.reversed"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
     p = subprocess.run([sys.executable, "benchmark/run.py", "--workload",

@@ -64,3 +64,21 @@ def test_names_units_and_metric_readers():
                                "program_counter", "host_clock")
         if m["name"].endswith("_roofline"):
             assert m["unit"] == "%"
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_per_layer_metrics_move_what_their_cell_reports(cell):
+    """Every per-layer metric of a cell names, in `moves`, an end-to-end
+    metric that the same cell reports."""
+    c = spec.load_cell(cell)
+    ends = {m["name"] for m in c.end_to_end}
+    assert all(m["moves"] in ends for m in c.per_layer)
+
+
+def test_cells_on_four_chips():
+    """At most a quarter of the cells (one always) ask for four chips, and
+    each cell's configuration file states the chips its cell asks for."""
+    four = [w for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
+    for w in BENCH["workloads"]:
+        assert spec.load_cell(w["name"]).config["chips"] == w["chips"]
