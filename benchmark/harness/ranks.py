@@ -12,9 +12,11 @@ them it builds the program's libraries, so that a checkout's first run
 does not build them four times into one directory.
 
 Set-up: every rank makes each field whole from the seed (data/grf.py) and
-keeps only its multihost.host_slice, a pageable numpy slab (the traffic's
-residency must be "host": compress_multihost takes numpy); one warm round
-trip follows.
+keeps only its multihost.host_slice, where the traffic's residency says:
+"host", a pageable numpy slab; "device", a tensor on the rank's own card
+(cuda:r), handed to compress_multihost as it is (under --device cpu a
+numpy slab either way: compress_multihost takes no CPU tensor). One warm
+round trip follows.
 
 The window is a closed loop over whole cycles of the fields in the
 traffic's order. For each field, after a barrier every rank times
@@ -33,6 +35,10 @@ slabs. Rank 0 remakes each kept field from the seed and judges the whole
 field, the whole stream and the joined restore with correct.judge. A
 traced run profiles every rank alike: busy_s and window_s are the ranks'
 mean, and the per-layer metrics read rank 0's card and rank 0's frame.
+It also traces each rank's compress_multihost and decompress_multihost
+into a fresh StageTimer(sync=True) (dctz_tpu_torch.utils.timing.using:
+the program's spans and counters of code handed no timer); rank 0's
+stages and counts go into its calls, as window.Call's do.
 """
 
 from __future__ import annotations
@@ -234,14 +240,12 @@ def _rank(rank, world, args, cell, config, cfg, shape, t0):
 
     from dctz_tpu_torch.ops import idpack
     from dctz_tpu_torch.parallel import multihost as mh
+    from dctz_tpu_torch.utils import timing
 
     from ..data import grf
     from ..reference import container as rct
     from . import trace
 
-    if cell.traffic["residency"] != "host":
-        raise SystemExit("a cell of several ranks takes host-resident slabs: "
-                         "compress_multihost takes numpy")
     cuda = args.device == "cuda"
     mh.init(backend="nccl" if cuda else "gloo")
     group = dist.new_group(backend="gloo") if cuda else None  # host collectives
@@ -251,11 +255,14 @@ def _rank(rank, world, args, cell, config, cfg, shape, t0):
     quantum = idpack.B_DEFAULT if cfg.ids_codec in ("device", "auto") else 1
     lo, hi = mh.host_slice(n_total, cfg.block_size, quantum, mesh)
     share = hi - lo
+    on_device = cell.traffic["residency"] == "device"
     slabs = []
     for i in range(len(config["fields"])):
         f = grf.make_field(config, i, args.seed, device, shape)
-        slabs.append(f[lo:min(hi, n_total)].to("cpu", copy=True).numpy())
-        del f
+        slab = f[lo:min(hi, n_total)]
+        slabs.append(slab.clone() if on_device and cuda
+                     else slab.to("cpu", copy=True).numpy())
+        del f, slab
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
@@ -266,19 +273,21 @@ def _rank(rank, world, args, cell, config, cfg, shape, t0):
     def barrier():
         dist.barrier(group=group)
 
-    def round_trip(slab):
+    def round_trip(slab, traced=False):
+        tc = timing.StageTimer(sync=True) if traced else None
+        td = timing.StageTimer(sync=True) if traced else None
         barrier()
         a = time.perf_counter()
-        with rf("bench.compress"):
+        with rf("bench.compress"), timing.using(tc):
             part = mh.compress_multihost(slab, n_total, config=cfg, mesh=mesh)
         b = time.perf_counter()
         stream = _assemble(part, world, group)
         barrier()
         c = time.perf_counter()
-        with rf("bench.decompress"):
+        with rf("bench.decompress"), timing.using(td):
             restored = mh.decompress_multihost(stream, mesh=mesh)
         d = time.perf_counter()
-        return stream, restored.data, b - a, d - c
+        return stream, restored.data, b - a, d - c, tc, td
 
     round_trip(slabs[seq[0]])
     if cuda:
@@ -307,8 +316,8 @@ def _rank(rank, world, args, cell, config, cfg, shape, t0):
             if not go[0]:
                 break
             f = seq[i % len(seq)]
-            stream, out, sc, sd = round_trip(slabs[f])
-            times.append((f, sc, sd, len(stream)))
+            stream, out, sc, sd, tc, td = round_trip(slabs[f], traced)
+            times.append((f, sc, sd, len(stream), tc, td))
             if traced and rank == 0 and f not in firsts:
                 firsts[f] = bytes(rct.frames(stream)[1][0])  # rank 0's frame
             window.keep(kept, seen, rng, per_field,
@@ -330,7 +339,7 @@ def _rank(rank, world, args, cell, config, cfg, shape, t0):
     t_trace = time.perf_counter()
     summary = trace.summarize(prof) if traced else None
     # every rank's times, peak, CPU seconds and trace reading, on every rank
-    mine = {"times": [(sc, sd) for _, sc, sd, _ in times], "peak": peak,
+    mine = {"times": [(sc, sd) for _, sc, sd, *_ in times], "peak": peak,
             "cpu_s": cpu_s, "busy": summary and (summary.busy_s, summary.window_s)}
     everyone = [None] * world
     dist.all_gather_object(everyone, mine, group=group)
@@ -344,12 +353,14 @@ def _rank(rank, world, args, cell, config, cfg, shape, t0):
         return None
 
     calls = []
-    for j, (f, _, _, blob_bytes) in enumerate(times):
+    for j, (f, _, _, blob_bytes, tc, td) in enumerate(times):
         rc = tuple(e["times"][j][0] for e in everyone)
         rd = tuple(e["times"][j][1] for e in everyone)
         nbytes = n_total * 4
-        calls.append(RankCall("compress", f, max(rc), nbytes, blob_bytes, None, rc))
-        calls.append(RankCall("decompress", f, max(rd), nbytes, blob_bytes, None, rd))
+        calls.append(RankCall("compress", f, max(rc), nbytes, blob_bytes,
+                              *window.timer_record(tc), rank_seconds=rc))
+        calls.append(RankCall("decompress", f, max(rd), nbytes, blob_bytes,
+                              *window.timer_record(td), rank_seconds=rd))
     w = window.Window(calls, [dataclasses.replace(item, out=out)
                               for item, out in zip(items, joined)],
                       firsts, 0, seconds, sum(e["cpu_s"] for e in everyone))

@@ -19,6 +19,15 @@ def stage_ms(run, kind: str, stage: str) -> float | None:
     return 1e3 * sum(c.stages.get(stage, 0.0) for c in calls) / len(calls)
 
 
+def count_per_call(run, kind: str, key: str) -> float | None:
+    """The program's counter `key` summed over the traced calls of `kind`,
+    over their number; None when no call counted it."""
+    calls = [c for c in run.of(kind) if c.counts is not None]
+    if not any(key in c.counts for c in calls):
+        return None
+    return sum(c.counts.get(key, 0) for c in calls) / len(calls)
+
+
 def idle_share(run, kind: str) -> float | None:
     t = run.trace
     if t is None or not t.busy_in.get(kind) or not t.call_s.get(kind):

@@ -35,6 +35,7 @@ class Call:
     nbytes: int  # the array's bytes (input of compress, output of decompress)
     blob_bytes: int  # the container's bytes
     stages: dict | None = None  # StageTimer seconds (traced runs)
+    counts: dict | None = None  # StageTimer counters (traced runs)
 
 
 @dataclasses.dataclass
@@ -110,8 +111,8 @@ def no_range(_name: str):
 
 def round_trip(api, x, cfg, device, traced: bool):
     """One compress and one decompress through the public API:
-    (blob, out, compress s, decompress s, compress stages, decompress
-    stages)."""
+    (blob, out, compress s, decompress s, compress timer, decompress
+    timer); the timers are None on an untraced run."""
     tc = labelled_timer() if traced else None
     td = labelled_timer() if traced else None
     rf = torch.profiler.record_function if traced else no_range
@@ -122,8 +123,12 @@ def round_trip(api, x, cfg, device, traced: bool):
     with rf("bench.decompress"):
         out = api.decompress(blob, timer=td, device=device)
     t2 = time.perf_counter()
-    return (blob, out, t1 - t0, t2 - t1, tc.stages if tc else None,
-            td.stages if td else None)
+    return blob, out, t1 - t0, t2 - t1, tc, td
+
+
+def timer_record(timer) -> tuple:
+    """(stages, counts) of a call's timer; (None, None) untraced."""
+    return (None, None) if timer is None else (timer.stages, timer.counts)
 
 
 def keep(kept: dict, seen: dict, rng: random.Random, per_field: int,
@@ -168,16 +173,18 @@ def measure(cell, fields, cfg, device, seconds: float, seed: int,
         x = fields[f]
         nbytes = x.numel() * 4 if isinstance(x, torch.Tensor) else x.nbytes
         try:
-            blob, out, sc, sd, stc, std = round_trip(api, x, cfg, device,
-                                                     traced)
+            blob, out, sc, sd, tc, td = round_trip(api, x, cfg, device,
+                                                   traced)
         except Exception:  # a failed call is counted, reported and judged
             w.failed += 1
             if w.failed == 1:
                 traceback.print_exc()
             i += 1
             continue
-        w.calls.append(Call("compress", f, sc, nbytes, len(blob), stc))
-        w.calls.append(Call("decompress", f, sd, out.nbytes, len(blob), std))
+        w.calls.append(Call("compress", f, sc, nbytes, len(blob),
+                            *timer_record(tc)))
+        w.calls.append(Call("decompress", f, sd, out.nbytes, len(blob),
+                            *timer_record(td)))
         if traced and f not in w.firsts:
             w.firsts[f] = blob
         keep(kept, seen, rng, per_field, Kept(i, f, blob, out))

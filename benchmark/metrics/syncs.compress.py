@@ -1,0 +1,8 @@
+"""The program's host-blocking waits on the device (counter syncs: scalar
+reads, blocking copies, stream waits) per compress call."""
+
+from benchmark.harness import readers
+
+
+def read(run):
+    return readers.count_per_call(run, "compress", "syncs")
