@@ -328,8 +328,8 @@ PEAK_BYTES = 3.35e12  # bytes/s of HBM3
 #: tensor cores' against cuBLAS'); tests/test_torch_cuda.py holds the same
 RELAXED_BUDGET = 32
 
-EC_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
-              "dequant_idct")
+EC_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_rows_layout",
+              "dpk_unpack_expand", "dequant_idct")
 #: the kernels on the register-tiled transform (csrc/dct_tile.cuh) that
 #: take one tile of 64 blocks per step (L and M take it too, in sub-tiles)
 TILE_KERNELS = ("dct_quant_verify", "dct_quant_verify_qt", "dequant_idct",
@@ -372,15 +372,15 @@ def symbol_of(name: str) -> str:
 #: walks; the template arguments of A, D, E, F and G)
 DEVICE_TIME = {k: symbol_of(k) for k in TILE_KERNELS + RELAXED_KERNELS} | {
     k: k + "_kernel" for k in (
-        "dpk_pack_compact", "dpk_unpack_expand", "fused_encode_dpk",
-        "fused_decode_dpk", "chunk_compact", "chunk_expand",
+        "dpk_pack_compact", "dpk_rows_layout", "dpk_unpack_expand",
+        "fused_encode_dpk", "fused_decode_dpk", "chunk_compact", "chunk_expand",
         "chunk_compact_unified", "chunk_compact_bytes")}
 #: kernels timed once more with a single queued launch, cold and warm in L2
 L2_KERNELS = ("dpk_pack_compact", "dpk_unpack_expand", "chunk_compact", "chunk_expand",
               "chunk_compact_unified", "chunk_compact_bytes")
 MIN_CTAS_PER_SM = 2
 QT_KERNELS = ("qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
-              "dpk_unpack_expand", "dequant_idct_qt")
+              "dpk_rows_layout", "dpk_unpack_expand", "dequant_idct_qt")
 V1_EC_KERNELS = ("dct_quant", "chunk_compact", "chunk_expand", "dequant_idct")
 V1_QT_KERNELS = ("qtable_qmax", "dct_quant_qt", "chunk_compact", "chunk_expand",
                  "dequant_idct_qt")
@@ -400,8 +400,9 @@ GENERIC_QT_KERNELS = ("chunk_compact", "chunk_expand", "dequant_idct_qt")
 #: "float32": A, B and C. Never D: the float64 decode dequantizes and
 #: inverts in torch ops
 F64_GENERIC_KERNELS = ("chunk_compact", "chunk_expand")
-F64_DPK_KERNELS = ("dpk_pack_compact", "dpk_unpack_expand")
-F64_FAST_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand")
+F64_DPK_KERNELS = ("dpk_pack_compact", "dpk_rows_layout", "dpk_unpack_expand")
+F64_FAST_KERNELS = ("dct_quant_verify", "dpk_pack_compact", "dpk_rows_layout",
+                    "dpk_unpack_expand")
 D_KERNELS = ("dequant_idct", "dequant_idct_qt")
 ONEPASS_KERNELS = ("fused_encode_dpk", "fused_decode_dpk", "chunk_compact_unified",
                    "chunk_compact_bytes")
@@ -456,7 +457,7 @@ PATHS = {
     "v2_deflate_brsf": (dict(container="v2", ids_codec="deflate", segment_elems=0,
                              verify=True, brsf=2.0), "bench", GENERIC_KERNELS),
     "ec_bs128": (dict(DPK, mode="ec", segment_elems=0, block_size=128), "bench",
-                 ("chunk_compact_unified", "chunk_expand")),
+                 ("chunk_compact_unified", "dpk_rows_layout", "chunk_expand")),
     "v2_nbins63": (dict(container="v2", ids_codec="deflate", segment_elems=0,
                         verify=True, nbins=63), "bench", ("chunk_compact", "chunk_expand")),
     "v1_f64_full_cesm": (dict(truncate=False), "cesm64", ()),
@@ -533,6 +534,8 @@ SOURCES = {
                             "dctz_tpu/ops/dpk_fuse.py:782"),
     "dpk_pack_compact": ("dctz_tpu_torch/csrc/dpk_pack_compact.cu",
                          "dctz_tpu/ops/dpk_fuse.py:782"),
+    "dpk_rows_layout": ("dctz_tpu_torch/csrc/dpk_rows_layout.cu",
+                        "none: the host pad, dctz_tpu/api.py:_dpk_host_rebuild"),
     "dpk_unpack_expand": ("dctz_tpu_torch/csrc/dpk_unpack_expand.cu",
                           "dctz_tpu/ops/dpk_fuse.py:1041"),
     "dequant_idct": ("dctz_tpu_torch/csrc/dequant_idct.cu",
@@ -821,6 +824,43 @@ def max_abs_diff(pairs) -> float:
                for a, b in pairs)
 
 
+def rows_layout_check(api, ct, blob) -> dict:
+    """Kernel N against its plain twin on every DPK container of blob (a
+    DTZS stream's DPK frames, or the container): the rows each lays out
+    from the same uploaded tight streams, compared byte for byte. Returns
+    the containers checked, the bytes compared, the bytes that differ, the
+    largest difference of two bytes, and the AC rows' kind ("planes": the
+    float32 rows from four byte planes; else the stored items' width)."""
+    import torch
+
+    dev = torch.device("cuda")
+    out = {"containers": 0, "bytes": 0, "bytes_differ": 0, "max_abs_err": 0, "ac": []}
+    for f in dtzs_frames(blob):
+        if ct.detect_format(f) != "v2":
+            continue
+        header, streams, _q, _cb = ct.parse_v2(f)
+        if not header.dpk:
+            continue
+        host, up = api._dpk_decode_prep(header, streams)
+        got = api._dpk_rows_on_device([torch.from_numpy(a).to(dev) for a in host], up)
+        twin = api._dpk_rows_on_device([torch.from_numpy(a) for a in host], up)
+        for g, t in zip(got[1:3] + got[4:], twin[1:3] + twin[4:]):
+            require(g.shape == t.shape and g.dtype == t.dtype,
+                    f"N: rows of {tuple(g.shape)} {g.dtype}, the twin's "
+                    f"{tuple(t.shape)} {t.dtype}")
+            gb = g.cpu().reshape(-1).view(torch.uint8).to(torch.int16)
+            tb = t.reshape(-1).view(torch.uint8).to(torch.int16)
+            diff = (gb - tb).abs()
+            out["bytes"] += gb.numel()
+            out["bytes_differ"] += int((diff != 0).sum())
+            out["max_abs_err"] = max(out["max_abs_err"], int(diff.max()) if diff.numel() else 0)
+        out["containers"] += 1
+        kind = "planes" if up.ac_planes else f"items of {up.stored.itemsize}"
+        if kind not in out["ac"]:
+            out["ac"].append(kind)
+    return out
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -856,9 +896,12 @@ def item9_checks(dz, api, path, pcfg, x, blob, y, heads, timer, ratio, e2e, laun
     full = not cfg.truncate and x.dtype == np.float64
     widths = []
     for f in dtzs_frames(blob):
+        # a DPK frame's float32 DC byte planes ride in its one upload
+        # buffer; other stored DC values follow it, as a host-coded
+        # frame's follow its ids
         host = api._host_stage(f)[2]
-        dc = host[1] if len(host) == 3 else host[3]
-        widths.append(4 if dc.dtype == np.uint8 else dc.dtype.itemsize)
+        dc = host[1] if len(host) > 1 else None
+        widths.append(4 if dc is None or dc.dtype == np.uint8 else dc.dtype.itemsize)
     require(widths == [8 if full else 4] * len(widths),
             f"{path}: stored items of {widths} bytes")
     if full:
@@ -2021,20 +2064,29 @@ def main() -> int:
     kernels["dpk_pack_compact"] = {"max_abs_err": err_b}
 
     def decode_inputs(blob):
+        # the rows kernel N lays out from the uploaded tight streams
         header, streams, qtable, _cb = ct.parse_v2(blob)
-        (width, rows, exc, dc, ac), (n_stream, _tb, cw_d, hcfg) = api._dpk_decode_prep(
-            header, streams
-        )
-        d_in = [torch.from_numpy(np.require(a, requirements=["C", "W"])).to(dev)
-                for a in (width, rows, exc)]
-        dc_d = api._combine_planes(torch.from_numpy(np.array(dc)).to(dev))
-        ac_d = api._combine_planes(torch.from_numpy(np.array(ac)).to(dev)).contiguous()
+        host, up = api._dpk_decode_prep(header, streams)
+        width, rows, exc, dc, ac = api._dpk_rows_on_device(
+            [torch.from_numpy(a).to(dev) for a in host], up)
+        d_in = [width, rows, exc]
+        dc_d = api._combine_planes(dc)
         sf_d = torch.tensor(header.scaling_factor, dtype=torch.float32, device=dev)
         q_d = (torch.from_numpy(qtable.astype(np.float32)).to(dev)
                if qtable is not None else None)
-        return header, d_in, dc_d, ac_d, sf_d, q_d, n_stream, cw_d, hcfg, exc, ac
+        return header, d_in, dc_d, ac, sf_d, q_d, up.n_stream, up.cw, up.cfg, exc, ac
 
     blob0 = dz.compress(x_np, config=cfg, device="cuda")
+    # N here on the EC container; on the QT and float64 ones in phase 4
+    row_n = rows_layout_check(api, ct, blob0)
+    emit("kernel_check", kernel="dpk_rows_layout", container="ec",
+         byte_equal=row_n["bytes_differ"] == 0, **row_n)
+    require(row_n["containers"] == 1 and row_n["bytes_differ"] == 0,
+            f"N: {row_n['bytes_differ']} bytes differ from the plain version")
+    kernels["dpk_rows_layout"] = {"max_abs_err": float(row_n["max_abs_err"])}
+    host_n, up_n = api._dpk_decode_prep(*ct.parse_v2(blob0)[:2])
+    n_args = up_n.layout_args(torch.from_numpy(host_n[0]).to(dev))
+    n_out = fk.dpk_rows_layout(*n_args)
     header, d_in, dc_d, ac_d, sf_d, _q, n_stream, cw_d, hdr_cfg, exc, ac = decode_inputs(blob0)
     nblk = -(-n_stream // 64)
     ids_ck, acv_ck = fk.dpk_unpack_expand(*d_in, ac_d, nblk, n_stream, cw_d)
@@ -2924,6 +2976,25 @@ def main() -> int:
     del x_dev, y_o, y_64, ids_o, dcac_o, mask_o, ids_oi
     report["end_to_end"] = e2e
 
+    # N against its twin on the QT container, the float64 one (float32
+    # byte planes) and one at full width (8-byte AC items), beside phase
+    # 3's EC container
+    blob_full = dz.compress(inputs["bench64"][:PREFIX], device="cuda", config=dz.CodecConfig(
+        **dict(DPK, mode="ec", segment_elems=0, truncate=False)))
+    report["rows_layout"] = [dict(container="ec", **row_n)]
+    for name, b, ac_kind in (("qt", blobs["qt"], "planes"),
+                             ("ec_f64", blobs["ec_f64"], "planes"),
+                             ("ec_f64_full", blob_full, "items of 8")):
+        row = rows_layout_check(api, ct, b)
+        emit("kernel_check", kernel="dpk_rows_layout", container=name,
+             byte_equal=row["bytes_differ"] == 0, **row)
+        report["rows_layout"].append(dict(container=name, **row))
+        require(row["containers"] == 1 and row["bytes_differ"] == 0,
+                f"N on {name}: {row['bytes_differ']} bytes differ from the plain version")
+        require(row["ac"] == [ac_kind], f"N on {name}: AC rows of {row['ac']}")
+        kernels["dpk_rows_layout"]["max_abs_err"] = max(
+            kernels["dpk_rows_layout"]["max_abs_err"], float(row["max_abs_err"]))
+
     # 4b. float64 parity with the C++ codec (cpp/, the reference's double
     # build): the card's v1 containers against native.compress
     from dctz_tpu_torch import native
@@ -3061,6 +3132,10 @@ def main() -> int:
             lambda: fk.dpk_pack_compact(ids_k, coef_k, n_pad, cape_k, cw),
             lambda: fk._dpk_pack_compact_plain(ids_k, coef_k, n_pad, cape_k, cw),
             nbytes(ids_k, *outs_k) + 4 * nblk_pad + 4 * kept_b, 0.0),
+        "dpk_rows_layout": (
+            lambda: fk.dpk_rows_layout(*n_args),
+            lambda: fk._dpk_rows_layout_plain(*n_args),
+            nbytes(*(a for a in n_args if torch.is_tensor(a)), *n_out), 0.0),
         "dpk_unpack_expand": (
             lambda: fk.dpk_unpack_expand(*d_in, ac_d, nblk, n_stream, cw_d),
             lambda: fk._dpk_unpack_expand_plain(*d_in, ac_d, nblk, n_stream, cw_d),

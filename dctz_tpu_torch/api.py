@@ -13,7 +13,9 @@ truncate on) is dispatched as the JAX package dispatches on its TPU:
                   [dc_delta: the DC delta] -> byte planes on the device ->
                   host assembly (_dpk_v2_streams); the monolithic container is
                   the stream writer's one-segment case
-      decompress: parse -> host re-pad (_dpk_decode_prep) -> kernels C + D
+      decompress: parse -> inflate into one upload buffer, no re-pad
+                  (_dpk_decode_prep) -> kernel N (the fixed-capacity rows)
+                  -> kernels C + D
   v1, the reference's own format and the default (CodecConfig() and
     compress(x) with no config), and host-coded v2 (ids_codec "deflate" or
     "rans"), monolithic or segmented (DTZS frames of the generic chain,
@@ -110,7 +112,7 @@ from __future__ import annotations
 import dataclasses
 import struct
 import warnings
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -982,15 +984,73 @@ def _decode_float_section(header: ct.Header, chunks, dc: bool = False) -> bytes:
     return raw
 
 
+def _dpk_packed(header: ct.Header, chunks, out=None):
+    """The tight bytes of a DPK container's packed-id section, whole; out
+    (a writable uint8 array it must fill, entropy.join_into) takes them in
+    place of a join."""
+    from . import native
+
+    if header.dpks:
+        return entropy.chunked_unzstd(chunks, out)
+    if header.dpkz:
+        return entropy.chunked_inflate(chunks, out)
+    entropy.verify_chunk_range(chunks)
+    if header.dpkr:
+        raw = native.rans_decompress(entropy.join_chunks(chunks))
+        return raw if out is None else entropy.join_into((raw,), out)
+    return entropy.join_chunks(chunks) if out is None else entropy.join_into(chunks, out)
+
+
+def _dpk_exceptions(header: ct.Header, chunks, out=None):
+    """The tight bytes of a DPK container's id-exception section, whole;
+    out as _dpk_packed's."""
+    if header.zst:
+        return entropy.chunked_unzstd(chunks, out)
+    if header.rans:
+        from . import native
+
+        entropy.verify_chunk_range(chunks)
+        raw = native.rans_decompress(b"".join(chunks))
+        return raw if out is None else entropy.join_into((raw,), out)
+    return entropy.chunked_inflate(chunks, out)
+
+
+def _dpk_geometry(header: ct.Header, meta):
+    """(n_stream, tile_b, cw, nblk, tiles, exc_counts, ac_counts) of a DPK
+    container from its decoded meta section; the counts (one a chunk row)
+    as int64."""
+    from .ops import idpack
+
+    n_stream, tile_b, cw = struct.unpack_from(_DPK_META_FMT, meta, 0)
+    nblk = -(-n_stream // header.block_size)
+    n_chunks = (nblk * header.block_size) // cw
+    off = _DPK_META_SIZE
+    exc_counts = np.frombuffer(meta, np.uint16, n_chunks, off).astype(np.int64)
+    ac_counts = np.frombuffer(
+        meta, np.uint16, n_chunks, off + 2 * n_chunks
+    ).astype(np.int64)
+    return (n_stream, tile_b, cw, nblk, idpack.tiles_of(nblk, tile_b),
+            exc_counts, ac_counts)
+
+
+def _cape_tier(peak: int, cw: int) -> int:
+    """Smallest exception row-capacity tier covering the per-chunk peak."""
+    tiers = [c for c in (32, 64, 128, 256) if c < cw] + [cw]
+    return next(c for c in tiers if c >= min(peak, cw))
+
+
 def _dpk_host_rebuild(header: ct.Header, streams, tile_range=None,
                       float_planes=True, meta=None):
     """Re-inflate a DPK container's side streams and re-pad the tight layouts
-    into fixed-capacity rows (dctz_tpu/api.py:936-1098). Returns (width
-    (T,bs), rows, exc_rows, dc_raw, ac_raw, n_stream, tile_b, cw,
-    ac_counts, nblk). float_planes: True gives 4-byte PLC DC and AC sections
-    as ("planes", [plane bytes]) (_float_raw), False as bytes, "skip" hands
-    back their chunk lists untouched (the tile-range decode decodes them
-    itself, _float_section_range). meta: the meta section already decoded
+    into fixed-capacity rows on the host (dctz_tpu/api.py:936-1098), for the
+    callers that need host rows: the tile-range restore, the sharded decode
+    and dctz_dump (a whole container's decompress lays its rows out on the
+    device instead, _dpk_decode_prep). Returns (width (T,bs), rows,
+    exc_rows, dc_raw, ac_raw, n_stream, tile_b, cw, ac_counts, nblk).
+    float_planes: True gives 4-byte PLC DC and AC sections as ("planes",
+    [plane bytes]) (_float_raw), False as bytes, "skip" hands back their
+    chunk lists untouched (the tile-range decode decodes them itself,
+    _float_section_range). meta: the meta section already decoded
     (_dpk_meta with_bytes=True).
 
     tile_range=(t0, t1): rebuild only tiles [t0, t1), the multi-rank
@@ -1008,16 +1068,6 @@ def _dpk_host_rebuild(header: ct.Header, streams, tile_range=None,
     pool = entropy.section_pool()
     _side = entropy.chunked_unzstd if header.zst else entropy.chunked_inflate
 
-    def _tight_task():
-        if header.dpks:
-            return entropy.chunked_unzstd(packed_raw)
-        if header.dpkz:
-            return entropy.chunked_inflate(packed_raw)
-        entropy.verify_chunk_range(packed_raw)
-        if header.dpkr:
-            return native.rans_decompress(entropy.join_chunks(packed_raw))
-        return entropy.join_chunks(packed_raw)
-
     def _tight_range(b0: int, b1: int):
         """Decoded bytes [b0, b1) of the packed section, touching as little
         of it as possible (the joined rANS stream has no random access:
@@ -1034,14 +1084,6 @@ def _dpk_host_rebuild(header: ct.Header, streams, tile_range=None,
         entropy.verify_covering_chunks(packed_raw, b0, b1)
         return memoryview(entropy.join_chunks(packed_raw))[b0:b1]
 
-    def _exc_task():
-        if header.zst:
-            return entropy.chunked_unzstd(exc_z)
-        if header.rans:
-            entropy.verify_chunk_range(exc_z)
-            return native.rans_decompress(b"".join(exc_z))
-        return entropy.chunked_inflate(exc_z)
-
     def _exc_range(e0: int, e1: int):
         """Exception bytes [e0, e1), one byte an item."""
         if header.zst:
@@ -1053,8 +1095,10 @@ def _dpk_host_rebuild(header: ct.Header, streams, tile_range=None,
 
     f_width = pool.submit(timing.task("section.ids", _side), widths_z)
     if tile_range is None:
-        f_tight = pool.submit(timing.task("section.ids", _tight_task))
-        f_exc = pool.submit(timing.task("section.ids", _exc_task))
+        f_tight = pool.submit(timing.task("section.ids", _dpk_packed), header,
+                              packed_raw)
+        f_exc = pool.submit(timing.task("section.ids", _dpk_exceptions), header,
+                            exc_z)
     if float_planes == "skip":
         f_dc = f_ac = None
     else:
@@ -1066,16 +1110,10 @@ def _dpk_host_rebuild(header: ct.Header, streams, tile_range=None,
     if meta is None:
         with timing.span("section.ids", cpu=True):
             meta = _side(meta_z)
-    n_stream, tile_b, cw = struct.unpack_from(_DPK_META_FMT, meta, 0)
+    (n_stream, tile_b, cw, nblk, t, exc_counts,
+     ac_counts) = _dpk_geometry(header, meta)
     bs = header.block_size
-    nblk = -(-n_stream // bs)
-    t = idpack.tiles_of(nblk, tile_b)
-    n_chunks = (nblk * bs) // cw
-    off = _DPK_META_SIZE
-    exc_counts = np.frombuffer(meta, np.uint16, n_chunks, off).astype(np.int64)
-    ac_counts = np.frombuffer(
-        meta, np.uint16, n_chunks, off + 2 * n_chunks
-    ).astype(np.int64)
+    n_chunks = exc_counts.size
 
     width = np.frombuffer(f_width.result(), np.uint8, bs * t).reshape(t, bs)
     bpr = idpack.packed_nbytes(width.reshape(-1), tile_b)
@@ -1099,11 +1137,7 @@ def _dpk_host_rebuild(header: ct.Header, streams, tile_range=None,
             entropy.pad_row_prefixes(f_tight.result(), bpr, tile_b // 2,
                                      np.uint8))))
         exc_tight = np.frombuffer(f_exc.result(), np.uint8)
-    peak_e = int(exc_counts.max()) if exc_counts.size else 0
-    cape = next(
-        c for c in [c for c in (32, 64, 128, 256) if c < cw] + [cw]
-        if c >= min(peak_e, cw)
-    )
+    cape = _cape_tier(int(exc_counts.max()) if exc_counts.size else 0, cw)
     exc_rows = entropy.pad_row_prefixes(exc_tight, exc_counts, cape, np.uint8)
     return (width, f_rows.result(), exc_rows,
             dz if f_dc is None else f_dc.result(),
@@ -1129,32 +1163,170 @@ def _stored_dtype(header: ct.Header, dc_nbytes: int, nblk: int,
     return stored, cfg
 
 
+def _planes4(header: ct.Header, chunks) -> bool:
+    """Whether a DC or AC section is PLC-coded 4-byte items, whose byte
+    planes the decode uploads as they are (_float_raw's "planes")."""
+    return bool(header.plc and len(chunks) and chunks[0][0] == 4)
+
+
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class _Upload(NamedTuple):
+    """Where _dpk_decode_prep put a DPK container's sections in its upload
+    buffer (byte offsets, each on 16 bytes), and the geometry of the rows
+    that kernel N lays out from them. The buffer opens with n_off bytes of
+    int64 prefix offsets: of the packed rows (rows + 1), the exception rows
+    (nc + 1) and the AC rows (nc + 1; in bytes for AC sections that are not
+    planes)."""
+
+    n_stream: int
+    tile_b: int
+    cw: int
+    cfg: CodecConfig
+    nblk: int
+    tiles: int
+    nc: int
+    cape: int
+    capc: int
+    stored: np.dtype  # the DC and AC items' dtype
+    dc_planes: bool  # (4, nblk) byte planes at o_dc, else host array 1
+    ac_planes: bool  # (4, ac_count) byte planes at o_ac, else the last
+    ac_count: int
+    n_off: int
+    o_width: int
+    o_dc: int
+    o_ac: int
+    o_exc: int
+    n_exc: int
+    o_packed: int
+    n_packed: int
+
+    def layout_args(self, buf, ac=None) -> tuple:
+        """dpk_fuse.dpk_rows_layout's arguments from the upload buffer buf
+        (a uint8 tensor on any device): the tight packed, exception and AC
+        streams, each beside its prefix offsets and its rows' capacity. ac:
+        the tight AC bytes where they are not planes in buf."""
+        rows, nc = self.tiles * self.cfg.block_size, self.nc
+        offs = buf[: self.n_off].view(torch.int64)
+        capc = self.capc
+        if self.ac_planes:
+            ac = buf[self.o_ac : self.o_ac + 4 * self.ac_count].view(4, self.ac_count)
+        else:
+            capc *= self.stored.itemsize
+        return (buf[self.o_packed : self.o_packed + self.n_packed], offs[: rows + 1],
+                self.tile_b // 2, buf[self.o_exc : self.o_exc + self.n_exc],
+                offs[rows + 1 : rows + nc + 2], self.cape, ac, offs[rows + nc + 2 :],
+                capc)
+
+
 def _dpk_decode_prep(header: ct.Header, streams):
-    """Host stage of DPK decompress: ((width, packed_rows, exc_rows, dc, ac)
-    numpy arrays, (n_stream, tile_b, cw, cfg)). dc is (4, nblk) byte planes
-    or (nblk,) of the stored dtype; ac is (4, nc, capc) planes or (nc, capc)
-    of the stored dtype (float32, or float64 at full width)."""
-    (width, rows, exc_rows, dc_raw, ac_raw, n_stream, tile_b, cw, ac_counts,
-     nblk) = _dpk_host_rebuild(header, streams)
+    """Host stage of a whole DPK container's decompress -> (host_arrays,
+    upload): the sections inflated with no re-pad, each straight into its
+    place in one uint8 upload buffer (host_arrays[0], laid out by upload,
+    an _Upload), beside the tight row offsets and the tiers (cape, capc)
+    kernel N pads to (_decode_dpk_upload). DC and AC sections that are not
+    4-byte PLC planes (float64 at full width, non-PLC containers) follow as
+    host arrays of their own: DC as (nblk,) of the stored dtype, AC as its
+    tight bytes. Every row length is checked here against its capacity and
+    every stream against the rows' total, as the host re-pad did."""
+    from .ops import idpack
+
+    widths_z, packed_raw, exc_z, meta_z, dz, az = streams
+    pool = entropy.section_pool()
+    _side = entropy.chunked_unzstd if header.zst else entropy.chunked_inflate
+    with timing.span("section.ids", cpu=True):
+        meta = _side(meta_z)
+        (n_stream, tile_b, cw, nblk, t, exc_counts,
+         ac_counts) = _dpk_geometry(header, meta)
+        bs = header.block_size
+        rows, nc = t * bs, exc_counts.size
+        width = np.frombuffer(_side(widths_z), np.uint8, rows)
+    bpr = idpack.packed_nbytes(width, tile_b)
+    peak_e = int(exc_counts.max()) if nc else 0
+    peak_a = int(ac_counts.max()) if nc else 0
+    if ((rows and int(bpr.max()) > tile_b // 2) or max(peak_e, peak_a) > cw
+            or int(ac_counts.sum()) != header.ac_count):
+        raise ValueError("corrupted container: a row's length past its "
+                         "capacity, or the AC counts off the AC section's")
+    dc_pl, ac_pl = _planes4(header, dz), _planes4(header, az)
+    n_off = 8 * (rows + 2 * nc + 3)
+    o_width = _a16(n_off)
+    o_dc = _a16(o_width + rows)
+    o_ac = _a16(o_dc + (4 * nblk if dc_pl else 0))
+    o_exc = _a16(o_ac + (4 * header.ac_count if ac_pl else 0))
+    n_exc = int(exc_counts.sum())
+    o_packed = _a16(o_exc + n_exc)
+    n_packed = int(bpr.sum())
+    buf = np.empty(o_packed + n_packed, np.uint8)
+
+    f_packed = pool.submit(timing.task("section.ids", _dpk_packed), header,
+                           packed_raw, buf[o_packed:])
+    f_exc = pool.submit(timing.task("section.ids", _dpk_exceptions), header,
+                        exc_z, buf[o_exc : o_exc + n_exc])
+    f_dc = (pool.submit(timing.task("section.dc", entropy.decode_float_planes),
+                        dz, out=buf[o_dc : o_dc + 4 * nblk].reshape(4, nblk))
+            if dc_pl else
+            pool.submit(timing.task("section.dc", _float_raw), header, dz, False))
+    f_ac = (pool.submit(timing.task("section.ac", entropy.decode_float_planes),
+                        az, out=buf[o_ac : o_ac + 4 * header.ac_count].reshape(
+                            4, header.ac_count))
+            if ac_pl else
+            pool.submit(timing.task("section.ac", _float_raw), header, az, False))
+    buf[o_width : o_width + rows] = width
+    offs = buf[:n_off].view(np.int64)
+    for lens, o in ((bpr, 0), (exc_counts, rows + 1), (ac_counts, rows + nc + 2)):
+        offs[o] = 0
+        np.cumsum(lens, out=offs[o + 1 : o + 1 + lens.size])
+
     cfg = _header_config(header)
     stored = np.dtype(np.float32)
-    dc_pl = isinstance(dc_raw, tuple)
-    ac_pl = isinstance(ac_raw, tuple)
-    if dc_pl:
-        dc = np.stack([np.frombuffer(p, np.uint8, nblk) for p in dc_raw[1]])
-    else:
+    extra = []
+    if not dc_pl:
+        dc_raw = f_dc.result()
         stored, cfg = _stored_dtype(header, len(dc_raw), nblk, cfg)
-        dc = np.frombuffer(dc_raw, dtype=stored, count=nblk)
-    capc = _capc_tier(int(ac_counts.max()) if ac_counts.size else 0, cw)
-    if ac_pl:
-        pls = [np.frombuffer(p, np.uint8, header.ac_count) for p in ac_raw[1]]
-        ac = entropy.pad_row_prefixes(
-            np.concatenate(pls), np.tile(ac_counts, len(pls)), capc, np.uint8
-        ).reshape(len(pls), ac_counts.size, capc)
-    else:
-        ac = np.frombuffer(ac_raw, dtype=stored, count=header.ac_count)
-        ac = entropy.pad_row_prefixes(ac, ac_counts, capc, stored)
-    return (width, rows, exc_rows, dc, ac), (n_stream, tile_b, cw, cfg)
+        extra.append(np.frombuffer(dc_raw, dtype=stored, count=nblk))
+    if not ac_pl:
+        extra.append(np.frombuffer(f_ac.result(), np.uint8,
+                                   header.ac_count * stored.itemsize))
+        offs[rows + nc + 2 :] *= stored.itemsize
+    for f in (f_packed, f_exc, f_dc, f_ac):
+        f.result()
+    upload = _Upload(n_stream, tile_b, cw, cfg, nblk, t, nc,
+                     _cape_tier(peak_e, cw), _capc_tier(peak_a, cw), stored,
+                     dc_pl, ac_pl, header.ac_count, n_off, o_width, o_dc, o_ac,
+                     o_exc, n_exc, o_packed, n_packed)
+    return (buf, *extra), upload
+
+
+def _dpk_rows_on_device(dev, up: _Upload):
+    """_decode_device_dpk's arrays (width, packed rows, exception rows, DC,
+    AC rows) from _dpk_decode_prep's arrays on the device (dev,
+    _to_device): kernel N lays out the rows from the tight streams
+    (dpk_fuse.dpk_rows_layout: float32 AC rows from the byte planes); DC as
+    uploaded (byte planes, or the stored dtype)."""
+    from .ops import dpk_fuse
+
+    buf, extra = dev[0], list(dev[1:])
+    dc = (buf[up.o_dc : up.o_dc + 4 * up.nblk].view(4, up.nblk) if up.dc_planes
+          else extra.pop(0))
+    packed_rows, exc_rows, ac_rows = dpk_fuse.dpk_rows_layout(
+        *up.layout_args(buf, None if up.ac_planes else extra.pop(0)))
+    if not up.ac_planes:
+        ac_rows = ac_rows.view(torch.float64 if up.stored == np.float64
+                               else torch.float32)
+    bs = up.cfg.block_size
+    width = buf[up.o_width : up.o_width + up.tiles * bs].view(up.tiles, bs)
+    return width, packed_rows, exc_rows, dc, ac_rows
+
+
+def _decode_dpk_upload(dev, up: _Upload, sf, dcd: bool, qtable=None):
+    """The device stage of a whole DPK container from _dpk_decode_prep's
+    arrays on the device: kernel N (_dpk_rows_on_device), then
+    _decode_device_dpk."""
+    return _decode_device_dpk(*_dpk_rows_on_device(dev, up), up.n_stream,
+                              up.cfg, up.tile_b, up.cw, sf, dcd, qtable)
 
 
 def _decode_device_dpk(width, packed_rows, exc_rows, dc, ac_buf, n: int,
@@ -1303,8 +1475,9 @@ def _host_coded_prep(header: ct.Header, bindex, dc_raw, ac_raw):
 def _host_stage(blob):
     """Host stage of the decode of one container (v1, DPK v2 or host-coded
     v2, float32 or float64; a DTZS frame is one of these): parse, inflate
-    and re-pad (_dpk_decode_prep, or _inflate_v2_streams /
-    entropy.inflate_streams and _host_coded_prep). Returns (header, qtable,
+    and, but for DPK, re-pad (_dpk_decode_prep, whose rows kernel N lays
+    out on the device, or _inflate_v2_streams / entropy.inflate_streams and
+    _host_coded_prep). Returns (header, qtable,
     host_arrays, decode): decode(dev_arrays, sf, qtable) runs the device
     stage on the arrays moved by _to_device and returns a tensor of the
     container's dtype whose first header.num_elements samples are the data.
@@ -1315,7 +1488,7 @@ def _host_stage(blob):
     full-width (8-byte) stored values and the geometries kernels C and D do
     not take decode in torch ops (_decode_device_dpk, _dequantize). Spans:
     host.parse (the container's layout and its crcs), then host.prep (the
-    inflate and the re-pad)."""
+    inflate and, but for DPK, the re-pad)."""
     with timing.span("host.parse", cpu=True, tile=True):
         v2 = ct.detect_format(blob) == "v2"
         if v2:
@@ -1324,12 +1497,10 @@ def _host_stage(blob):
             header, bz, dz, az, qtable = ct.parse_v1(blob)
     with timing.span("host.prep", cpu=True, tile=True):
         if v2 and header.dpk:
-            host_arrays, (n_stream, tile_b, cw, cfg) = _dpk_decode_prep(header,
-                                                                        streams)
+            host_arrays, up = _dpk_decode_prep(header, streams)
 
             def decode_dpk(dev, sf, qt):
-                return _decode_device_dpk(*dev, n_stream, cfg, tile_b, cw, sf,
-                                          header.dcd, qt)
+                return _decode_dpk_upload(dev, up, sf, header.dcd, qt)
 
             return header, qtable, host_arrays, decode_dpk
         if v2:
@@ -1577,9 +1748,9 @@ def compress_sharded(
 
 def _decode_dpk_on(header: ct.Header, streams, qtable, device) -> np.ndarray:
     """The single-device decode of a parsed DPK container on `device`."""
-    host_arrays, (n_stream, tile_b, cw, cfg) = _dpk_decode_prep(header, streams)
+    host_arrays, up = _dpk_decode_prep(header, streams)
     dev, sf, qt = _to_device(host_arrays, header, qtable, device)
-    x = _decode_device_dpk(*dev, n_stream, cfg, tile_b, cw, sf, header.dcd, qt)
+    x = _decode_dpk_upload(dev, up, sf, header.dcd, qt)
     return x[:header.num_elements].cpu().numpy()
 
 

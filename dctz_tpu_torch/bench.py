@@ -28,8 +28,8 @@ JSON line {"section": ...}:
              CUDA events with one synchronize, of the code compress() and
              decompress() dispatch (api._stats_device,
              fused_encode.tolerance, stream._encode_segment_dpk: kernels A
-             and B; api._decode_device_dpk on api._dpk_decode_prep's
-             arrays, moved to the card once: kernels C and D), with the
+             and B; api._decode_dpk_upload on api._dpk_decode_prep's
+             arrays, moved to the card once: kernels N, C and D), with the
              synchronizing calls found inside one call (each is inside the
              timed window: the API makes it too)
   sync_us    median of 8 synchronized trivial launches
@@ -266,15 +266,14 @@ def amortized_encode(x: torch.Tensor, dev: torch.device) -> dict:
 
 def amortized_decode(blob: bytes, dev: torch.device) -> dict:
     """The decompress() device stage of a monolithic DPK container
-    (api._decode_device_dpk: kernels C + D) on api._dpk_decode_prep's
+    (api._decode_dpk_upload: kernels N, C + D) on api._dpk_decode_prep's
     arrays, moved to the device once."""
     header, streams, _qtable, _cb = ct.parse_v2(blob)
-    host_arrays, (n_stream, tile_b, cw, cfg) = api._dpk_decode_prep(header, streams)
+    host_arrays, up = api._dpk_decode_prep(header, streams)
     dev_arrays, sf, _qt = api._to_device(host_arrays, header, None, dev)
 
     def call():
-        return api._decode_device_dpk(*dev_arrays, n_stream, cfg, tile_b, cw, sf,
-                                      header.dcd)
+        return api._decode_dpk_upload(dev_arrays, up, sf, header.dcd)
 
     return dict(_amortized_s(call, dev), syncs_per_call=_syncs_in(call, dev))
 

@@ -125,12 +125,16 @@ def chunked_zstd(
     return out
 
 
-def chunked_unzstd(chunks: Sequence[bytes]) -> bytes:
+def chunked_unzstd(chunks: Sequence[bytes], out=None):
+    """The joined bytes of a chunked zstd section; out (a writable 1-D
+    uint8 array the section must fill exactly, join_into) takes them in
+    place of the join and is returned."""
     if not chunks:
-        return b""
+        return b"" if out is None else join_into((), out)
     verify_chunk_range(chunks)
     futs = [_pool().submit(zstd_decompress, c) for c in chunks]
-    return b"".join(f.result() for f in futs)
+    pieces = (f.result() for f in futs)
+    return b"".join(pieces) if out is None else join_into(pieces, out)
 
 
 _CRC_PAR_MIN = 1 << 16  # below this, pool dispatch costs more than the crc
@@ -359,6 +363,27 @@ def unshuffle_bytes(data: bytes | memoryview, itemsize: int) -> bytes:
     if native.available():
         return native.unshuffle(a, itemsize)
     return np.ascontiguousarray(a.reshape(itemsize, -1).T).tobytes()
+
+
+def join_into(pieces, out) -> "np.ndarray":
+    """Copy byte pieces back to back into out, a writable 1-D uint8 array
+    that they must fill exactly (a section decoding to another length is
+    corrupt) -> out: the copy a b"".join makes, into the bytes' final
+    place."""
+    import numpy as np
+
+    o, n = 0, out.size
+    for p in pieces:
+        m = len(p)
+        if o + m > n:
+            break
+        out[o : o + m] = np.frombuffer(p, np.uint8)
+        o += m
+    else:
+        if o == n:
+            return out
+    raise ValueError(f"corrupted container: a section does not decode to "
+                     f"its {n} bytes")
 
 
 def join_chunks(chunks: Sequence[bytes | memoryview]) -> bytes | memoryview:
@@ -608,10 +633,13 @@ def decode_float_stream(chunks: list[bytes]) -> bytes:
     return unshuffle_bytes(shuffled, itemsize)
 
 
-def decode_float_planes(chunks: list[bytes], item_range=None):
+def decode_float_planes(chunks: list[bytes], item_range=None, out=None):
     """Decode a PLC section to its byte planes WITHOUT the join+unshuffle:
     (planes, itemsize). The device-plane decode path uploads these directly
-    and reassembles the floats on device (api._combine_planes).
+    and reassembles the floats on device (api._combine_planes, or kernel N
+    for the AC section). out: a writable (itemsize, items) uint8 array that
+    takes plane i in row i (join_into) in place of its join; the planes
+    returned are then its rows.
 
     item_range=(i0, i1): return only items [i0, i1) of each plane,
     touching only the covering chunks (raw planes slice the container
@@ -625,6 +653,9 @@ def decode_float_planes(chunks: list[bytes], item_range=None):
     methods = directory[1 : 1 + itemsize]
     (items,) = struct.unpack_from("<I", directory, 1 + itemsize)
     counts = struct.unpack_from(f"<{itemsize}H", directory, 5 + itemsize)
+    if out is not None and out.shape[0] != itemsize:
+        raise ValueError(f"corrupted container: {itemsize} planes where "
+                         f"{out.shape[0]} were expected")
     # submit every plane's chunk decodes before gathering any (cross-plane
     # parallelism, mirror of the encode side); raw planes join zero-copy
     # when their chunks are consecutive views of the container buffer
@@ -680,11 +711,15 @@ def decode_float_planes(chunks: list[bytes], item_range=None):
     planes = []
     for i, sub in enumerate(subs):
         if chunk_futs[i] is not None:
-            plane = b"".join(f.result() for f in chunk_futs[i])
+            pieces = [f.result() for f in chunk_futs[i]]
         elif single_futs[i] is not None:
-            plane = single_futs[i].result()
+            pieces = [single_futs[i].result()]
         else:
-            plane = join_chunks(sub)
+            pieces = sub
+        if out is not None:
+            planes.append(join_into(pieces, out[i]))
+            continue
+        plane = join_chunks(pieces)
         if len(plane) != items:
             raise ValueError(
                 f"plane {i} decodes to {len(plane)} bytes, expected {items}"
@@ -706,8 +741,11 @@ def chunked_deflate(
     return deflate_streams(chunks, level, strategy)
 
 
-def chunked_inflate(chunks: Sequence[bytes]) -> bytes:
+def chunked_inflate(chunks: Sequence[bytes], out=None):
+    """The joined bytes of a chunked deflate section; out as
+    chunked_unzstd's."""
     if not chunks:
-        return b""
+        return b"" if out is None else join_into((), out)
     verify_chunk_range(chunks)
-    return b"".join(inflate_streams(chunks))
+    pieces = inflate_streams(chunks)
+    return b"".join(pieces) if out is None else join_into(pieces, out)

@@ -92,6 +92,11 @@ SIGNATURES = {
                               I32, I32, F32, F32, F32, F32, I32, P, P],
     # b, cw: 1 where M takes its word walk, 0 where its lane walk
     "dctz_fused_decode_dpk_word_walk": [I32, I32],
+    # packed, packed_off, packed_rows, packed_cap, packed_out, exc, exc_off,
+    # exc_rows, exc_cap, exc_out, ac, ac_plane, ac_off, ac_rows, ac_cap,
+    # ac_planes, ac_out, stream
+    "dctz_dpk_rows_layout": [P, P, I64, I32, P, P, P, I64, I32, P, P, I64, P,
+                             I64, I32, I32, P, P],
 }
 #: the RELAXED instantiations of A, A-QT, E, F and G (dct_precision "high":
 #: the bf16x3 analysis on the tensor cores, csrc/dct_tile.cuh): the same
@@ -110,7 +115,7 @@ OCCUPANCY = ("qtable_qmax", "dct_quant_verify", "dct_quant_verify_qt",
              "dpk_pack_compact", "dpk_unpack_expand", "dequant_idct",
              "dequant_idct_qt", "dct_quant", "dct_quant_qt", "chunk_compact",
              "chunk_expand", "chunk_compact_unified", "chunk_compact_bytes",
-             "fused_encode_dpk", "fused_decode_dpk") + tuple(
+             "fused_encode_dpk", "fused_decode_dpk", "dpk_rows_layout") + tuple(
                  f"{k}_relaxed" for k in RELAXED)
 #: the lane walks of H, J and K (csrc/chunk_shuffle.cu), their second
 #: instantiations, whose resident CTAs per SM the library reports too

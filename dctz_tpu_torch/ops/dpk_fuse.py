@@ -34,6 +34,11 @@ Plain versions, composed from the ported modules:
   C: ops.idpack.unpack_ids(plain=True) + ops.compaction.expand_rows
   D: core.quantize.decode_dense + core.transform.block_idct
   E: ops.fused_encode._qtable_qmax_plain
+  N: _dpk_rows_layout_plain (a boolean-mask scatter per section)
+
+Kernel N (dpk_rows_layout) has no TPU counterpart: the JAX package pads a
+DPK container's row streams on the host; the port uploads them tight and
+lays out C's fixed-capacity rows on the device.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from ..config import CodecConfig
 from ..core import constants as C
 from ..core import quantize as qz
 from ..core import transform
+from ..utils import timing
 from . import compaction as cp
 from . import idpack
 from . import repair
@@ -78,6 +84,8 @@ LAUNCHES = {
     "chunk_compact_bytes": 0,
     "fused_encode_dpk": 0,
     "fused_decode_dpk": 0,
+    # kernel N, the DPK decode's row layout (no TPU counterpart)
+    "dpk_rows_layout": 0,
     # the RELAXED instantiations (dct_precision "high") of A, A-QT, E, F, G
     "dct_quant_verify_relaxed": 0,
     "dct_quant_verify_qt_relaxed": 0,
@@ -497,3 +505,69 @@ def decode_fused(width, packed, exc_rows, ac_rows, dc, sf, cfg: CodecConfig,
     ids, acv = dpk_unpack_expand(width, packed, exc_rows, ac_rows, nblk,
                                  n_stream, cw)
     return dequant_idct(ids, acv, dc, sf, cfg, n_stream, qtable)[:n_stream]
+
+
+# ---------------------------------------------------------------------------
+# N. dpk_rows_layout
+# ---------------------------------------------------------------------------
+
+
+def _dpk_rows_layout_plain(packed, packed_off, cap_p, exc, exc_off, cape, ac,
+                           ac_off, capc):
+    def pad(src, off, cap):
+        lens = off[1:] - off[:-1]
+        rows = torch.zeros((lens.numel(), cap), dtype=src.dtype, device=src.device)
+        rows[torch.arange(cap, device=src.device) < lens[:, None]] = src[: int(off[-1])]
+        return rows
+
+    if ac.dim() == 2:  # byte plane k is byte k of each little-endian item
+        u = ac[0].to(torch.int32)
+        for k in range(1, 4):
+            u = u | (ac[k].to(torch.int32) << (8 * k))
+        ac = u.view(torch.float32)
+    return pad(packed, packed_off, cap_p), pad(exc, exc_off, cape), pad(ac, ac_off, capc)
+
+
+def dpk_rows_layout(packed, packed_off, cap_p: int, exc, exc_off, cape: int,
+                    ac, ac_off, capc: int):
+    """Kernel N (csrc/dpk_rows_layout.cu). Replaces no TPU kernel: it lays
+    out on the device the zero-padded fixed-capacity rows that the JAX
+    package's host pads (entropy.pad_row_prefixes) and kernel C reads, in
+    one launch for a DPK container's three row sections.
+
+    packed, exc: tight u8 streams; ac: (4, m) u8 byte planes of 4-byte
+    items, laid out as float32 rows (the planes combined), or a tight 1-D
+    u8 stream laid out as u8 rows (capc then counts bytes); *_off: int64
+    prefix offsets of each row in its stream (rows + 1 of them, in items),
+    checked by the caller against the capacities and the streams' sizes.
+    Returns (packed_rows (len(packed_off) - 1, cap_p) u8, exc_rows
+    (len(exc_off) - 1, cape) u8, ac_rows (len(ac_off) - 1, capc) float32
+    or u8), rows past their length zero. Counts "rows_laid_on_device" once
+    a call (utils/timing)."""
+    timing.count("rows_laid_on_device")
+    if not _on_cuda(packed, packed_off, exc, exc_off, ac, ac_off):
+        return _dpk_rows_layout_plain(packed, packed_off, cap_p, exc, exc_off,
+                                      cape, ac, ac_off, capc)
+    for t, name in ((packed, "packed"), (exc, "exc"), (ac, "ac")):
+        _check(t, torch.uint8, name)
+    for t, name in ((packed_off, "packed_off"), (exc_off, "exc_off"),
+                    (ac_off, "ac_off")):
+        _check(t, torch.int64, name)
+    planes = ac.dim() == 2
+    if packed.dim() != 1 or exc.dim() != 1 or (planes and ac.shape[0] != 4) or (
+            not planes and ac.dim() != 1):
+        raise ValueError("packed and exc must be flat, ac flat or (4, m) planes")
+    dev = packed.device
+    rp, re, ra = (o.numel() - 1 for o in (packed_off, exc_off, ac_off))
+    out_p = torch.empty((rp, cap_p), dtype=torch.uint8, device=dev)
+    out_e = torch.empty((re, cape), dtype=torch.uint8, device=dev)
+    out_a = torch.empty((ra, capc), dtype=torch.float32 if planes else torch.uint8,
+                        device=dev)
+    packed, exc, ac = map(_aligned16, (packed, exc, ac))
+    _launch(
+        "dpk_rows_layout", packed.data_ptr(), packed_off.data_ptr(), rp, cap_p,
+        out_p.data_ptr(), exc.data_ptr(), exc_off.data_ptr(), re, cape,
+        out_e.data_ptr(), ac.data_ptr(), ac.shape[-1] if planes else 0,
+        ac_off.data_ptr(), ra, capc, 4 if planes else 1, out_a.data_ptr(),
+    )
+    return out_p, out_e, out_a

@@ -38,10 +38,11 @@ device encodes segment k + 1. Besides the input, the device holds at most
 two segments in flight.
 
 The reader runs three stages: prep workers re-inflate frames k + 1 and
-k + 2 (crc parse, side-stream inflation, row re-padding; PREP_AHEAD; the
-CPU device preps frame k + 1 alone) while the caller decodes frame k on
-the device; on a CUDA device a copy worker meanwhile fills the output
-with frame k - 1 (_StagedCopies). The caller copies each decoded frame on
+k + 2 (crc parse, side-stream inflation into one upload buffer; a DPK
+frame's rows are laid out on the device by kernel N; PREP_AHEAD; the CPU
+device preps frame k + 1 alone) while the caller uploads and decodes
+frame k on the device; on a CUDA device a copy worker meanwhile fills the
+output with frame k - 1 (_StagedCopies). The caller copies each decoded frame on
 a side stream into one of two pinned staging buffers, which the copy
 worker then copies into the output on FILL_THREADS threads; before a
 frame reuses a buffer the caller waits for the copy of the frame two
@@ -583,11 +584,11 @@ def decompress_stream(f: BinaryIO, timer=None,
     """Yield the reconstructed segments in order (the bounded-memory restore
     path: peak incremental memory is about one segment beside the host
     stages of the frames prepped ahead). Worker threads run the host
-    stages of the next frames (crc parse, side-stream inflation, row
-    re-padding; PREP_AHEAD of them on a CUDA device, one on the CPU
-    device) while this thread runs frame k's device stage; on a CUDA
-    device each frame's copy through pinned staging is done before its
-    segment is yielded. timer: a utils.timing.StageTimer that takes the
+    stages of the next frames (crc parse, side-stream inflation, and the
+    host-coded frames' row re-padding; PREP_AHEAD of them on a CUDA
+    device, one on the CPU device) while this thread runs frame k's
+    device stage; on a CUDA device each frame's copy through pinned
+    staging is done before its segment is yielded. timer: a utils.timing.StageTimer that takes the
     reader's spans (module docstring) and counters."""
     _read_stream_header(f)
     for n, dtype, run in _frame_stages(f, timing.resolve(timer),

@@ -16,9 +16,10 @@ environment variable, no CodecConfig field.
 A stage (`t.stage(name)`) is one of the API's: "transfer" (host-device
 copies), "device" (kernels), "zlib" (compress: section coding and container
 assembly), "rate" (rate="auto": the trial encodes that pick brsf), "host"
-(decompress: parse, inflate, re-pad) and "pipeline" (a segmented DTZS
-stream). With sync=True every stage boundary calls torch.cuda.synchronize(),
-so that a stage ending in device work is timed to its end. A span
+(decompress: parse, inflate and, but for DPK, re-pad) and "pipeline" (a
+segmented DTZS stream). With sync=True every stage boundary calls
+torch.cuda.synchronize(), so that a stage ending in device work is timed
+to its end. A span
 (`t.span(name, index)`, or `span(name)` here for code that is handed no
 timer) marks the work inside them and never synchronizes. Both add their
 wall seconds to `t.stages[name]` (spans of one name sum) and one record
@@ -33,7 +34,9 @@ copy_to_host(), a blocking to_device() or scalar(), wait()), bytes moved
 ("bytes_h2d_pageable", "bytes_h2d_pinned", "bytes_d2h_pageable",
 "bytes_d2h_pinned"), "frames" (DTZS frames written or restored),
 "frames_staged" (restored frames copied out through pinned staging, on a
-CUDA device), "retries"
+CUDA device), "rows_laid_on_device" (DPK containers whose fixed-capacity
+rows kernel N or its twin laid out from the tight streams:
+ops/dpk_fuse.dpk_rows_layout), "retries"
 (full-width re-encodes after an overflow) and "bound_shortfalls" (arrays or
 frames whose verify-repair fell short of the bound). On the CPU device the
 reads count as syncs too (the same boundaries, nothing to wait for) and no

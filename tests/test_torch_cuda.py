@@ -15,10 +15,10 @@ import torch
 pytestmark = pytest.mark.cuda
 
 TILE_N = 16384
-EC_KERNELS = {"dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand",
-              "dequant_idct"}
+EC_KERNELS = {"dct_quant_verify", "dpk_pack_compact", "dpk_rows_layout",
+              "dpk_unpack_expand", "dequant_idct"}
 QT_KERNELS = {"qtable_qmax", "dct_quant_verify_qt", "dpk_pack_compact",
-              "dpk_unpack_expand", "dequant_idct_qt"}
+              "dpk_rows_layout", "dpk_unpack_expand", "dequant_idct_qt"}
 
 
 @pytest.fixture
@@ -170,8 +170,10 @@ def test_kernels_c_d_match_plain(dev, n):
             blob = (pathlib.Path(__file__).parent / "golden" / f"{n}.z").read_bytes()
         else:
             blob = dz.compress(_signal(n, n), config=cfg, device="cpu")
+        from torch_common import host_padded_arrays
+
         header, streams, _q, _cb = ct.parse_v2(blob)
-        (width, rows, exc, dc, ac), (n_stream, _tb, cw, hcfg) = api._dpk_decode_prep(header, streams)
+        (width, rows, exc, dc, ac), (n_stream, _tb, cw, hcfg) = host_padded_arrays(header, streams)
         d_in = [torch.from_numpy(np.array(a)).to(dev) for a in (width, rows, exc)]
         dc_d = api._combine_planes(torch.from_numpy(np.array(dc)).to(dev))
         ac_d = api._combine_planes(torch.from_numpy(np.array(ac)).to(dev)).contiguous()
@@ -195,6 +197,65 @@ def test_kernels_c_d_match_plain(dev, n):
         co = qz.decode_dense(ik, dc_d, ak, nblk * 64, hcfg)
         lim = (32 * 2.0**-23 * sf_v * co.abs().amax(1).clamp_min(1.0)).repeat_interleave(64)
         assert torch.all((xk - xp).abs() <= lim[:n_stream])
+
+
+def test_kernel_n_equals_twin(dev):
+    """Kernel N against its twin, byte for byte, and both against the rows
+    the host padded before it (torch_common.host_padded_arrays), on the
+    sections of the five CESM stand-ins (1800x3600, QT at 1E-3 with verify)
+    and of one 16Mi NYX frame (baryon_density, EC); then a traced decompress
+    of one CESM field uploads the tight streams and the row offsets alone
+    (bytes_h2d_pageable: the upload buffer, the scaling factor and the
+    qtable) and lays its rows out once."""
+    import json
+    import pathlib
+
+    from torch_common import frames_of, host_padded_arrays
+
+    import dctz_tpu_torch as dz
+    from benchmark.data import grf
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.core import container as ct
+    from dctz_tpu_torch.ops import dpk_fuse as fk
+    from dctz_tpu_torch.utils import timing
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    conf = {k: json.loads((root / f"benchmark/configs/{k}.json").read_text())
+            for k in ("cesm-atm-qt", "nyx-512-ec")}
+    dpk = dict(error_bound=1e-3, container="v2", ids_codec="device", verify=True)
+    blobs = [dz.compress(grf.make_field(conf["cesm-atm-qt"], i, 2147500101, dev),
+                         config=dz.CodecConfig(mode="qt", **dpk), device="cuda")
+             for i in range(5)]
+    nyx = grf.make_field(conf["nyx-512-ec"], 0, 2147500101, dev)
+    blobs.append(frames_of(dz.compress(nyx, config=dz.CodecConfig(mode="ec", **dpk),
+                                       device="cuda"))[0])
+    del nyx
+    for blob in blobs:
+        header, streams, qtable, _cb = ct.parse_v2(blob)
+        host, up = api._dpk_decode_prep(header, streams)
+        fk.reset_launches()
+        got = api._dpk_rows_on_device(
+            [torch.from_numpy(a).to(dev) for a in host], up)
+        assert fk.LAUNCHES["dpk_rows_layout"] == 1
+        twin = api._dpk_rows_on_device([torch.from_numpy(a) for a in host], up)
+        (width, rows, exc, _dc, ac), _meta = host_padded_arrays(header, streams)
+        ac = api._combine_planes(torch.from_numpy(ac))
+        for g, t, h in zip(got[1:3] + got[4:], twin[1:3] + twin[4:], (rows, exc, ac)):
+            assert g.dtype == t.dtype and torch.equal(g.cpu().view(torch.uint8),
+                                                      t.view(torch.uint8))
+            assert torch.equal(t.view(torch.uint8), torch.as_tensor(h).view(torch.uint8))
+        assert torch.equal(got[0].cpu(), torch.from_numpy(width))
+    header, streams, qtable, _cb = ct.parse_v2(blobs[4])
+    host, up = api._dpk_decode_prep(header, streams)
+    rows, nc = up.tiles * 64, up.nc
+    assert up.n_off == 8 * (rows + 2 * nc + 3)
+    tight = rows + 4 * up.nblk + 4 * up.ac_count + up.n_exc + up.n_packed
+    assert len(host) == 1 and 0 <= host[0].nbytes - up.n_off - tight < 5 * 16
+    t = timing.StageTimer()
+    fk.reset_launches()
+    dz.decompress(blobs[4], device="cuda", timer=t)
+    assert t.counts["bytes_h2d_pageable"] == host[0].nbytes + 4 + 4 * qtable.size
+    assert t.counts["rows_laid_on_device"] == fk.LAUNCHES["dpk_rows_layout"] == 1
 
 
 def test_kernel_b_equals_l(dev):
@@ -236,7 +297,7 @@ def test_partial_last_block_decodes_in_kernel(dev):
     fk.reset_launches()
     got = dz.decompress(blob, device="cuda")
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
-        "dpk_unpack_expand": 1, "dequant_idct": 1}
+        "dpk_rows_layout": 1, "dpk_unpack_expand": 1, "dequant_idct": 1}
     ref = dz.decompress(blob, device="cpu")
     assert got.shape == ref.shape and header.num_elements % 64
     assert np.abs(got - ref).max() <= 32 * 2.0**-23 * header.scaling_factor
@@ -384,11 +445,13 @@ def test_kernel_a_qt(dev, verify, n_valid):
 
 
 def _decode_inputs(dev, blob):
+    from torch_common import host_padded_arrays
+
     from dctz_tpu_torch import api
     from dctz_tpu_torch.core import container as ct
 
     header, streams, qtable, _cb = ct.parse_v2(blob)
-    (width, rows, exc, dc, ac), (n_stream, _tb, cw, hcfg) = api._dpk_decode_prep(header, streams)
+    (width, rows, exc, dc, ac), (n_stream, _tb, cw, hcfg) = host_padded_arrays(header, streams)
     d_in = [torch.from_numpy(np.array(a)).to(dev) for a in (width, rows, exc)]
     dc_d = api._combine_planes(torch.from_numpy(np.array(dc)).to(dev))
     ac_d = api._combine_planes(torch.from_numpy(np.array(ac)).to(dev)).contiguous()
@@ -433,7 +496,7 @@ def test_kernel_d_qt_matches_plain(dev, src):
         fk.reset_launches()
         got = dz.decompress(blob, device="cuda")
         assert {k for k, v in fk.LAUNCHES.items() if v} == {
-            "dpk_unpack_expand", "dequant_idct_qt"}
+            "dpk_rows_layout", "dpk_unpack_expand", "dequant_idct_qt"}
         ref = dz.decompress(blob, device="cpu")
         assert np.abs(got - ref).max() <= lim.max().item()
 
@@ -1563,13 +1626,14 @@ F64_ROUTES = {
     "dtzs_qt": (dict(F64_DPK, mode="qt", segment_elems=2 * TILE_N), 4 * TILE_N + 1025,
                 {"chunk_compact", "chunk_expand"}),
     "dpk": (dict(F64_DPK, segment_elems=0), 4 * TILE_N,
-            {"dpk_pack_compact", "dpk_unpack_expand"}),
+            {"dpk_pack_compact", "dpk_rows_layout", "dpk_unpack_expand"}),
     "dpk_qt": (dict(F64_DPK, mode="qt", segment_elems=0), 4 * TILE_N - 5,
-               {"dpk_pack_compact", "dpk_unpack_expand"}),
+               {"dpk_pack_compact", "dpk_rows_layout", "dpk_unpack_expand"}),
     "dpk_cw64": (dict(F64_DPK, segment_elems=0), 777,
-                 {"chunk_compact_unified", "dpk_unpack_expand"}),
+                 {"chunk_compact_unified", "dpk_rows_layout", "dpk_unpack_expand"}),
     "fast": (dict(F64_DPK, segment_elems=0, internal_dtype="float32"), 4 * TILE_N + 1025,
-             {"dct_quant_verify", "dpk_pack_compact", "dpk_unpack_expand"}),
+             {"dct_quant_verify", "dpk_pack_compact", "dpk_rows_layout",
+              "dpk_unpack_expand"}),
 }
 
 
@@ -2005,7 +2069,8 @@ def test_two_gloo_ranks_on_card(dev, tmp_path):
 # ---------------------------------------------------------------------------
 
 #: the decode kernels a corrupted container must never reach: C, D, D-QT, I
-DECODE_KERNELS = ("dpk_unpack_expand", "dequant_idct", "dequant_idct_qt", "chunk_expand")
+DECODE_KERNELS = ("dpk_rows_layout", "dpk_unpack_expand", "dequant_idct", "dequant_idct_qt",
+                  "chunk_expand")
 #: flipped positions decoded on the card per container (a seeded sample)
 CARD_FLIPS = 256
 #: the robustness fixtures' configurations (tests/test_torch_robustness.py):

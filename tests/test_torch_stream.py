@@ -150,6 +150,8 @@ def test_qt_slot0_is_each_frames_last_real_block_dc():
     """Slot 0 of every frame's qtable is the DC of its last real block,
     not of a zero pad block (the tail frame holds 1025 samples, padded to
     2048); slots >= 1 are the same global table in every frame."""
+    from torch_common import host_padded_arrays
+
     from dctz_tpu_torch import api
     from dctz_tpu_torch.core import container as ct
 
@@ -157,7 +159,7 @@ def test_qt_slot0_is_each_frames_last_real_block_dc():
     tables = []
     for blob in frames:
         header, streams, qtable, _cb = ct.parse_v2(blob)
-        (_w, _r, _e, dc, _ac), _meta = api._dpk_decode_prep(header, streams)
+        (_w, _r, _e, dc, _ac), _meta = host_padded_arrays(header, streams)
         dc = api._combine_planes(torch.from_numpy(np.array(dc))).numpy()
         last = -(-header.num_elements // 64) - 1
         assert qtable[0] == dc[last] != 0.0

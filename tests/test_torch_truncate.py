@@ -52,10 +52,11 @@ def _stored_items(blob) -> list:
     out = []
     for f in frames_of(blob):
         host_arrays = api._host_stage(f)[2]
-        dc = host_arrays[1] if len(host_arrays) == 3 else host_arrays[3]
-        # (4, nblk) byte planes of a float32 section (the device
-        # reassembles them)
-        out.append(4 if dc.dtype == np.uint8 else dc.dtype.itemsize)
+        # a DPK frame's float32 DC byte planes ride in its one upload
+        # buffer (the device reassembles them); other stored DC values
+        # follow it, as the host-coded frames' follow their ids
+        dc = host_arrays[1] if len(host_arrays) > 1 else None
+        out.append(4 if dc is None else dc.dtype.itemsize)
     return out
 
 
@@ -117,8 +118,7 @@ def test_f64_full_width_own_transforms(family, mode):
     assert abs(len(port) / len(ref) - 1.0) <= 0.005
     from dctz_tpu_torch import api
 
-    dc_p, dc_r = (api._host_stage(b)[2][1 if family == "v1" else 3]
-                  for b in (port, ref))
+    dc_p, dc_r = (api._host_stage(b)[2][1] for b in (port, ref))
     scale = np.abs(x / hp.scaling_factor).max()
     assert dc_p.dtype == np.float64
     assert np.abs(dc_p - dc_r).max() <= 64 * EPS64 * scale * 8

@@ -111,6 +111,37 @@ def assert_byte_equal(port: bytes, ref: bytes, x: np.ndarray,
             assert s_p == s_r, f"section {i} differs"
 
 
+def host_padded_arrays(header, streams):
+    """A DPK container's decode inputs padded on the host, as the port's
+    host stage made them before kernel N laid the rows out on the device:
+    ((width, packed rows, exception rows, DC, AC rows), (n_stream, tile_b,
+    cw, cfg)), DC as (4, nblk) byte planes or (nblk,) of the stored dtype,
+    AC as (4, nc, capc) byte planes or (nc, capc) of the stored dtype
+    (api._dpk_host_rebuild, entropy.pad_row_prefixes)."""
+    from dctz_tpu_torch import api
+    from dctz_tpu_torch.core import entropy
+
+    (width, rows, exc_rows, dc_raw, ac_raw, n_stream, tile_b, cw, ac_counts,
+     nblk) = api._dpk_host_rebuild(header, streams)
+    cfg = api._header_config(header)
+    stored = np.dtype(np.float32)
+    if isinstance(dc_raw, tuple):
+        dc = np.stack([np.frombuffer(p, np.uint8, nblk) for p in dc_raw[1]])
+    else:
+        stored, cfg = api._stored_dtype(header, len(dc_raw), nblk, cfg)
+        dc = np.frombuffer(dc_raw, dtype=stored, count=nblk)
+    capc = api._capc_tier(int(ac_counts.max()) if ac_counts.size else 0, cw)
+    if isinstance(ac_raw, tuple):
+        pls = [np.frombuffer(p, np.uint8, header.ac_count) for p in ac_raw[1]]
+        ac = entropy.pad_row_prefixes(
+            np.concatenate(pls), np.tile(ac_counts, len(pls)), capc, np.uint8
+        ).reshape(len(pls), ac_counts.size, capc)
+    else:
+        ac = np.frombuffer(ac_raw, dtype=stored, count=header.ac_count)
+        ac = entropy.pad_row_prefixes(ac, ac_counts, capc, stored)
+    return (width, rows, exc_rows, dc, ac), (n_stream, tile_b, cw, cfg)
+
+
 def _dpk_ids(blob: bytes) -> np.ndarray:
     """The bin-id grid of a DPK container (the port's plain unpack, byte
     for byte the reference's: test_torch_dpk_decode.py)."""
@@ -121,7 +152,7 @@ def _dpk_ids(blob: bytes) -> np.ndarray:
 
     header, streams, _q, _cb = ct.parse_v2(blob)
     (width, rows, exc, *_rest), (n_stream, tile_b, cw, cfg) = (
-        api._dpk_decode_prep(header, streams))
+        host_padded_arrays(header, streams))
     nblk = -(-n_stream // cfg.block_size)
     return idpack.unpack_ids(*(torch.from_numpy(np.array(a)) for a in
                                (width, rows, exc)),
